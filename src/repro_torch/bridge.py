@@ -1,0 +1,60 @@
+"""Weights carried between the JAX package and the port, through numpy.
+
+The port keeps the JAX ``StagedLM`` pytree layout exactly — the same nested
+dict keys, the chunk list, stacked ``(length, ...)`` chunk leaves and dense
+kernels as ``(in_dim, *out_dims)`` — so a leaf maps to a tensor of the same
+shape with no transpose, and gradients map back leaf by leaf on the same
+tree paths.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .models.lm import StagedLM
+from .tree import tree_map
+
+
+def _to_tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_numpy(tree: Any, cfg, device) -> Any:
+    """JAX ``StagedLM.init`` parameters (numpy leaves) → the port's tensors on
+    ``device``, in the config's parameter dtype, requiring grad.  Raises if
+    the tree does not have the port model's structure and shapes."""
+    ref = StagedLM(cfg).init(device="meta")
+
+    def convert(a, r):
+        t = _to_tensor(a)
+        if tuple(t.shape) != tuple(r.shape):
+            raise ValueError(f"leaf of shape {tuple(t.shape)} where the port "
+                             f"model has {tuple(r.shape)}")
+        return t.to(device=device, dtype=r.dtype).requires_grad_()
+
+    def walk(node, r):
+        if isinstance(r, dict):
+            if set(node) != set(r):
+                raise ValueError(f"keys {sorted(node)} where the port model "
+                                 f"has {sorted(r)}")
+            return {k: walk(node[k], r[k]) for k in r}
+        if isinstance(r, list):
+            if len(node) != len(r):
+                raise ValueError(f"{len(node)} chunks where the port model "
+                                 f"has {len(r)}")
+            return [walk(n, x) for n, x in zip(node, r)]
+        return convert(node, r)
+
+    return walk(tree, ref)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Tensors (parameters or gradients) → float32 numpy leaves, same
+    structure."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)

@@ -1,0 +1,110 @@
+"""Rotor planning for a (model × shape) on one device, and the train step."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..core.chain import Chain
+from ..core.planner import profile_stages_analytic
+from ..models.flops import stage_flops
+from ..models.lm import StagedLM
+from ..optim.adamw import AdamWConfig, adamw_update
+from ..plan import MemoryPlan, resolve_policy
+from ..tree import tensors_of, tree_bytes
+
+
+def activation_budget_bytes(param_bytes: int, device: torch.device,
+                            slack: float = 0.9) -> float:
+    """Activation budget of one device: its memory less parameters, gradients
+    (both in the parameter dtype) and the two float32 AdamW moments, which
+    for bf16 parameters is ``param_bytes * (1 + 1 + 4)``."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    return max(total * slack - param_bytes * (1 + 1 + 4), total * 0.05)
+
+
+def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
+               peak_flops: float) -> Chain:
+    """Analytic rotor chain for (model × shape): activation and residual
+    sizes from a forward on ``meta`` tensors, times from analytic FLOPs over
+    ``peak_flops``."""
+    B, S = batch_specs["tokens"].shape
+    fwd, bwd = stage_flops(model.cfg, B, S)
+    params = model.init(device="meta")
+    return profile_stages_analytic(
+        model.stage_fns(), model.stage_params(params), batch_specs,
+        flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops)
+
+
+def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
+                  policy: Optional[str] = None, *,
+                  peak_flops: Optional[float] = None,
+                  num_slots: Optional[int] = None,
+                  impl: Optional[str] = None,
+                  device: Optional[torch.device] = None,
+                  chain: Optional[Chain] = None
+                  ) -> Tuple[Optional[MemoryPlan], Optional[Chain]]:
+    """Resolve the remat policy into a :class:`MemoryPlan` (``None`` =
+    store-all, no remat).  The chain is profiled with :func:`plan_chain`
+    unless one is given (a measured or calibrated chain); ``auto`` budgets
+    are sized from ``device``'s memory."""
+    policy = policy if policy is not None else model.cfg.remat_policy
+    if policy == "none":
+        return None, None
+    if chain is None:
+        if peak_flops is None:
+            raise ValueError(f"policy {policy!r} needs peak_flops to price "
+                             f"the stages")
+        chain = plan_chain(model, batch_specs, peak_flops)
+
+    def auto_budget() -> float:
+        if device is None or device.type != "cuda":
+            raise ValueError("an 'auto' budget needs a CUDA device")
+        return activation_budget_bytes(
+            tree_bytes(model.init(device="meta")), device)
+
+    plan = resolve_policy(policy, chain, num_slots=num_slots, impl=impl,
+                          auto_budget=auto_budget)
+    return plan, chain
+
+
+def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
+                    lr_fn: Optional[Callable[[int], float]] = None,
+                    grad_accum: int = 1):
+    """``train_step(params, opt_state, batch, step) -> metrics``: loss and
+    gradients through the plan's tree, then one AdamW step in place.
+    ``grad_accum > 1`` splits the batch along its leading axis into
+    microbatches and accumulates float32 gradients before the step."""
+
+    def train_step(params, opt_state, batch, step: int) -> dict:
+        leaves = tensors_of(params)
+        if grad_accum == 1:
+            loss = model.loss_fn(params, batch, tree=tree)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            n = batch["tokens"].shape[0]
+            if n % grad_accum:
+                raise ValueError(f"batch {n} does not split into "
+                                 f"{grad_accum} microbatches")
+            mb = n // grad_accum
+            lsum, gsum = 0.0, None
+            for i in range(grad_accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l = model.loss_fn(params, micro, tree=tree)
+                g = torch.autograd.grad(l, leaves)
+                if gsum is None:
+                    gsum = [x.float() for x in g]
+                else:
+                    for s, x in zip(gsum, g):
+                        s.add_(x.float())
+                lsum = lsum + l.detach()
+            loss = lsum / grad_accum
+            grads = [(s / grad_accum).to(p.dtype)
+                     for s, p in zip(gsum, leaves)]
+        lr = lr_fn(step) if lr_fn is not None else None
+        metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return train_step

@@ -1,0 +1,73 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Runs on one CUDA device unless ``--device cpu`` is given.  Example (the
+full-width Qwen1.5-4B cut to 8 layers, under a rotor plan solved on the CUDA
+band-min kernel)::
+
+    python -m repro_torch.launch.train --arch qwen1.5-4b \\
+        --override '{"num_layers": 8, "layer_kinds": ["dense", "dense",
+                     "dense", "dense", "dense", "dense", "dense", "dense"],
+                     "n_chunks": 8, "use_flash_attention": true}' \\
+        --global-batch 4 --seq-len 2048 --steps 3 \\
+        --policy rotor:x0.5 --solver-impl cuda --peak-flops 7e14
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Any, Dict
+
+from ..configs import get_config, smoke_config
+from ..runtime.train_loop import TrainLoopConfig, run_training
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Parse ``argv``, train, print a summary; returns the run's result
+    (see :func:`repro_torch.runtime.train_loop.run_training`)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--policy", default=None,
+                    help="remat policy: none|full|periodic:K|rotor:BUDGET "
+                         "(BUDGET: bytes like 800M, x0.6 of the store-all "
+                         "peak, or auto)")
+    ap.add_argument("--num-slots", type=int, default=None,
+                    help="DP discretization slots (default: plan default)")
+    ap.add_argument("--solver-impl", default=None,
+                    choices=("banded", "plain", "cuda"),
+                    help="DP fill: numpy, plain PyTorch on the CPU, or the "
+                         "CUDA band-min kernel (default: banded)")
+    ap.add_argument("--peak-flops", type=float, default=None,
+                    help="FLOP/s that price the chain's stages (needed by "
+                         "every policy but none)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--override", default=None, help="JSON config overrides")
+    args = ap.parse_args(argv)
+
+    ov = {k: tuple(v) if isinstance(v, list) else v  # e.g. layer_kinds
+          for k, v in json.loads(args.override or "{}").items()}
+    cfg = (smoke_config(args.arch, **ov) if args.smoke
+           else get_config(args.arch, **ov))
+    print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
+          f"chunks={len(cfg.chunks)} device={args.device}", flush=True)
+    loop = TrainLoopConfig(steps=args.steps, global_batch=args.global_batch,
+                           seq_len=args.seq_len, lr=args.lr,
+                           policy=args.policy, num_slots=args.num_slots,
+                           solver_impl=args.solver_impl,
+                           peak_flops=args.peak_flops, log_every=1)
+    out = run_training(cfg, loop, device=args.device,
+                       log_fn=lambda s: print(s, flush=True))
+    print(f"[train] done: {len(out['losses'])} steps, "
+          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+          f"{out['tokens_per_s']:.0f} tok/s", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,42 @@
+"""Analytic per-stage FLOP counts (the dense part of ``repro.models.flops``)
+— the rotor planner's ``u_f``/``u_b`` without running anything.
+
+Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
+at full (non-causal) cost.  Backward ≈ 2× forward, +1× when the per-layer
+remat replays the forward; loss stage backward = 2× its forward.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+
+def _attn_flops(cfg, B: int, S: int) -> float:
+    d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    proj = 2 * B * S * d * (H * Dh + 2 * K * Dh) + 2 * B * S * H * Dh * d
+    attn = 2 * B * S * S * H * Dh * 2
+    return proj + attn
+
+
+def _mlp_flops(cfg, B: int, S: int, d_ff: int) -> float:
+    mult = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    return 2 * B * S * cfg.d_model * d_ff * mult
+
+
+def _layer_flops(cfg, kind: str, B: int, S: int) -> float:
+    if kind != "dense" or cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"FLOPs of {kind!r}/{cfg.attention_kind!r} layers are not ported")
+    return _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
+
+
+def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:
+    """(fwd, bwd) FLOPs per rotor stage: [embed] + chunks + [head+loss]."""
+    fwd: List[float] = [2 * B * S * cfg.d_model]  # lookup/scale — negligible
+    for kind, start, length in cfg.chunks:
+        fwd.append(length * _layer_flops(cfg, kind, B, S))
+    fwd.append(2 * B * S * cfg.d_model * cfg.vocab_size)
+    # backward ≈ 2× fwd; +1× when inner per-layer remat replays the forward
+    inner = 1.0 if cfg.scan_layer_remat == "full" else 0.0
+    bwd = [(2.0 + inner) * f for f in fwd[:-1]] + [2.0 * fwd[-1]]
+    return fwd, bwd

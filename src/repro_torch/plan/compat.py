@@ -1,0 +1,77 @@
+"""Policy strings → :class:`~repro_torch.plan.plan.MemoryPlan`: the one place
+the policy grammar is parsed.
+
+=====================  ====================================================
+policy                 plan
+=====================  ====================================================
+``none``               store all (plain autograd)
+``full``               checkpoint every stage
+``periodic:K``         K equal segments (``checkpoint_sequential``)
+``rotor:B``            the optimal persistent schedule within budget ``B``
+                       (bytes, ``x0.6`` of the store-all peak, or ``auto``;
+                       an infeasible ``auto`` budget falls back to the
+                       min-memory schedule, any other raises)
+=====================  ====================================================
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+from ..core.chain import Chain
+from ..core.rematerialize import full_remat_tree, periodic_tree, sequential_tree
+from ..core.solver import solve_min_memory, solve_optimal, tree_to_schedule
+from .plan import DEFAULT_NUM_SLOTS, Budget, InfeasiblePlanError, MemoryPlan
+
+
+def resolve_policy(policy: str, chain: Optional[Chain],
+                   length: Optional[int] = None,
+                   num_slots: Optional[int] = None,
+                   impl: Optional[str] = None,
+                   auto_budget: Union[float, Callable[[], float], None] = None
+                   ) -> MemoryPlan:
+    """Resolve a policy string on a profiled chain (structural policies also
+    take a bare ``length``)."""
+    if policy in ("none", "full") or policy.startswith("periodic:"):
+        if chain is not None:
+            length = chain.length
+        if length is None:
+            raise ValueError("need chain or length")
+        if policy == "none":
+            tree = sequential_tree(length)
+        elif policy == "full":
+            tree = full_remat_tree(length)
+        else:
+            spec = policy.split(":", 1)[1]
+            try:
+                k = int(spec)
+            except ValueError:
+                raise ValueError(f"periodic policy needs an integer segment "
+                                 f"count, got {spec!r}") from None
+            if k < 1:
+                raise ValueError("periodic policy needs segments >= 1")
+            tree = periodic_tree(length, k)
+        return MemoryPlan.build(policy, chain, tree,
+                                tree_to_schedule(tree, length))
+    if not policy.startswith("rotor:"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    if chain is None:
+        raise ValueError(f"{policy!r} needs a profiled chain")
+    num_slots = DEFAULT_NUM_SLOTS if num_slots is None else num_slots
+    spec = Budget.parse(policy.split(":", 1)[1])
+    budget = spec.resolve(chain, auto_budget=auto_budget)
+    sol = solve_optimal(chain, budget, num_slots=num_slots, impl=impl)
+    if not sol.feasible and spec.kind == "auto":
+        sol = solve_min_memory(chain, num_slots=num_slots, impl=impl)
+        if sol.feasible:
+            print(f"[plan] budget {budget / 2**30:.2f} GiB infeasible; "
+                  f"min-memory schedule needs "
+                  f"{sol.mem_limit / 2**30:.2f} GiB of activations",
+                  flush=True)
+            budget = sol.mem_limit
+    if not sol.feasible:
+        raise InfeasiblePlanError(
+            f"{policy}: no feasible persistent schedule within "
+            f"{budget:.3e} bytes for this chain")
+    return MemoryPlan.build(policy, chain, sol.tree, sol.schedule, sol,
+                            budget)

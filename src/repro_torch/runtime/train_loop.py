@@ -1,0 +1,105 @@
+"""Training loop on one device: rotor-planned remat, AdamW, deterministic
+synthetic data, and per-step time and memory."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..configs.shapes import ShapeSpec, input_specs
+from ..core.rematerialize import count_checkpoint_scopes
+from ..data.pipeline import SyntheticLMData
+from ..device import resolve_device
+from ..launch.steps import make_train_step, plan_training
+from ..models.lm import StagedLM
+from ..optim.adamw import AdamWConfig, adamw_init
+from ..optim.schedules import linear_warmup_cosine
+from ..tree import tensors_of, tree_bytes
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    seed: int = 0
+    lr: float = 3e-4
+    warmup: int = 10
+    log_every: int = 10
+    policy: Optional[str] = None        # remat policy override
+    num_slots: Optional[int] = None     # DP discretization (None = default)
+    solver_impl: Optional[str] = None   # DP fill (dp_kernels.KNOWN_IMPLS)
+    grad_accum: int = 1                 # microbatch accumulation factor
+    peak_flops: Optional[float] = None  # prices the chain's stage times
+
+
+def run_training(cfg, loop: TrainLoopConfig, device=None,
+                 params: Optional[Dict[str, Any]] = None,
+                 log_fn: Callable[[str], None] = print) -> Dict[str, Any]:
+    """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
+    otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
+    seeded initialization.  Returns the losses, the plan and chain, the final
+    state, and per-step records ``{"loss", "seconds", "tokens_per_s",
+    "activation_peak_bytes"}`` (the last is ``None`` off CUDA).  A loss that
+    is not finite raises ``FloatingPointError``."""
+    dev = resolve_device(device)
+    model = StagedLM(cfg)
+    shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
+    plan, chain = plan_training(model, input_specs(cfg, shape), loop.policy,
+                                peak_flops=loop.peak_flops,
+                                num_slots=loop.num_slots,
+                                impl=loop.solver_impl, device=dev)
+    tree = plan.tree if plan is not None else None
+    if plan is not None:
+        log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
+               f"over {model.n_stages()} stages\n{plan.summary()}")
+    if params is None:
+        params = model.init(loop.seed, dev)
+    leaves = tensors_of(params)
+    opt_state = adamw_init(leaves)
+    opt_cfg = AdamWConfig(lr=loop.lr)
+    step_fn = make_train_step(model, opt_cfg, tree,
+                              linear_warmup_cosine(loop.lr, loop.warmup,
+                                                   loop.steps),
+                              grad_accum=loop.grad_accum)
+    data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
+                           seed=loop.seed)
+    # parameters + gradients + the two float32 moments
+    static_bytes = 2 * tree_bytes(params) + tree_bytes(opt_state["mu"]) * 2
+    cuda = dev.type == "cuda"
+    tokens = loop.global_batch * loop.seq_len
+    losses, records = [], []
+    t_begin = time.perf_counter()
+    for step in range(loop.steps):
+        batch = data.device_batch(step, dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics = step_fn(params, opt_state, batch, step)
+        loss = float(metrics["loss"])  # waits for the step
+        if cuda:
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - static_bytes
+                if cuda else None)
+        if not math.isfinite(loss):
+            raise FloatingPointError(f"step {step}: loss {loss}")
+        losses.append(loss)
+        records.append({"loss": loss, "seconds": seconds,
+                        "tokens_per_s": tokens / seconds,
+                        "activation_peak_bytes": peak})
+        if step % loop.log_every == 0:
+            log_fn(f"step {step:5d} loss {loss:.4f} "
+                   f"gnorm {float(metrics['grad_norm']):.3f} "
+                   f"{seconds:.3f}s {tokens / seconds:.0f} tok/s"
+                   + (f" act-peak {peak / 2**30:.3f} GiB" if cuda else ""))
+    wall = time.perf_counter() - t_begin
+    return {"losses": losses, "steps": records, "params": params,
+            "opt_state": opt_state, "plan": plan, "chain": chain,
+            "wall_s": wall,
+            "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9)}

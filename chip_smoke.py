@@ -6,21 +6,40 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
 1. environment: versions, the card, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels (one ``nvcc`` per source, in parallel) and the
    Triton RMSNorm;
-3. kernel vs plain: each kernel against its plain PyTorch version on the same
-   CUDA inputs — the DP band-min bit-equal (also a whole DP table against the
-   numpy fill), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps
-   of the float32 plain version on the same inputs) and 1e-4 in f32, RMSNorm
-   within one bf16 ulp and rtol 1e-6 in f32;
-4. timing: median of 20 CUDA-event runs of each kernel, its plain version and
+3. host link: the median of 20 CUDA-event pinned device-to-host and
+   host-to-device copies of one boundary activation (B·S·d_model bf16); the
+   slower direction prices the host tier of the offload path;
+4. kernel vs plain: each kernel against its plain PyTorch version on the same
+   CUDA inputs — the DP kernels bit-equal (K1 and K5a on random planes; K1,
+   K5a, K2 and K5b also as whole DP tables against the numpy banded fills, on
+   random integer chains and on the card chain, with and without the host
+   tier), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps of the
+   float32 plain version on the same inputs) and 1e-4 in f32, RMSNorm within
+   one bf16 ulp and rtol 1e-6 in f32;
+5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function, at the main path's shapes,
-   beside the least time the card could take (bytes or operations);
-5. main path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
+   beside the least time the card could take (bytes or operations); and the
+   host-clock time of whole fills, per-band (``cuda``) against fused
+   (``cuda_fused``), host staging included;
+6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
    width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
    plan solved on the CUDA band-min kernel at the midpoint budget between the
-   min-memory and store-all peaks; kernel launch counts are read from zero;
-6. same results: loss and global gradient norm under the rotor plan and
-   under store-all agree within 1e-2 on one batch;
-7. one JSON line describing every kernel, then the final JSON result line.
+   min-memory and store-all peaks; then loss and global gradient norm under
+   the rotor plan and under store-all agree within 1e-2 on one batch;
+7. offload path: the same model, batch and steps under
+   ``optimal_offload:BUDGET:BW`` solved on the fused fill (K5b), with BW the
+   measured link and BUDGET between the three-tier and the two-tier memory
+   floors; the eager walker copies activations to pinned host memory and
+   back; per step the host buffer must end empty; then the offload schedule
+   and store-all agree within 1e-2 on one batch.  The two-tier plan of the
+   same budget trains 3 steps first, as the yardstick;
+8. planning with the other fill: the offload policy on the per-band kernel
+   (K5a) and the rotor policy on the fused fill (K2) give the schedules the
+   two training runs used;
+9. one JSON line describing every kernel, then the final JSON result line.
+
+Each path (6, 7, 8) runs with the launch counts set to 0 just before it and
+read just after; a kernel launched on none of them fails the run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -106,7 +125,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec, input_specs
     from repro_torch.core import dp_kernels
-    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.core.chain import Chain, HostTransferModel
+    from repro_torch.core.solver import solve_min_memory, solve_optimal
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import _build
     from repro_torch.kernels.dp_fill import ops as dp_ops
@@ -116,8 +136,11 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.launch import train
-    from repro_torch.launch.steps import plan_chain
+    from repro_torch.launch.steps import plan_chain, plan_training
     from repro_torch.models.lm import StagedLM
+    from repro_torch.offload.executor import execute_offload_schedule
+    from repro_torch.offload.solver import (solve_min_device_memory,
+                                            solve_optimal_offload)
     from repro_torch.optim.adamw import global_norm
     from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
     from repro_torch.tree import tensors_of
@@ -156,17 +179,37 @@ def main() -> int:
     say(f"[build] triton rms_norm compiled and ran in "
         f"{time.perf_counter() - t0:.2f}s")
 
-    # -- 3. kernel vs plain -----------------------------------------------------
+    # -- 3. host link ----------------------------------------------------------
     cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
                               for k, v in OVERRIDES.items()})
     model = StagedLM(cfg)
     specs = input_specs(cfg, ShapeSpec("train", "train", SEQ, BATCH))
+    act = randn(BATCH, SEQ, cfg.d_model, dtype=torch.bfloat16)
+    pinned = torch.empty(act.shape, dtype=act.dtype, pin_memory=True)
+    nbytes_act = act.numel() * act.element_size()
+    d2h_ms = median_ms(lambda: pinned.copy_(act, non_blocking=True))
+    h2d_ms = median_ms(lambda: act.copy_(pinned, non_blocking=True))
+    d2h, h2d = nbytes_act / (d2h_ms * 1e-3), nbytes_act / (h2d_ms * 1e-3)
+    bw = min(d2h, h2d)
+    del act, pinned
+    say(f"[link] pinned copies of {nbytes_act} B (median of 20): device->host "
+        f"{d2h_ms:.4f} ms = {d2h:.6e} B/s, host->device {h2d_ms:.4f} ms = "
+        f"{h2d:.6e} B/s; the host tier is priced at {bw:.6e} B/s on {card}")
+    host = HostTransferModel(bandwidth_d2h=bw)
 
+    # -- 4. kernel vs plain -----------------------------------------------------
     def planes(d, ns, w):
         r = torch.rand((d, ns, w), generator=gen, device=dev) * 8
         r[torch.rand((d, ns, w), generator=gen, device=dev) < 0.3] = math.inf
         lm = torch.rand((d, ns, w), generator=gen, device=dev) * 8 - 4
         return r, lm
+
+    def offload_planes(d, ns, w):
+        r, lmb = planes(d, ns, w)
+        r3, lme = planes(d, ns, w)
+        lmb3 = torch.rand((d, ns, w), generator=gen, device=dev) * 8 - 4
+        toff = torch.rand((ns, 1), generator=gen, device=dev) * 6
+        return r, r3, lmb, lme, lmb3, toff
 
     dp_err = 0.0
     for shape in ((3, 5, 17), (9, 2, 501)):
@@ -179,6 +222,53 @@ def main() -> int:
         dp_err = max(dp_err, float(diff.max()))
     say("[check] dp_band_min_two_tier == plain (torch.equal) at (3,5,17), "
         "(9,2,501)")
+    for shape in ((3, 5, 17), (9, 2, 501)):
+        ops5 = offload_planes(*shape)
+        for a, b in zip(dp_ops.band_min_offload(*ops5),
+                        dp_ref.band_min_offload(*ops5)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"dp band-min offload differs from "
+                                     f"plain at {shape}")
+    say("[check] dp_band_min_offload == plain (torch.equal, all three "
+        "minima) at (3,5,17), (9,2,501)")
+
+    def fills_agree(dch, S, what):
+        """K1/K2 tables (two-tier) and K5a/K5b tables (offload) against the
+        numpy banded fills of the same discretized chain."""
+        want = dp_kernels.fill_tables(dch, S, impl="banded").data
+        for impl in ("cuda", "cuda_fused"):
+            if not np.array_equal(dp_kernels.fill_tables(dch, S,
+                                                         impl=impl).data,
+                                  want):
+                raise AssertionError(f"{what}: two-tier {impl} table "
+                                     f"differs from the banded fill")
+        tb, te = dp_kernels.fill_tables_offload(dch, S, impl="banded")
+        for impl in ("cuda", "cuda_fused"):
+            gb, ge = dp_kernels.fill_tables_offload(dch, S, impl=impl)
+            if not (np.array_equal(gb.data, tb.data)
+                    and np.array_equal(ge.data, te.data)):
+                raise AssertionError(f"{what}: offload {impl} tables "
+                                     f"differ from the banded fill")
+
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        L = int(rng.integers(1, 13))
+        wa = rng.integers(1, 4, L + 1)
+        if i == 5:
+            wa[L // 2] = 10_000        # wider than the budget: C3 gathers
+        ch = Chain.make(uf=rng.integers(1, 5, L + 1),
+                        ub=rng.integers(1, 5, L + 1), wa=wa,
+                        wabar=rng.integers(1, 6, L + 1),
+                        of=rng.integers(0, 2, L + 1),
+                        ob=rng.integers(0, 2, L + 1),
+                        host=None if i == 4 else HostTransferModel(
+                            bandwidth_d2h=float(rng.choice([0.5, 1.0, 4.0])),
+                            latency=float(rng.choice([0.0, 0.25]))))
+        m = math.ceil(ch.store_all_peak() * 0.6) if i < 5 else 24
+        fills_agree(ch.discretize(m, int(m)), int(m), f"random chain {i}")
+    say("[check] K1/K2 and K5a/K5b fills == banded (np.array_equal) on 6 "
+        "random integer chains (L 1..12, one without a host tier, one with "
+        "an activation wider than the budget)")
 
     n = 8192
     a, b = randn(n, n, dtype=torch.bfloat16), randn(n, n, dtype=torch.bfloat16)
@@ -187,16 +277,50 @@ def main() -> int:
     say(f"[env] measured bf16 matmul rate {peak_flops:.6e} FLOP/s "
         f"({n}^3) on {card}")
     chain = plan_chain(model, specs, peak_flops)
+    hchain = chain.with_host(host)
     low = solve_min_memory(chain).mem_limit
     high = chain.store_all_peak()
     budget = (low + high) / 2
-    dchain = chain.discretize(budget, DEFAULT_NUM_SLOTS)
-    tab_cuda = dp_kernels.fill_tables(dchain, DEFAULT_NUM_SLOTS, impl="cuda")
-    tab_np = dp_kernels.fill_tables(dchain, DEFAULT_NUM_SLOTS, impl="banded")
+    low3 = solve_min_device_memory(hchain).mem_limit
+    budget_off = (low3 + low) / 2
+    S500 = DEFAULT_NUM_SLOTS
+    dchain = chain.discretize(budget, S500)
+    tab_cuda = dp_kernels.fill_tables(dchain, S500, impl="cuda")
+    tab_np = dp_kernels.fill_tables(dchain, S500, impl="banded")
     if not np.array_equal(tab_cuda.data, tab_np.data):
         raise AssertionError("CUDA DP table differs from the banded fill")
     say(f"[check] DP table of the card chain (L={chain.length}, "
-        f"S={DEFAULT_NUM_SLOTS}, budget {budget:.6e} B): cuda == banded")
+        f"S={S500}, budget {budget:.6e} B): cuda == banded")
+    for b_, what in ((budget, "midpoint"), (budget_off, "offload")):
+        fills_agree(chain.discretize(b_, S500), S500,
+                    f"card chain, {what} budget, no host tier")
+        fills_agree(hchain.discretize(b_, S500), S500,
+                    f"card chain, {what} budget, host tier")
+    say(f"[check] card chain (L={chain.length}, S={S500}) at budgets "
+        f"{budget:.6e} and {budget_off:.6e} B, host tier on and off: "
+        f"cuda and cuda_fused tables == banded (np.array_equal)")
+
+    hdchain = hchain.discretize(budget_off, S500)
+    fused = dp_ops.FusedOperands(hdchain, S500, True)
+    toff_np, tpre_np = dp_kernels.offload_vectors(hdchain, fused.v)
+    fkw = dict(L=fused.L, W=fused.W, allow_fall=True)
+    t0 = fused.initial(fused.base_table(), dev)
+    ints2 = fused.tensors(dev)
+    ints5 = fused.tensors(dev, toff_np, tpre_np)
+    if not torch.equal(dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
+                       dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)):
+        raise AssertionError("K2 differs from its plain version")
+    for host_on in (True, False):
+        got = dp_ops.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
+                                        **fkw)
+        want = dp_ref.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
+                                         **fkw)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"K5b (host_on={host_on}) differs from "
+                                 f"its plain version")
+    say(f"[check] K2 and K5b (host tier on and off) == their plain "
+        f"versions on the same CUDA tensors (torch.equal), card chain "
+        f"({fused.ncells}, {fused.W}) tables")
 
     def check_close(name, got, want, tol):
         err = (got.float() - want.float()).abs()
@@ -251,14 +375,13 @@ def main() -> int:
     say(f"[check] rms_norm ({rows}, {cfg.d_model}): bf16 within 1 ulp "
         f"(max |err| {rms_err:.3e}), f32 rtol 1e-6")
 
-    # -- 4. timing at the main path's shapes -------------------------------------
+    # -- 5. timing at the main path's shapes -------------------------------------
     kernels = []
-    caps = dp_kernels.saturation_caps(dp_kernels._views(dchain),
-                                      DEFAULT_NUM_SLOTS)
+    caps = dp_kernels.saturation_caps(dp_kernels._views(dchain), S500)
     ms = plain_ms = lib_ms = nbytes = ops = 0.0
     for d in range(1, chain.length + 1):
         ns = chain.length + 1 - d
-        w = dp_kernels.band_width(caps, d, DEFAULT_NUM_SLOTS)
+        w = dp_kernels.band_width(caps, d, S500)
         r, lm = planes(d, ns, w)
         ms += median_ms(lambda: dp_ops.band_min_two_tier(r, lm))
         plain_ms += median_ms(lambda: dp_ref.band_min_two_tier(r, lm))
@@ -274,6 +397,80 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "max_abs_err": dp_err,
         "shape": f"one fill: {chain.length} bands of (d, L+1-d, W)"})
+
+    # K5a: the bands of the card chain's offload fill at the offload budget
+    caps_off = dp_kernels.saturation_caps(dp_kernels._views(hdchain), S500)
+    ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    for d in range(1, chain.length + 1):
+        ns = chain.length + 1 - d
+        w = dp_kernels.band_width(caps_off, d, S500)
+        r, r3, lmb, lme, lmb3, toff = offload_planes(d, ns, w)
+        ops5 = (r, r3, lmb, lme, lmb3, toff)
+        ms += median_ms(lambda: dp_ops.band_min_offload(*ops5))
+        plain_ms += median_ms(lambda: dp_ref.band_min_offload(*ops5))
+        lib_ms += median_ms(lambda: (
+            torch.amin(r + lmb, 0), torch.amin(r + lme, 0),
+            torch.amin(torch.maximum(r3, toff) + lmb3, 0)))
+        nbytes += 4 * (5 * d * ns * w + ns + 3 * ns * w)
+        ops += 7 * d * ns * w
+    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+    kernels.append({
+        "name": dp_ops.NAME_OFFLOAD, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
+        "replaces": "src/repro/kernels/dp_fill/kernel.py:142",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "max_abs_err": 0.0,
+        "shape": f"one offload fill: {chain.length} bands of five "
+                 f"(d, L+1-d, W) planes"})
+
+    # K2 and K5b: one whole fill of the card chain, staged tensors in place
+    bands = [(d, chain.length + 1 - d) for d in range(1, chain.length + 1)]
+    cells_w = fused.ncells * fused.W
+    n_ops2 = sum(ns * fused.W * (2 * d + 5) for d, ns in bands)
+    n_ops5 = sum(ns * fused.W * (8 * d + 10) for d, ns in bands)
+    for name, src, line, nb, op, run, plain in (
+            (dp_ops.NAME_FUSED, "dp_fused_fill.cu", 285, 4 * 2 * cells_w,
+             n_ops2, lambda: dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
+             lambda: dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)),
+            (dp_ops.NAME_FUSED_OFFLOAD, "dp_fused_fill.cu", 439,
+             4 * 4 * cells_w, n_ops5,
+             lambda: dp_ops.fused_fill_offload(t0, t0, *ints5, host_on=True,
+                                               **fkw),
+             lambda: dp_ref.fused_fill_offload(t0, t0, *ints5, host_on=True,
+                                               **fkw))):
+        b_ms, b_by = bound(nb, op, F32_FLOPS)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/dp_fill/kernel.py:{line}",
+            "ms": median_ms(run), "plain_ms": median_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call runs a DP recursion
+            "library_ms": None, "max_abs_err": 0.0,
+            "shape": f"one fill: ({fused.ncells}, {fused.W}) f32 tables, "
+                     f"{chain.length} bands + the base companions, one "
+                     f"C call of {chain.length + 1} launches"})
+
+    def wall_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            t_0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_0) * 1e3)
+        return statistics.median(times)
+
+    fills = {}
+    for impl in ("banded", "cuda", "cuda_fused"):
+        fills[("two-tier", impl)] = wall_ms(
+            lambda: dp_kernels.fill_tables(dchain, S500, impl=impl))
+        fills[("offload", impl)] = wall_ms(
+            lambda: dp_kernels.fill_tables_offload(hdchain, S500, impl=impl))
+    for (kind, impl), t in fills.items():
+        say(f"[time] whole {kind} fill of the card chain (L={chain.length}, "
+            f"S={S500}), impl {impl}, host staging included: {t:.4f} ms "
+            f"(host clock, median of 5) on {card}")
 
     B, S, H, K, D = BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (randn(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))
@@ -315,56 +512,168 @@ def main() -> int:
             f"({kern['bound_by']}) on {card}")
     torch.cuda.empty_cache()
 
-    # -- 5. the main path -------------------------------------------------------
-    say(f"[main] chain L={chain.length}: min-memory {low:.6e} B, store-all "
+    # -- 6. rotor path ------------------------------------------------------------
+    say(f"[rotor] chain L={chain.length}: min-memory {low:.6e} B, store-all "
         f"{high:.6e} B, budget (midpoint) {int(budget)} B")
+    path_launches = {}
     counters.reset()
     out = train.main([
         "--arch", ARCH, "--override", json.dumps(OVERRIDES),
         "--global-batch", str(BATCH), "--seq-len", str(SEQ),
         "--steps", str(STEPS), "--policy", f"rotor:{int(budget)}",
         "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
-    launches = counters.snapshot()
+    path_launches["rotor"] = counters.snapshot()
     plan = out["plan"]
-    say(f"[main] schedule ops {json.dumps(plan.op_counts())}, predicted "
+    say(f"[rotor] schedule ops {json.dumps(plan.op_counts())}, predicted "
         f"{plan.expected_time:.6e} s/step, predicted activation peak "
         f"{plan.peak_device_mem:.6e} B")
     for i, rec in enumerate(out["steps"]):
-        say(f"[main] step {i}: loss {rec['loss']:.6f}, "
+        say(f"[rotor] step {i}: loss {rec['loss']:.6f}, "
             f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
             f"measured activation peak {rec['activation_peak_bytes']} B "
             f"on {card}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"non-finite loss: {out['losses']}")
-    for kern in kernels:
-        kern["launches"] = launches.get(kern["name"], 0)
-        if kern["launches"] == 0:
-            raise AssertionError(f"{kern['name']} never launched on the "
-                                 f"main path")
-    say(f"[main] launches: {launches[dp_ops.NAME]} dp band-min per plan, "
+    launches = path_launches["rotor"]
+    say(f"[rotor] launches: {launches[dp_ops.NAME]} dp band-min per plan, "
         f"{launches[flash_ops.NAME] / STEPS:g} flash attention and "
         f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
 
-    # -- 6. same results: rotor plan vs store-all ------------------------------
-    params = out["params"]
-    leaves = tensors_of(params)
     batch = SyntheticLMData(cfg, BATCH, SEQ, seed=0).device_batch(0, dev)
-    res = {}
-    for name, tree in (("rotor", plan.tree), ("none", None)):
-        loss = model.loss_fn(params, batch, tree=tree)
-        grads = torch.autograd.grad(loss, leaves)
-        res[name] = (loss.item(), global_norm(grads).item())
-        del loss, grads
-    for i, what in enumerate(("loss", "grad norm")):
-        a_, b_ = res["rotor"][i], res["none"][i]
-        if not abs(a_ - b_) <= 1e-2 * abs(b_):
-            raise AssertionError(f"{what}: rotor {a_} vs store-all {b_}")
-    say(f"[same] rotor vs store-all: loss {res['rotor'][0]:.6f} / "
-        f"{res['none'][0]:.6f}, grad norm {res['rotor'][1]:.6f} / "
-        f"{res['none'][1]:.6f} (rel tol 1e-2)")
 
-    # -- 7. result lines ----------------------------------------------------------
+    def same_results(tag, params, grads_of):
+        """Loss and global gradient norm of ``grads_of`` against store-all
+        on one batch, within 1e-2."""
+        leaves = tensors_of(params)
+        res = {}
+        for name, fn in ((tag, grads_of), ("none", None)):
+            if fn is None:
+                loss = model.loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, leaves)
+            else:
+                loss, grads = fn(params)
+            res[name] = (loss.item(), global_norm(grads).item())
+            del loss, grads
+        for i, what in enumerate(("loss", "grad norm")):
+            a_, b_ = res[tag][i], res["none"][i]
+            if not abs(a_ - b_) <= 1e-2 * abs(b_):
+                raise AssertionError(f"{what}: {tag} {a_} vs store-all {b_}")
+        say(f"[same] {tag} vs store-all: loss {res[tag][0]:.6f} / "
+            f"{res['none'][0]:.6f}, grad norm {res[tag][1]:.6f} / "
+            f"{res['none'][1]:.6f} (rel tol 1e-2)")
+
+    def rotor_grads(params):
+        loss = model.loss_fn(params, batch, tree=plan.tree)
+        return loss, torch.autograd.grad(loss, tensors_of(params))
+
+    same_results("rotor", out["params"], rotor_grads)
+    rotor_schedule = plan.schedule.ops
+    del out, plan
+    torch.cuda.empty_cache()
+
+    # -- 7. offload path ----------------------------------------------------------
+    two = solve_optimal(chain, budget_off)
+    plan3 = solve_optimal_offload(hchain, budget_off)
+    at_mid = solve_optimal_offload(hchain, budget)
+    say(f"[offload] floors: three-tier {low3:.6e} B, two-tier {low:.6e} B; "
+        f"budget {int(budget_off)} B (between them); at slice 1's midpoint "
+        f"{int(budget)} B the three-tier plan has "
+        f"{at_mid.schedule.count('Foff')} offloads")
+    if not plan3.feasible or plan3.schedule.count("Foff") < 1:
+        raise AssertionError("the three-tier plan at the offload budget "
+                             "offloads nothing")
+    if two.feasible:
+        # the floors coincide up to the slot rounding: two tiers still fit,
+        # so hold the three-tier plan to being no slower instead
+        say(f"[offload] the floors coincide up to discretization: two-tier "
+            f"is feasible at this budget too (predicted "
+            f"{two.expected_time:.6e} s against three-tier "
+            f"{plan3.expected_time:.6e} s)")
+        if plan3.expected_time > two.expected_time:
+            raise AssertionError("three-tier plan slower than two-tier")
+    else:
+        say("[offload] two-tier is infeasible at this budget")
+    # the two-tier plan at the same budget, for the end-to-end comparison
+    # (a yardstick run: its launches are not counted on any path)
+    out = train.main([
+        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
+        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+        "--steps", str(STEPS), "--policy", f"rotor:{int(budget_off)}",
+        "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
+    for i, rec in enumerate(out["steps"]):
+        say(f"[offload] two-tier yardstick rotor:{int(budget_off)} step "
+            f"{i}: {rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
+            f"measured activation peak {rec['activation_peak_bytes']} B on "
+            f"{card}")
+    say(f"[offload] two-tier yardstick ops "
+        f"{json.dumps(out['plan'].op_counts())}")
+    del out
+    torch.cuda.empty_cache()
+    policy_off = f"optimal_offload:{int(budget_off)}:{bw!r}"
+    counters.reset()
+    out = train.main([
+        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
+        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+        "--steps", str(STEPS), "--policy", policy_off,
+        "--solver-impl", "cuda_fused", "--peak-flops", repr(peak_flops)])
+    path_launches["offload"] = counters.snapshot()
+    plan = out["plan"]
+    if not plan.uses_offload:
+        raise AssertionError("the offload run's plan has no Foff")
+    say(f"[offload] policy {policy_off}: schedule ops "
+        f"{json.dumps(plan.op_counts())}, predicted "
+        f"{plan.expected_time:.6e} s/step, device peak "
+        f"{plan.peak_device_mem:.6e} B, host peak {plan.peak_host_mem:.6e} "
+        f"B, transfer stall {plan.transfer_stall:.6e} s")
+    for i, rec in enumerate(out["steps"]):
+        say(f"[offload] step {i}: loss {rec['loss']:.6f}, "
+            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
+            f"measured activation peak {rec['activation_peak_bytes']} B, "
+            f"host buffer peak {rec['host_peak_bytes']} B, prefetch wait "
+            f"{rec['prefetch_wait_s']:.6e} s on {card}")
+        if rec["host_bytes_after"] != 0:
+            raise AssertionError(f"step {i}: {rec['host_bytes_after']} B "
+                                 f"left in the host buffer")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss: {out['losses']}")
+    launches = path_launches["offload"]
+    say(f"[offload] launches: {launches.get(dp_ops.NAME_FUSED_OFFLOAD, 0)} "
+        f"fused offload fill per plan, "
+        f"{launches[flash_ops.NAME] / STEPS:g} flash attention and "
+        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
+
+    def offload_grads(params):
+        loss, stage_grads, _ = execute_offload_schedule(
+            plan.schedule, model.stage_fns(), model.stage_params(params),
+            batch)
+        return loss, tensors_of(stage_grads)
+
+    same_results("offload", out["params"], offload_grads)
+    offload_schedule = plan.schedule.ops
+    del out, plan
+    torch.cuda.empty_cache()
+
+    # -- 8. planning with the other fill ----------------------------------------
+    counters.reset()
+    for pol, impl, want in ((policy_off, "cuda", offload_schedule),
+                            (f"rotor:{int(budget)}", "cuda_fused",
+                             rotor_schedule)):
+        p, _ = plan_training(model, specs, pol, peak_flops=peak_flops,
+                             impl=impl, device=dev)
+        if p.schedule.ops != want:
+            raise AssertionError(f"{pol} on {impl}: another schedule than "
+                                 f"the training run's")
+        say(f"[plan] {pol} on --solver-impl {impl}: the training run's "
+            f"schedule ({len(want)} ops)")
+    path_launches["planning"] = counters.snapshot()
+
+    # -- 9. result lines ----------------------------------------------------------
     for kern in kernels:
+        per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
+        kern["launches"] = sum(per_path.values())
+        say(f"[launches] {kern['name']}: {json.dumps(per_path)}")
+        if kern["launches"] == 0:
+            raise AssertionError(f"{kern['name']} never launched on a path")
         del kern["shape"]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

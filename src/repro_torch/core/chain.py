@@ -1,5 +1,6 @@
 """Heterogeneous-chain cost model (paper §3) — a copy of ``repro.core.chain``
-without the parts the two-tier training path does not use.
+without the parts the training paths do not use (no default host link: the
+port prices the host tier only with a link rate the caller measured).
 
 A chain has L stages, numbered 1..L, plus a virtual loss stage L+1 (the paper's
 ``F^{L+1}/B^{L+1}``).  Stage ``l`` carries:
@@ -35,10 +36,16 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class HostTransferModel:
-    """Cost model of the device↔host link (the third storage tier, which the
-    two-tier training path leaves off: ``Chain.host is None``).  Bandwidths
-    are in size units per second; a zero ``bandwidth_d2h`` disables the
-    tier."""
+    """Cost model of the device↔host link (the third storage tier).
+
+    Transfers are asynchronous copies on an uncontended link: a transfer
+    launched at time ``t`` lands at ``t + latency + bytes/bw`` whatever the
+    compute stream does, so offloads overlap compute and only stall the
+    timeline when a ``Prefetch`` reaches the data before its copy has landed.
+    Bandwidths are in size units per second (bytes/s for a planner chain);
+    ``bandwidth_h2d`` defaults to the device→host value.  A zero
+    ``bandwidth_d2h`` disables the tier; ``Chain.host is None`` is the
+    two-tier model."""
 
     bandwidth_d2h: float
     bandwidth_h2d: float | None = None
@@ -54,6 +61,19 @@ class HostTransferModel:
     def enabled(self) -> bool:
         return self.bandwidth_d2h > 0
 
+    def offload_time(self, size: float) -> float:
+        """Seconds for a device→host copy of ``size`` units (inf if disabled)."""
+        if not self.enabled:
+            return float("inf")
+        return self.latency + float(size) / self.bandwidth_d2h
+
+    def prefetch_time(self, size: float) -> float:
+        """Seconds for a host→device copy of ``size`` units (inf if disabled)."""
+        bw = self.bandwidth_h2d if self.bandwidth_h2d else self.bandwidth_d2h
+        if not bw or bw <= 0:
+            return float("inf")
+        return self.latency + float(size) / bw
+
 
 @dataclasses.dataclass(frozen=True)
 class Chain:
@@ -61,6 +81,8 @@ class Chain:
 
     ``length`` is the number of real stages L; internal arrays have L+1
     entries, the last describing the loss stage F^{L+1}/B^{L+1}.
+    ``host`` (optional) prices the third storage tier; ``None`` means the
+    two-tier model.
     """
 
     uf: np.ndarray      # (L+1,) forward times, stage 1..L+1
@@ -117,6 +139,22 @@ class Chain:
             ob=arr(ob, z),
             host=host,
         )
+
+    def with_host(self, host: "HostTransferModel | None") -> "Chain":
+        """A copy of this chain priced with the given host-transfer model."""
+        return dataclasses.replace(self, host=host)
+
+    def offload_times(self) -> np.ndarray:
+        """Per-activation device→host copy time: entry ``i`` is ``a^i``."""
+        if self.host is None:
+            return np.full(len(self.wa), np.inf)
+        return np.array([self.host.offload_time(w) for w in self.wa])
+
+    def prefetch_times(self) -> np.ndarray:
+        """Per-activation host→device copy time: entry ``i`` is ``a^i``."""
+        if self.host is None:
+            return np.full(len(self.wa), np.inf)
+        return np.array([self.host.prefetch_time(w) for w in self.wa])
 
     def discretize(self, mem_limit: float, num_slots: int) -> "DiscreteChain":
         """Discretize memory sizes into ``num_slots`` slots of size

@@ -1,5 +1,6 @@
-"""Banded, split-batched DP fill for the two-tier checkpointing solver — the
-two-tier part of ``repro.core.dp_kernels``.
+"""Banded, split-batched DP fills for the two-tier and the offload
+(three-tier) checkpointing solvers — a copy of ``repro.core.dp_kernels``
+without the thread pool, the unpruned mode and the seed reference tables.
 
 - Tables are stored upper-triangular only (``1 <= s <= t <= L+1``), one
   contiguous float32 block per sub-chain length ``d = t - s``; no
@@ -10,6 +11,9 @@ two-tier part of ``repro.core.dp_kernels``.
   candidate to one add: ``R[s',t][m] = C[s',t][m - WA[s'-1]] + CUM[s'-1]``
   (the memory shift pre-applied, ``+inf`` below it) and
   ``Lm[s,t][m] = C[s,t][m] - CUM[s-1]`` — the forward-stream cost telescopes.
+- The offload C3 plane folds its stall into a max
+  (``X + max(T_off - X, 0) = max(X, T_off)``) and reads the same ``R`` at a
+  parent-side column offset, so it too is one add per split.
 - Saturated m-column pruning (:func:`saturation_caps`): each band is filled
   only up to a frontier column computable before any fill runs, and the last
   computed column is broadcast across the rest — bit-identical tables.
@@ -18,11 +22,12 @@ Exactness: every quantity of an f32-exact chain (integer stage costs) is
 exactly representable in float32, and min does not round, so every
 implementation of the band minimum gives bit-identical tables.
 
-Three implementations share the recursion (``KNOWN_IMPLS``): ``"banded"``
+Four implementations share the recursion (``KNOWN_IMPLS``): ``"banded"``
 (numpy), ``"plain"`` (the host band loop of :mod:`repro_torch.kernels.dp_fill`
-with the PyTorch band minimum on CPU tensors) and ``"cuda"`` (the same loop
-with the band minimum on the hand-written Hopper kernel, one launch per
-band).
+with the PyTorch band minimum on CPU tensors), ``"cuda"`` (the same loop
+with the band minimum on the hand-written Hopper kernels, one launch per
+band) and ``"cuda_fused"`` (the whole recursion on the card: the tables and
+their companions stay in device memory from the first band to the last).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ _F32 = np.float32
 _INF32 = np.float32(np.inf)
 
 #: The DP fill implementations every solver entry point accepts.
-KNOWN_IMPLS = ("banded", "plain", "cuda")
+KNOWN_IMPLS = ("banded", "plain", "cuda", "cuda_fused")
 
 #: ``band_min(R, Lm, off, d, ns, W, out)`` writes the split minimum of band
 #: ``d`` into ``out`` (``(ns, W)``, preset to ``+inf``).
@@ -193,6 +198,14 @@ class _FillCtx:
         # clipped to [0, S+1]; 0 reads +inf, S+1 reads m = S)
         self.idx_wb = np.clip(ms[None, :] - WB[:, None] + 1,
                               0, S + 1).astype(np.int32)
+        # raw (unclipped) m - WA[p], for the offload branch whose shift also
+        # depends on the group input; clamped low so int32 cannot overflow
+        # after adding WA[s-1] back (values below -2^30 are equally infeasible)
+        self.raw_wa = np.clip(ms[None, :] - WA[:, None],
+                              -(1 << 30), S).astype(np.int32)
+        # flat-storage row strides: is2[i] = i * (S+2)
+        self.is2 = (np.arange(L + 1, dtype=np.int64) * self.S2
+                    ).astype(np.int32)
         # Activation sizes come quantized into few distinct slot counts, so
         # per-row shifted reads are done as one contiguous block copy per
         # distinct WA value.  groups[w] lists the p's (= band row indices of
@@ -200,6 +213,10 @@ class _FillCtx:
         wvals = np.minimum(WA, S + 1)
         self.groups = [(int(w), np.nonzero(wvals == w)[0])
                        for w in np.unique(wvals)]
+        self.wcap = int(wvals.max(initial=0))
+        # True when no activation exceeds the whole budget — the precondition
+        # for the slice-based (gather-free) C3 plane
+        self.wa_uncapped = bool(WA.max(initial=0) <= S + 1)
         self.UF32 = v["UF"].astype(COST_DTYPE)
         self.UB32 = v["UB"].astype(COST_DTYPE)
         # CUM32[i] = float32 cumulative forward time up to stage i, baked
@@ -224,11 +241,12 @@ class _FillCtx:
                             vals[:, None], _INF32)
 
 
-def _build_r_band(ctx: _FillCtx, R: np.ndarray, tab: BandedTable, d: int
-                  ) -> None:
+def _build_r_band(ctx: _FillCtx, R: np.ndarray, tab: BandedTable, d: int,
+                  clamp_tail: bool = False) -> None:
     """Publish band ``d`` of the pre-shifted right-child companion table:
     ``R[s', t][m'] = C[s', t][m' - WA[s'-1]] + CUM32[s'-1]`` (``+inf`` below
-    the shift), one contiguous copy per distinct WA value."""
+    the shift and, with ``clamp_tail``, ``C[·][S]`` above it: the offload
+    DP's memory-gain reads), one contiguous copy per distinct WA value."""
     ns = ctx.L + 1 - d
     width = R.shape[1]
     S1 = ctx.S1
@@ -238,10 +256,12 @@ def _build_r_band(ctx: _FillCtx, R: np.ndarray, tab: BandedTable, d: int
         rows = ps[:np.searchsorted(ps, ns)]
         if len(rows) == 0:
             continue
+        cum = ctx.CUM32[rows][:, None]
         ncopy = min(S1, width - w)
         if ncopy > 0:
-            Rband[rows, w:w + ncopy] = (Cband[rows, 1:1 + ncopy]
-                                        + ctx.CUM32[rows][:, None])
+            Rband[rows, w:w + ncopy] = Cband[rows, 1:1 + ncopy] + cum
+        if clamp_tail and width - (w + S1) > 0:
+            Rband[rows, w + S1:] = Cband[rows, S1:S1 + 1] + cum
 
 
 def _build_lm_band(ctx: _FillCtx, Lm: np.ndarray, tab: BandedTable, d: int
@@ -331,16 +351,223 @@ def fill_tables(dchain, S: int, impl: str = "banded",
     """Two-tier band fill behind the ``impl`` seam: ``"banded"`` runs the
     numpy split loop; ``"plain"`` and ``"cuda"`` run the host band loop of
     :mod:`repro_torch.kernels.dp_fill` with the band minimum on CPU tensors
-    (plain PyTorch) or CUDA tensors (the Hopper kernel).  All produce the
-    same :class:`BandedTable`, so reconstruction is impl-agnostic."""
+    (plain PyTorch) or CUDA tensors (the Hopper kernel); ``"cuda_fused"``
+    runs the whole recursion on the card.  All produce the same
+    :class:`BandedTable`, so reconstruction is impl-agnostic."""
     if impl == "banded":
         return fill_two_tier(dchain, S, allow_fall=allow_fall, v=v)
-    if impl in ("plain", "cuda"):
+    if impl in ("plain", "cuda", "cuda_fused"):
         from ..kernels.dp_fill import ops as _dp_fill_ops
+        if impl == "cuda_fused":
+            return _dp_fill_ops.fill_two_tier_fused(
+                dchain, S, allow_fall=allow_fall, v=v, device="cuda")
         return _dp_fill_ops.fill_two_tier(
             dchain, S, allow_fall=allow_fall, v=v,
             device="cuda" if impl == "cuda" else "cpu")
     raise ValueError(f"fill_tables cannot run impl {impl!r}; "
+                     f"expected one of {KNOWN_IMPLS}")
+
+
+# ---------------------------------------------------------------------------
+# Offload (three-tier) fill — the C3 branch is one more candidate plane
+# ---------------------------------------------------------------------------
+
+class OffloadSplits:
+    """The split planes of one band of the offload fill, as views into the
+    companion tables: what a band-min-offload callback reduces.  Split ``j``
+    is the split point ``sp = s + 1 + j``."""
+
+    def __init__(self, ctx: _FillCtx, R, Lmb, Lme, Lmb3, flat_b, off,
+                 d: int, W: int, slice_c3: bool, toffP: np.ndarray):
+        self.ctx, self.R, self.Lmb, self.Lme, self.Lmb3 = ctx, R, Lmb, Lme, Lmb3
+        self.flat_b, self.off, self.d, self.W = flat_b, off, d, W
+        self.ns = ns = ctx.L + 1 - d
+        self.slice_c3 = slice_c3
+        #: ``(ns, 1)`` CUM-shifted offload times ``T_off(a^{s-1}) + CUM[s-1]``
+        self.toff = toffP[:ns, None]
+        if Lmb3 is not None:
+            self.wacol = ctx.WA[:ns].astype(np.int32)[:, None]
+            self.par_groups = [(w, ps[:np.searchsorted(ps, ns)])
+                               for w, ps in ctx.groups]
+
+    def _base(self, j: int) -> int:
+        return int(self.off[self.d - 1 - j]) + 1 + j
+
+    def _lo(self, j: int) -> int:
+        return int(self.off[j])
+
+    def right(self, j: int) -> np.ndarray:
+        """Pre-shifted right child ``R`` (C1, both input states)."""
+        b = self._base(j)
+        return self.R[b:b + self.ns, :self.W]
+
+    def left_b(self, j: int) -> np.ndarray:
+        lo = self._lo(j)
+        return self.Lmb[lo:lo + self.ns, :self.W]
+
+    def left_e(self, j: int) -> np.ndarray:
+        lo = self._lo(j)
+        return self.Lme[lo:lo + self.ns, :self.W]
+
+    def left_b3(self, j: int) -> np.ndarray:
+        """Bare left child with the prefetch charge pre-added (C3)."""
+        lo = self._lo(j)
+        return self.Lmb3[lo:lo + self.ns, :self.W]
+
+    def right3(self, j: int, out: np.ndarray) -> np.ndarray:
+        """The C3 right plane ``X`` before the stall max: the right child read
+        at the parent-side column offset ``WA[s-1]`` (the offloaded input's
+        slots are reclaimed).  A slice of ``R`` when every activation fits
+        the budget, else a gather from the bare table."""
+        ctx, ns, W = self.ctx, self.ns, self.W
+        base = self._base(j)
+        if self.slice_c3:
+            Rblk = self.R[base:base + ns]
+            for w0, rows in self.par_groups:
+                if len(rows):
+                    out[rows] = Rblk[rows, w0:w0 + W]
+            return out
+        ifi = np.add(ctx.raw_wa[1 + j:1 + j + ns, :W], self.wacol)
+        np.clip(ifi, -1, ctx.S, out=ifi)
+        ifi += 1
+        ifi += ctx.is2[:ns, None]
+        np.take(self.flat_b[base * ctx.S2:], ifi, out=out)
+        out += ctx.CUM32[1 + j:1 + j + ns, None]
+        return out
+
+
+#: ``band_min_offload(splits, resb, rese, c3)`` min-accumulates the split
+#: minima of one band into ``resb``/``rese`` (C1, input bare / embedded) and
+#: ``c3`` (the C3 plane; ``None`` without a host tier), all preset to +inf.
+BandMinOffload = Callable[[OffloadSplits, np.ndarray, np.ndarray,
+                           Optional[np.ndarray]], None]
+
+
+def _numpy_band_min_offload(sp: OffloadSplits, resb: np.ndarray,
+                            rese: np.ndarray, c3: Optional[np.ndarray]
+                            ) -> None:
+    """The offload split loop in numpy: three accumulators per pass."""
+    tmp = np.empty((sp.ns, sp.W), dtype=COST_DTYPE)
+    tmp3 = np.empty((sp.ns, sp.W), dtype=COST_DTYPE)
+    for j in range(sp.d):
+        r = sp.right(j)
+        # C1 keeps the parent's input-state bit in the left child; the right
+        # child is always bare (C_b)
+        np.add(r, sp.left_b(j), out=tmp)
+        np.minimum(resb, tmp, out=resb)
+        np.add(r, sp.left_e(j), out=tmp)
+        np.minimum(rese, tmp, out=rese)
+        if c3 is None:
+            continue
+        sp.right3(j, tmp3)
+        np.maximum(tmp3, sp.toff, out=tmp3)
+        tmp3 += sp.left_b3(j)                   # C3 left is bare
+        np.minimum(c3, tmp3, out=c3)
+
+
+def offload_vectors(dchain, v: dict) -> Tuple[np.ndarray, np.ndarray]:
+    """``(toffP, tpre32)``: the CUM-shifted float32 offload times
+    ``T_off(a^i) + CUM[i]`` and the float32 prefetch times, ``i = 0..L``."""
+    L = dchain.length
+    toffP = (dchain.chain.offload_times()
+             + np.asarray(v["CUM_UF"][:L + 1])).astype(COST_DTYPE)
+    return toffP, dchain.chain.prefetch_times().astype(COST_DTYPE)
+
+
+def fill_offload(dchain, S: int, allow_fall: bool = True,
+                 v: Optional[dict] = None,
+                 band_min: BandMinOffload = _numpy_band_min_offload
+                 ) -> Tuple[BandedTable, BandedTable]:
+    """Banded fill of the offload-aware DP: returns ``(Cb, Ce)`` — input bare
+    (all three branches) vs input embedded in an ``ā`` (two-tier branches).
+    The split minima of each band go to ``band_min`` (numpy by default;
+    :mod:`repro_torch.kernels.dp_fill` passes the PyTorch/CUDA one)."""
+    if v is None:
+        v = _views(dchain)
+    L = dchain.length
+    ctx = _FillCtx(v, L, S)
+    tb, te = BandedTable(L, S), BandedTable(L, S)
+    ctx.base_case(tb)
+    ctx.base_case(te)
+    caps = saturation_caps(v, S, allow_fall)
+    host = dchain.chain.host
+    host_on = host is not None and host.enabled
+    toffP, tpre32 = offload_vectors(dchain, v)
+    S1 = ctx.S1
+    off = tb.off
+    # pre-shifted right-child companion of C_b (right children are always
+    # bare) and left-child companions of both tables.  The C3 plane reads R
+    # at a parent-side column offset WA[s-1], so R's width is padded by wcap
+    # and the tail clamps to C[·][S] (the memory-gain semantics); that slice
+    # needs every WA <= S+1, else C3 gathers from C_b instead.
+    slice_c3 = host_on and ctx.wa_uncapped
+    ncells = int(off[-1])
+    R = np.full((ncells, S1 + (ctx.wcap if slice_c3 else 0)),
+                INFEASIBLE, dtype=COST_DTYPE)
+    Lmb = np.empty((ncells, S1), dtype=COST_DTYPE)
+    Lme = np.empty((ncells, S1), dtype=COST_DTYPE)
+    # C3 left-child companion with the prefetch charge pre-added:
+    # Lmb3[s, t][m] = (C_b[s, t][m] - CUM32[s-1]) + T_pre(a^{s-1})
+    Lmb3 = np.empty((ncells, S1), dtype=COST_DTYPE) if host_on else None
+
+    def publish(d: int) -> None:
+        _build_r_band(ctx, R, tb, d, clamp_tail=slice_c3)
+        _build_lm_band(ctx, Lmb, tb, d)
+        _build_lm_band(ctx, Lme, te, d)
+        if host_on:
+            ns_, lo = L + 1 - d, int(off[d])
+            np.add(Lmb[lo:lo + ns_], tpre32[:ns_, None],
+                   out=Lmb3[lo:lo + ns_])
+
+    publish(0)
+    flat_b = tb.data.reshape(-1)
+    for d in range(1, L + 1):
+        ns = L + 1 - d
+        W = band_width(caps, d, S)
+        ma, mn = ctx.thresholds(d)
+        resb_full = tb.band(d)[:, 1:]
+        rese_full = te.band(d)[:, 1:]
+        resb = resb_full[:, :W]
+        rese = rese_full[:, :W]
+        c3 = np.full((ns, W), _INF32, dtype=COST_DTYPE) if host_on else None
+        band_min(OffloadSplits(ctx, R, Lmb, Lme, Lmb3, flat_b, off, d, W,
+                               slice_c3, toffP), resb, rese, c3)
+        infeas = ctx.ms[None, :W] < mn[:, None]
+        resb[infeas] = _INF32
+        rese[infeas] = _INF32
+        if allow_fall:
+            c2 = np.empty((ns, W), dtype=COST_DTYPE)
+            _fall_plane(ctx, te, d, ns, ma, c2)         # C2 child is embedded
+            np.minimum(resb, c2, out=resb)
+            np.minimum(rese, c2, out=rese)
+        if host_on:
+            c3[infeas] = _INF32
+            np.minimum(resb, c3, out=resb)
+        if W <= S:
+            resb_full[:, W:] = resb_full[:, W - 1:W]   # saturated tail
+            rese_full[:, W:] = rese_full[:, W - 1:W]
+        publish(d)
+    return tb, te
+
+
+def fill_tables_offload(dchain, S: int, impl: str = "banded",
+                        allow_fall: bool = True, v: Optional[dict] = None
+                        ) -> Tuple[BandedTable, BandedTable]:
+    """Offload (three-tier) band fill behind the same ``impl`` seam as
+    :func:`fill_tables`: ``"banded"`` numpy, ``"plain"``/``"cuda"`` the host
+    band loop with the three-accumulator band minimum on CPU or CUDA
+    tensors, ``"cuda_fused"`` the whole recursion on the card."""
+    if impl == "banded":
+        return fill_offload(dchain, S, allow_fall=allow_fall, v=v)
+    if impl in ("plain", "cuda", "cuda_fused"):
+        from ..kernels.dp_fill import ops as _dp_fill_ops
+        if impl == "cuda_fused":
+            return _dp_fill_ops.fill_offload_fused(
+                dchain, S, allow_fall=allow_fall, v=v, device="cuda")
+        return _dp_fill_ops.fill_offload(
+            dchain, S, allow_fall=allow_fall, v=v,
+            device="cuda" if impl == "cuda" else "cpu")
+    raise ValueError(f"fill_tables_offload cannot run impl {impl!r}; "
                      f"expected one of {KNOWN_IMPLS}")
 
 
@@ -354,8 +581,8 @@ def _lookup(tab: BandedTable, s: int, t: int, m_shifted: int) -> np.float32:
     return tab.row(s, t)[min(m_shifted, tab.S)]
 
 
-def _c1_candidates(v: dict, tab: BandedTable, s: int, t: int, m: int
-                   ) -> np.ndarray:
+def _c1_candidates(v: dict, right_tab: BandedTable, left_tab: BandedTable,
+                   s: int, t: int, m: int) -> np.ndarray:
     """C1 candidate values for every split, in the exact float32 operation
     order the banded fill used: the forward-stream cost telescopes as
     ``(C_right[m - w] + CUM32[sp-1]) + (C_left[m] - CUM32[s-1])``."""
@@ -364,17 +591,17 @@ def _c1_candidates(v: dict, tab: BandedTable, s: int, t: int, m: int
     right = np.empty(n, dtype=COST_DTYPE)
     left = np.empty(n, dtype=COST_DTYPE)
     for k, sp in enumerate(sps):
-        right[k] = _lookup(tab, sp, t, m - int(v["WA"][sp - 1]))
-        left[k] = tab.row(s, sp - 1)[m]
+        right[k] = _lookup(right_tab, sp, t, m - int(v["WA"][sp - 1]))
+        left[k] = left_tab.row(s, sp - 1)[m]
     cum32 = v["CUM_UF"].astype(COST_DTYPE)
     return (right + cum32[sps - 1]) + (left - cum32[s - 1])
 
 
-def _c2_value(v: dict, tab: BandedTable, s: int, t: int, m: int
+def _c2_value(v: dict, child_tab: BandedTable, s: int, t: int, m: int
               ) -> np.float32:
     if m < _m_all(v, s, t):
         return _INF32
-    val = _lookup(tab, s + 1, t, m - int(v["WABAR"][s]))
+    val = _lookup(child_tab, s + 1, t, m - int(v["WABAR"][s]))
     return (val + _F32(v["UF"][s])) + _F32(v["UB"][s])
 
 
@@ -384,7 +611,7 @@ def choose_two_tier(v: dict, tab: BandedTable, s: int, t: int, m: int,
     with choice 0 = infeasible, 1 = Ck, 2 = All (ties go to Ck)."""
     if s == t:
         return (2, 0) if np.isfinite(tab.row(s, s)[m]) else (0, 0)
-    cand = _c1_candidates(v, tab, s, t, m)
+    cand = _c1_candidates(v, tab, tab, s, t, m)
     if m < _m_none(v, s, t):
         cand[:] = _INF32
     k = int(np.argmin(cand))
@@ -394,6 +621,53 @@ def choose_two_tier(v: dict, tab: BandedTable, s: int, t: int, m: int,
         c2 = _c2_value(v, tab, s, t, m)
         if c2 < best or (not np.isfinite(best) and np.isfinite(c2)):
             choice, sp, best = 2, 0, c2
+    if not np.isfinite(best):
+        return 0, 0
+    return choice, sp
+
+
+def choose_offload(v: dict, tb: BandedTable, te: BandedTable,
+                   toffP: np.ndarray, tpre32: np.ndarray,
+                   s: int, t: int, m: int, bare: bool,
+                   allow_fall: bool = True) -> Tuple[int, int]:
+    """Branch decision for the offload DP at one cell: choice 0 = infeasible,
+    1 = Ck, 2 = All, 3 = Offload (ties: Ck before All before Offload).
+    ``toffP``/``tpre32`` are the fill's :func:`offload_vectors`."""
+    tab = tb if bare else te
+    if s == t:
+        return (2, 0) if np.isfinite(tab.row(s, s)[m]) else (0, 0)
+    m_none = _m_none(v, s, t)
+    cand = _c1_candidates(v, tb, tab, s, t, m)
+    if m < m_none:
+        cand[:] = _INF32
+    k = int(np.argmin(cand))
+    best = cand[k]
+    choice, sp = (1, s + 1 + k) if np.isfinite(best) else (0, 0)
+    if allow_fall:
+        c2 = _c2_value(v, te, s, t, m)
+        if c2 < best or (not np.isfinite(best) and np.isfinite(c2)):
+            choice, sp, best = 2, 0, c2
+    if bare and np.isfinite(toffP[s - 1]):
+        sps = np.arange(s + 1, t + 1)
+        n = len(sps)
+        hidden = np.empty(n, dtype=COST_DTYPE)   # CUM-shifted hidden work
+        left = np.empty(n, dtype=COST_DTYPE)
+        w0 = int(v["WA"][s - 1])
+        cum32 = v["CUM_UF"].astype(COST_DTYPE)
+        for kk, spp in enumerate(sps):
+            hidden[kk] = (_lookup(tb, spp, t, m - int(v["WA"][spp - 1]) + w0)
+                          + cum32[spp - 1])
+            left[kk] = tb.row(s, spp - 1)[m]
+        # X + max(T_off - X, 0) = max(X, T_off), in the CUM-shifted domain;
+        # the prefetch charge rides on the left-child companion (Lmb3)
+        cand3 = (np.maximum(hidden, toffP[s - 1])
+                 + ((left - cum32[s - 1]) + tpre32[s - 1]))
+        if m < m_none:
+            cand3[:] = _INF32
+        k3 = int(np.argmin(cand3))
+        if cand3[k3] < best or (not np.isfinite(best)
+                                and np.isfinite(cand3[k3])):
+            choice, sp, best = 3, s + 1 + k3, cand3[k3]
     if not np.isfinite(best):
         return 0, 0
     return choice, sp

@@ -1,0 +1,53 @@
+"""Paper-faithful eager executor (the port of ``repro.core.executor``): runs
+a schedule's op sequence literally.  The op walker itself is
+:func:`repro_torch.offload.executor.execute_offload_schedule`, whose op set
+is a superset of Table 1's (it adds ``Foff``/``Prefetch``); this module keeps
+the two-tier entry point and the plain-autograd oracle."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Sequence, Tuple
+
+import torch
+
+from ..tree import tensors_of, with_tensors
+from .planner import _fresh_input
+from .schedule import Schedule
+
+
+def execute_schedule(schedule: Schedule, stages: Sequence[Callable],
+                     params: Sequence[Any], x: Any,
+                     loss_cotangent: Any = None,
+                     track_live_bytes: bool = False):
+    """Run forward and backward per ``schedule``; returns ``(loss_output,
+    param_grads, input_grad)`` (and the peak of the saved set in bytes with
+    ``track_live_bytes``) — see ``execute_offload_schedule``."""
+    from ..offload.executor import execute_offload_schedule
+    return execute_offload_schedule(
+        schedule, stages, params, x, loss_cotangent=loss_cotangent,
+        track_live_bytes=track_live_bytes)
+
+
+def reference_grads(stages: Sequence[Callable], params: Sequence[Any], x: Any
+                    ) -> Tuple[Any, List[Any], Any]:
+    """Plain autograd over the composed chain — the correctness oracle.
+    Returns ``(output, per-stage parameter gradients, input gradient)``
+    shaped as :func:`execute_schedule` shapes them."""
+    inp = _fresh_input(x)
+    with torch.enable_grad():
+        out = inp
+        for fn, p in zip(stages, params):
+            out = fn(p, out)
+    ins = [t for t in tensors_of(inp) if t.is_floating_point()]
+    ps = [tensors_of(p) for p in params]
+    flat = [t for group in ps for t in group]
+    got = torch.autograd.grad(out, ins + flat, torch.ones_like(out),
+                              allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g
+           for t, g in zip(ins + flat, got)]
+    grads, k = [], len(ins)
+    for p, group in zip(params, ps):
+        grads.append(with_tensors(p, got[k:k + len(group)]))
+        k += len(group)
+    return out.detach(), grads, with_tensors(x, got[:len(ins)],
+                                             floating_only=True)

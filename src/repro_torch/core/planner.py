@@ -10,12 +10,12 @@ card, a measured one): the port carries no device constant.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..tree import tensors_of, tree_bytes
-from .chain import Chain
+from .chain import Chain, HostTransferModel
 
 
 def _base(t: torch.Tensor) -> torch.Tensor:
@@ -63,10 +63,13 @@ def residual_bytes(fn: Callable, p: Any, a: Any) -> Tuple[Any, int]:
 def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
                             x: Any, *, flops_fwd: Sequence[float],
                             flops_bwd: Sequence[float],
-                            peak_flops: float) -> Chain:
+                            peak_flops: float,
+                            host: Optional[HostTransferModel] = None
+                            ) -> Chain:
     """Build the chain cost model from a forward on ``meta`` tensors:
     ``params`` and ``x`` should live on the meta device (parameters with
-    ``requires_grad``).  ``uf``/``ub`` are ``flops / peak_flops`` seconds."""
+    ``requires_grad``).  ``uf``/``ub`` are ``flops / peak_flops`` seconds;
+    ``host`` prices the host tier (a measured link, or ``None``)."""
     if peak_flops <= 0:
         raise ValueError("peak_flops must be positive")
     n = len(stages)
@@ -80,4 +83,4 @@ def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
         a = out
     return Chain.make(uf=[f / peak_flops for f in flops_fwd],
                       ub=[f / peak_flops for f in flops_bwd],
-                      wa=wa, wabar=wabar)
+                      wa=wa, wabar=wabar, host=host)

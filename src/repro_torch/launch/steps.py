@@ -1,4 +1,6 @@
-"""Rotor planning for a (model × shape) on one device, and the train step."""
+"""Planning for a (model × shape) on one device, and the train steps: the
+nested-checkpoint step of a two-tier plan and the eager step of an offload
+plan."""
 
 from __future__ import annotations
 
@@ -6,10 +8,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..core.chain import Chain
+from ..core.chain import Chain, HostTransferModel
 from ..core.planner import profile_stages_analytic
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
+from ..offload.executor import execute_offload_schedule
+from ..offload.host_buffer import HostBuffer
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..plan import MemoryPlan, resolve_policy
 from ..tree import tensors_of, tree_bytes
@@ -25,16 +29,17 @@ def activation_budget_bytes(param_bytes: int, device: torch.device,
 
 
 def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
-               peak_flops: float) -> Chain:
+               peak_flops: float,
+               host: Optional[HostTransferModel] = None) -> Chain:
     """Analytic rotor chain for (model × shape): activation and residual
     sizes from a forward on ``meta`` tensors, times from analytic FLOPs over
-    ``peak_flops``."""
+    ``peak_flops``, the host tier priced by ``host`` (a measured link)."""
     B, S = batch_specs["tokens"].shape
     fwd, bwd = stage_flops(model.cfg, B, S)
     params = model.init(device="meta")
     return profile_stages_analytic(
         model.stage_fns(), model.stage_params(params), batch_specs,
-        flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops)
+        flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops, host=host)
 
 
 def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
@@ -43,12 +48,14 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                   num_slots: Optional[int] = None,
                   impl: Optional[str] = None,
                   device: Optional[torch.device] = None,
-                  chain: Optional[Chain] = None
+                  chain: Optional[Chain] = None,
+                  host: Optional[HostTransferModel] = None
                   ) -> Tuple[Optional[MemoryPlan], Optional[Chain]]:
     """Resolve the remat policy into a :class:`MemoryPlan` (``None`` =
     store-all, no remat).  The chain is profiled with :func:`plan_chain`
-    unless one is given (a measured or calibrated chain); ``auto`` budgets
-    are sized from ``device``'s memory."""
+    (priced with ``host``) unless one is given (a measured or calibrated
+    chain); an ``optimal_offload:B:BW`` policy prices the host tier with its
+    own ``BW``.  ``auto`` budgets are sized from ``device``'s memory."""
     policy = policy if policy is not None else model.cfg.remat_policy
     if policy == "none":
         return None, None
@@ -56,7 +63,7 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
         if peak_flops is None:
             raise ValueError(f"policy {policy!r} needs peak_flops to price "
                              f"the stages")
-        chain = plan_chain(model, batch_specs, peak_flops)
+        chain = plan_chain(model, batch_specs, peak_flops, host=host)
 
     def auto_budget() -> float:
         if device is None or device.type != "cuda":
@@ -66,7 +73,7 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
 
     plan = resolve_policy(policy, chain, num_slots=num_slots, impl=impl,
                           auto_budget=auto_budget)
-    return plan, chain
+    return plan, plan.chain
 
 
 def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
@@ -105,6 +112,33 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         metrics["loss"] = loss.detach()
+        return metrics
+
+    return train_step
+
+
+def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
+                      lr_fn: Optional[Callable[[int], float]] = None):
+    """``train_step(params, opt_state, batch, step) -> metrics`` for a
+    three-tier (host-offload) schedule: gradients come from the eager op
+    walker — real copies to host memory and back — then one AdamW step in
+    place.  The metrics add the step's ``host_peak_bytes``, the host bytes
+    still parked after it (``host_bytes_after``, 0 for a sound schedule) and
+    ``prefetch_wait_s``."""
+    stage_fns = model.stage_fns()
+
+    def train_step(params, opt_state, batch, step: int) -> dict:
+        leaves = tensors_of(params)
+        hb, stats = HostBuffer(), {}
+        loss, stage_grads, _ = execute_offload_schedule(
+            schedule, stage_fns, model.stage_params(params), batch,
+            host_buffer=hb, stats=stats)
+        lr = lr_fn(step) if lr_fn is not None else None
+        metrics = adamw_update(opt_cfg, tensors_of(stage_grads), opt_state,
+                               leaves, lr)
+        metrics.update(loss=loss.detach(), host_peak_bytes=hb.peak_bytes,
+                       host_bytes_after=hb.bytes_in_use,
+                       prefetch_wait_s=stats["prefetch_wait_s"])
         return metrics
 
     return train_step

@@ -10,6 +10,10 @@ band-min kernel)::
                      "n_chunks": 8, "use_flash_attention": true}' \\
         --global-batch 4 --seq-len 2048 --steps 3 \\
         --policy rotor:x0.5 --solver-impl cuda --peak-flops 7e14
+
+``--policy optimal_offload:BUDGET:BW`` plans three tiers (device, host,
+recompute) with a host link of ``BW`` bytes/s (measure it on the card) and
+trains on the eager offload walker when the plan offloads anything.
 """
 
 from __future__ import annotations
@@ -34,15 +38,17 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--policy", default=None,
-                    help="remat policy: none|full|periodic:K|rotor:BUDGET "
-                         "(BUDGET: bytes like 800M, x0.6 of the store-all "
-                         "peak, or auto)")
+                    help="remat policy: none|full|periodic:K|rotor:BUDGET|"
+                         "optimal_offload:BUDGET:BW (BUDGET: bytes like "
+                         "800M, x0.6 of the store-all peak, or auto; BW: the "
+                         "measured host link in bytes/s, 0 for two tiers)")
     ap.add_argument("--num-slots", type=int, default=None,
                     help="DP discretization slots (default: plan default)")
     ap.add_argument("--solver-impl", default=None,
-                    choices=("banded", "plain", "cuda"),
-                    help="DP fill: numpy, plain PyTorch on the CPU, or the "
-                         "CUDA band-min kernel (default: banded)")
+                    choices=("banded", "plain", "cuda", "cuda_fused"),
+                    help="DP fill: numpy, plain PyTorch on the CPU, the "
+                         "CUDA band-min kernels (one launch per band), or "
+                         "the whole fill on the card (default: banded)")
     ap.add_argument("--peak-flops", type=float, default=None,
                     help="FLOP/s that price the chain's stages (needed by "
                          "every policy but none)")

@@ -1,0 +1,210 @@
+"""Eager op walker for (offload-bearing) schedules — the port of
+``repro.offload.executor``: it runs the op sequence literally.
+
+- ``F_all^l``  → the stage under ``torch.enable_grad()`` on a detached copy
+  of its input that requires grad; ``(output, input)`` is ``ā^l`` (autograd
+  keeps the residuals).
+- ``F_ck^l`` / ``F_∅^l`` → the stage under ``torch.no_grad()``; ``F_∅``
+  drops its input.
+- ``B^l``      → ``torch.autograd.grad(output, [input, *params], δ^l)``;
+  parameter gradients accumulate, the input gradient is ``δ^{l-1}``.
+- ``F_off^i``  → on CUDA, a copy of ``a^i`` into pinned host memory with
+  ``non_blocking=True`` on a side stream, so it overlaps the compute that
+  follows (as the simulator assumes); elsewhere a ``.clone()`` into fresh
+  CPU storage.  The device copy stays for the following ``F_∅``/``B``.
+- ``Prefetch^i`` → the host copy back to the device on the side stream; the
+  compute stream waits on that copy's event, so the prefetch is charged in
+  full, as the simulator charges it.  The wait is measured with CUDA events
+  (the host clock off CUDA).
+
+The host copies live in a :class:`~repro_torch.offload.host_buffer.HostBuffer`;
+pass one in to bound host memory or read its byte-exact peak.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from ..core.planner import _fresh_input
+from ..core.schedule import BWD, F_ALL, F_CK, F_NONE, F_OFF, PREFETCH, Schedule
+from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
+from .host_buffer import HostBuffer
+
+
+def _float_leaves(tree: Any) -> List[torch.Tensor]:
+    return [t for t in tensors_of(tree) if t.is_floating_point()]
+
+
+def _unique_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``."""
+    seen: Dict[int, int] = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def execute_offload_schedule(
+    schedule: Schedule,
+    stages: Sequence[Callable],
+    params: Sequence[Any],
+    x: Any,
+    loss_cotangent: Optional[torch.Tensor] = None,
+    track_live_bytes: bool = False,
+    host_buffer: Optional[HostBuffer] = None,
+    stats: Optional[dict] = None,
+):
+    """Run forward and backward per ``schedule``; returns ``(loss_output,
+    param_grads, input_grad)`` — per-stage gradients shaped like
+    ``params[l-1]``, the input gradient shaped like ``x`` (``None`` at
+    non-floating leaves) — plus, with ``track_live_bytes``, the peak bytes of
+    the walker's device-side saved set (activations, ``ā`` outputs and
+    autograd residuals, pending gradients; parameters excluded).  ``stats``,
+    if given, receives ``prefetch_wait_s`` (seconds the compute stream
+    waited on prefetches) and ``prefetches``."""
+    L = schedule.length
+    hb = host_buffer if host_buffer is not None else HostBuffer()
+    first = tensors_of(x)[0]
+    cuda = first.is_cuda
+    if cuda:
+        compute = torch.cuda.current_stream(first.device)
+        side = torch.cuda.Stream(first.device)
+        landed: Dict[int, torch.cuda.Event] = {}
+    acts: Dict[int, Any] = {0: x}          # bare a^i
+    saved: Dict[int, tuple] = {}           # ā^l: (output, input, residuals)
+    deltas: Dict[int, List] = {}           # δ^l, aligned with a^l's floats
+    grads: List[Any] = [None] * (L + 1)
+    waits: list = []
+    final_out = None
+    peak_live = 0
+    param_ids = {t.untyped_storage().data_ptr()
+                 for t in tensors_of(list(params))}
+
+    def get_act(i: int):
+        if i in acts:
+            return acts[i]
+        if i in saved:                     # a^i readable from ā^i
+            return saved[i][0]
+        raise RuntimeError(f"a^{i} not available — invalid schedule")
+
+    for kind, l in schedule.ops:
+        if kind == F_OFF:
+            i = int(l)
+            if i not in acts:
+                raise RuntimeError(f"Foff: a^{i} not live as a bare "
+                                   f"activation")
+            if cuda:
+                side.wait_stream(compute)
+                with torch.cuda.stream(side):
+                    def to_host(t):
+                        if not isinstance(t, torch.Tensor):
+                            return t
+                        h = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                        h.copy_(t, non_blocking=True)
+                        t.record_stream(side)
+                        return h
+                    host = tree_map(to_host, acts[i])
+                landed[i] = torch.cuda.Event()
+                landed[i].record(side)
+            else:
+                host = tree_map(lambda t: t.clone()
+                                if isinstance(t, torch.Tensor) else t,
+                                acts[i])
+            hb.put(i, host, nbytes=tree_bytes(host))
+        elif kind == PREFETCH:
+            i = int(l)
+            if i in acts:
+                raise RuntimeError(f"Prefetch: a^{i} already on device")
+            host = hb.pop(i)
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record(compute)
+                # destinations are allocated on the compute stream, so the
+                # copy waits for it (memory it recycles may still be read)
+                dst = tree_map(
+                    lambda t: torch.empty_like(t, device=first.device)
+                    if isinstance(t, torch.Tensor) else t, host)
+                side.wait_stream(compute)
+                side.wait_event(landed.pop(i))
+                with torch.cuda.stream(side):
+                    for d_, h in zip(tensors_of(dst), tensors_of(host)):
+                        d_.copy_(h, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+                compute.wait_event(done)
+                t1.record(compute)
+                waits.append((t0, t1))
+                acts[i] = dst
+            else:
+                t0 = time.perf_counter()
+                acts[i] = host
+                waits.append(time.perf_counter() - t0)
+        elif kind in (F_NONE, F_CK, F_ALL):
+            a_in = get_act(l - 1)
+            if kind == F_ALL:
+                inp = _fresh_input(a_in)
+                res: list = []
+                with torch.enable_grad():
+                    if track_live_bytes:
+                        with torch.autograd.graph.saved_tensors_hooks(
+                                lambda t: res.append(t) or t, lambda t: t):
+                            out = stages[l - 1](params[l - 1], inp)
+                    else:
+                        out = stages[l - 1](params[l - 1], inp)
+                saved[l] = (out, inp, res)
+            else:
+                with torch.no_grad():
+                    out = stages[l - 1](params[l - 1], a_in)
+                acts[l] = out
+            if l == L + 1:
+                final_out = out
+            if kind == F_NONE:
+                acts.pop(l - 1, None)
+        elif kind == BWD:
+            out, inp, _ = saved.pop(l)
+            outs = _float_leaves(out)
+            if l == L + 1:
+                delta = ([loss_cotangent] if loss_cotangent is not None
+                         else [torch.ones_like(o) for o in outs])
+            else:
+                delta = deltas.pop(l)
+            pairs = [(o, g) for o, g in zip(outs, delta) if o.requires_grad]
+            ins = _float_leaves(inp)
+            ps = tensors_of(params[l - 1])
+            got = torch.autograd.grad([o for o, _ in pairs], ins + ps,
+                                      [g for _, g in pairs], allow_unused=True)
+            got = [torch.zeros_like(t) if g is None else g
+                   for t, g in zip(ins + ps, got)]
+            dps = got[len(ins):]
+            if grads[l - 1] is not None:
+                dps = [a + b for a, b in zip(tensors_of(grads[l - 1]), dps)]
+            grads[l - 1] = with_tensors(params[l - 1], dps)
+            deltas[l - 1] = got[:len(ins)]
+            acts.pop(l - 1, None)          # B^l consumes a^{l-1}
+        else:
+            raise ValueError(f"offload executor cannot run op kind {kind}")
+        if track_live_bytes:
+            live = tensors_of([acts, deltas]) + [
+                t for o, i_, r in saved.values()
+                for t in tensors_of([o, i_]) + r]
+            peak_live = max(peak_live, _unique_bytes(
+                t for t in live
+                if t.untyped_storage().data_ptr() not in param_ids))
+
+    if 0 not in deltas:
+        raise RuntimeError("schedule did not produce δ^0")
+    if stats is not None:
+        if cuda and waits:
+            waits[-1][1].synchronize()
+            waits = [a.elapsed_time(b) / 1e3 for a, b in waits]
+        stats["prefetch_wait_s"] = float(sum(waits))
+        stats["prefetches"] = len(waits)
+    dx = with_tensors(x, deltas[0], floating_only=True)
+    if track_live_bytes:
+        return final_out, grads, dx, peak_live
+    return final_out, grads, dx

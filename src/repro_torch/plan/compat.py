@@ -11,6 +11,12 @@ policy                 plan
                        (bytes, ``x0.6`` of the store-all peak, or ``auto``;
                        an infeasible ``auto`` budget falls back to the
                        min-memory schedule, any other raises)
+``optimal_offload:B:BW``  the optimal three-tier (device / host / recompute)
+                       schedule within device budget ``B``, with a host link
+                       of ``BW`` bytes/s each way (a measured rate, e.g.
+                       ``24e9``; ``0`` turns the host tier off and plans two
+                       tiers).  ``BW`` is required: the port has no default
+                       link.
 =====================  ====================================================
 """
 
@@ -18,10 +24,25 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
-from ..core.chain import Chain
+from ..core.chain import Chain, HostTransferModel
 from ..core.rematerialize import full_remat_tree, periodic_tree, sequential_tree
 from ..core.solver import solve_min_memory, solve_optimal, tree_to_schedule
-from .plan import DEFAULT_NUM_SLOTS, Budget, InfeasiblePlanError, MemoryPlan
+from ..offload.solver import solve_optimal_offload
+from .plan import (DEFAULT_NUM_SLOTS, Budget, InfeasiblePlanError, MemoryPlan,
+                   parse_size)
+
+
+def _offload_spec(policy: str):
+    """``(budget spec, host model or None)`` of ``optimal_offload:B:BW``."""
+    parts = policy.split(":")
+    if len(parts) != 3 or not parts[1].strip() or not parts[2].strip():
+        raise ValueError(
+            f"{policy!r}: the offload policy is 'optimal_offload:BUDGET:BW' "
+            f"— a device budget and the host link's measured rate in bytes/s "
+            f"(e.g. 'optimal_offload:x0.5:24e9'; BW=0 plans two tiers)")
+    bw = parse_size(parts[2])
+    return parts[1], (HostTransferModel(bandwidth_d2h=bw) if bw > 0
+                      else None)
 
 
 def resolve_policy(policy: str, chain: Optional[Chain],
@@ -53,15 +74,23 @@ def resolve_policy(policy: str, chain: Optional[Chain],
             tree = periodic_tree(length, k)
         return MemoryPlan.build(policy, chain, tree,
                                 tree_to_schedule(tree, length))
-    if not policy.startswith("rotor:"):
+    offload = policy.startswith("optimal_offload")
+    if not (offload or policy.startswith("rotor:")):
         raise ValueError(f"unknown remat policy {policy!r}")
+    budget_spec, host = (_offload_spec(policy) if offload
+                         else (policy.split(":", 1)[1], None))
     if chain is None:
         raise ValueError(f"{policy!r} needs a profiled chain")
     num_slots = DEFAULT_NUM_SLOTS if num_slots is None else num_slots
-    spec = Budget.parse(policy.split(":", 1)[1])
+    spec = Budget.parse(budget_spec)
     budget = spec.resolve(chain, auto_budget=auto_budget)
-    sol = solve_optimal(chain, budget, num_slots=num_slots, impl=impl)
-    if not sol.feasible and spec.kind == "auto":
+    if host is not None:
+        chain = chain.with_host(host)
+        sol = solve_optimal_offload(chain, budget, num_slots=num_slots,
+                                    impl=impl)
+    else:
+        sol = solve_optimal(chain, budget, num_slots=num_slots, impl=impl)
+    if not sol.feasible and spec.kind == "auto" and not offload:
         sol = solve_min_memory(chain, num_slots=num_slots, impl=impl)
         if sol.feasible:
             print(f"[plan] budget {budget / 2**30:.2f} GiB infeasible; "

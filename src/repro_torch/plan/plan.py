@@ -17,7 +17,7 @@ import re
 from typing import Any, Callable, Optional, Union
 
 from ..core.chain import Chain
-from ..core.schedule import Schedule, simulate
+from ..core.schedule import Schedule, simulate, uses_offload
 from ..core.solver import Solution
 
 #: Default slot count for the DP discretization (paper §5.2).
@@ -86,9 +86,10 @@ class Budget:
 @dataclasses.dataclass
 class MemoryPlan:
     """A resolved memory plan for one chain: the recursion ``tree`` (run as
-    nested checkpoints), the equivalent flat ``schedule``, the solver
-    ``solution`` (solver-backed policies only) and the float64 simulator's
-    predicted makespan and device peak (NaN without a profiled chain)."""
+    nested checkpoints, or by the eager walker when it holds offload nodes),
+    the equivalent flat ``schedule``, the solver ``solution`` (solver-backed
+    policies only) and the float64 simulator's predicted makespan, device
+    and host peaks and transfer stall (NaN without a profiled chain)."""
 
     policy: str
     schedule: Schedule
@@ -98,21 +99,25 @@ class MemoryPlan:
     budget_bytes: Optional[float]
     expected_time: float
     peak_device_mem: float
+    peak_host_mem: float = float("nan")
+    transfer_stall: float = float("nan")
 
     @staticmethod
     def build(policy: str, chain: Optional[Chain], tree: Any,
               schedule: Schedule, solution: Optional[Solution] = None,
               budget_bytes: Optional[float] = None) -> "MemoryPlan":
         """Wrap a schedule with its simulator-exact predictions."""
-        expected, peak = float("nan"), float("nan")
+        nan = float("nan")
+        expected, peak, host_peak, stall = nan, nan, nan, nan
         if chain is not None:
             res = simulate(chain, schedule)
             if not res.valid:
                 raise AssertionError(
                     f"planned schedule does not simulate: {res.error}")
             expected, peak = res.time, res.peak_mem
+            host_peak, stall = res.host_peak_mem, res.transfer_stall
         return MemoryPlan(policy, schedule, tree, solution, chain,
-                          budget_bytes, expected, peak)
+                          budget_bytes, expected, peak, host_peak, stall)
 
     @property
     def length(self) -> int:
@@ -120,9 +125,8 @@ class MemoryPlan:
 
     @property
     def uses_offload(self) -> bool:
-        """True if the schedule needs the host tier (never, for the two-tier
-        plans this package solves)."""
-        return any(k in ("Foff", "Prefetch") for k, _ in self.schedule.ops)
+        """True if the schedule needs the host tier (Foff/Prefetch ops)."""
+        return uses_offload(self.schedule)
 
     def op_counts(self) -> dict:
         counts: dict = {}
@@ -132,7 +136,8 @@ class MemoryPlan:
 
     def summary(self) -> str:
         c = self.op_counts()
-        ops = " ".join(f"{k}:{c[k]}" for k in ("Fall", "Fck", "Fnone", "B")
+        ops = " ".join(f"{k}:{c[k]}" for k in
+                       ("Fall", "Fck", "Fnone", "B", "Foff", "Prefetch")
                        if k in c)
         lines = [f"MemoryPlan[{self.policy}] L={self.length} stages",
                  f"  ops: {len(self.schedule)} ({ops})"]
@@ -140,5 +145,10 @@ class MemoryPlan:
             lines.append(f"  budget: {self.budget_bytes:.6e} B")
         if self.expected_time == self.expected_time:  # not NaN
             lines.append(f"  predicted: {self.expected_time:.6e} s/iter, "
-                         f"activation peak {self.peak_device_mem:.6e} B")
+                         f"activation peak {self.peak_device_mem:.6e} B, "
+                         f"host peak {self.peak_host_mem:.6e} B, "
+                         f"transfer stall {self.transfer_stall:.6e} s")
+        lines.append("  executor: " + ("eager offload walker (host copies)"
+                                       if self.uses_offload
+                                       else "nested checkpoints"))
         return "\n".join(lines)

@@ -1,5 +1,6 @@
-"""Training loop on one device: rotor-planned remat, AdamW, deterministic
-synthetic data, and per-step time and memory."""
+"""Training loop on one device: rotor-planned remat or an eager three-tier
+(host-offload) schedule, AdamW, deterministic synthetic data, and per-step
+time and memory."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from ..configs.shapes import ShapeSpec, input_specs
 from ..core.rematerialize import count_checkpoint_scopes
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
-from ..launch.steps import make_train_step, plan_training
+from ..launch.steps import make_offload_step, make_train_step, plan_training
 from ..models.lm import StagedLM
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
@@ -42,10 +43,13 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                  log_fn: Callable[[str], None] = print) -> Dict[str, Any]:
     """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
     otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
-    seeded initialization.  Returns the losses, the plan and chain, the final
-    state, and per-step records ``{"loss", "seconds", "tokens_per_s",
-    "activation_peak_bytes"}`` (the last is ``None`` off CUDA).  A loss that
-    is not finite raises ``FloatingPointError``."""
+    seeded initialization.  A plan with host offloads runs on the eager
+    offload step (``grad_accum`` must be 1).  Returns the losses, the plan
+    and chain, the final state, and per-step records ``{"loss", "seconds",
+    "tokens_per_s", "activation_peak_bytes", "host_peak_bytes",
+    "host_bytes_after", "prefetch_wait_s"}`` (the activation peak is
+    ``None`` off CUDA, the host fields ``None`` without offloads).  A loss
+    that is not finite raises ``FloatingPointError``."""
     dev = resolve_device(device)
     model = StagedLM(cfg)
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
@@ -53,8 +57,17 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                                 peak_flops=loop.peak_flops,
                                 num_slots=loop.num_slots,
                                 impl=loop.solver_impl, device=dev)
-    tree = plan.tree if plan is not None else None
-    if plan is not None:
+    offload = plan is not None and plan.uses_offload
+    tree = plan.tree if plan is not None and not offload else None
+    if offload:
+        if loop.grad_accum != 1:
+            raise NotImplementedError(
+                "grad_accum > 1 with an offload schedule")
+        log_fn(f"[offload] three-tier plan: "
+               f"{plan.schedule.count('Foff')} host offloads, predicted "
+               f"{plan.expected_time:.4f}s model time/step — eager executor "
+               f"engaged\n{plan.summary()}")
+    elif plan is not None:
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
                f"over {model.n_stages()} stages\n{plan.summary()}")
     if params is None:
@@ -62,10 +75,12 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     leaves = tensors_of(params)
     opt_state = adamw_init(leaves)
     opt_cfg = AdamWConfig(lr=loop.lr)
-    step_fn = make_train_step(model, opt_cfg, tree,
-                              linear_warmup_cosine(loop.lr, loop.warmup,
-                                                   loop.steps),
-                              grad_accum=loop.grad_accum)
+    lr_fn = linear_warmup_cosine(loop.lr, loop.warmup, loop.steps)
+    if offload:
+        step_fn = make_offload_step(model, opt_cfg, plan.schedule, lr_fn)
+    else:
+        step_fn = make_train_step(model, opt_cfg, tree, lr_fn,
+                                  grad_accum=loop.grad_accum)
     data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
                            seed=loop.seed)
     # parameters + gradients + the two float32 moments
@@ -90,14 +105,20 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         if not math.isfinite(loss):
             raise FloatingPointError(f"step {step}: loss {loss}")
         losses.append(loss)
-        records.append({"loss": loss, "seconds": seconds,
-                        "tokens_per_s": tokens / seconds,
-                        "activation_peak_bytes": peak})
+        rec = {"loss": loss, "seconds": seconds,
+               "tokens_per_s": tokens / seconds,
+               "activation_peak_bytes": peak}
+        for key in ("host_peak_bytes", "host_bytes_after", "prefetch_wait_s"):
+            rec[key] = metrics.get(key)
+        records.append(rec)
         if step % loop.log_every == 0:
             log_fn(f"step {step:5d} loss {loss:.4f} "
                    f"gnorm {float(metrics['grad_norm']):.3f} "
                    f"{seconds:.3f}s {tokens / seconds:.0f} tok/s"
-                   + (f" act-peak {peak / 2**30:.3f} GiB" if cuda else ""))
+                   + (f" act-peak {peak / 2**30:.3f} GiB" if cuda else "")
+                   + (f" host-peak {rec['host_peak_bytes'] / 2**30:.3f} GiB"
+                      f" prefetch-wait {rec['prefetch_wait_s']:.4f}s"
+                      if offload else ""))
     wall = time.perf_counter() - t_begin
     return {"losses": losses, "steps": records, "params": params,
             "opt_state": opt_state, "plan": plan, "chain": chain,

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -29,3 +29,19 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 
 def tree_bytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in tensors_of(tree))
+
+
+def with_tensors(template: Any, leaves: Sequence[Optional[torch.Tensor]],
+                 floating_only: bool = False) -> Any:
+    """``template``'s structure with its tensor leaves (only the floating
+    ones, with ``floating_only``) replaced by ``leaves`` in order; other
+    leaves become ``None``."""
+    it = iter(leaves)
+
+    def pick(t):
+        if isinstance(t, torch.Tensor) and (t.is_floating_point()
+                                            or not floating_only):
+            return next(it)
+        return None
+
+    return tree_map(pick, template)

@@ -4,7 +4,8 @@ card (marked ``cuda``; skipped without one).  Run on a GPU machine with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: the DP band-min is bit-equal (one add and one min per split);
+Tolerances: the DP kernels (K1, K5a, K2, K5b) are bit-equal (adds, mins and
+maxes only; every DP quantity of an integer chain is exact in float32);
 flash attention 2e-2 in bf16 (and 2 bf16 ulps + 1e-5 from the float32 plain
 version of the same inputs) and 1e-4 in f32 (another summation order, exp on
 the device); RMSNorm within one bf16 ulp and rtol 1e-6 in f32."""
@@ -19,13 +20,18 @@ import numpy as np  # noqa: E402
 
 from repro_torch import counters  # noqa: E402
 from repro_torch.core import dp_kernels  # noqa: E402
-from repro_torch.core.chain import Chain  # noqa: E402
+from repro_torch.core.chain import Chain, HostTransferModel  # noqa: E402
+from repro_torch.core.executor import reference_grads  # noqa: E402
+from repro_torch.core.schedule import Schedule  # noqa: E402
 from repro_torch.kernels.dp_fill import ops as dp_ops  # noqa: E402
 from repro_torch.kernels.dp_fill import ref as dp_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
+from repro_torch.offload.executor import execute_offload_schedule  # noqa: E402
+from repro_torch.offload.host_buffer import HostBuffer  # noqa: E402
+from repro_torch.offload.solver import solve_optimal_offload  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -62,6 +68,150 @@ def test_cuda_fill_bit_equal_to_banded(dev):
         a = dp_kernels.fill_tables(dch, int(m), impl="cuda").data
         b = dp_kernels.fill_tables(dch, int(m), impl="banded").data
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("d,ns,w", [(1, 1, 4), (3, 5, 17), (9, 2, 501),
+                                    (7, 300, 33)])
+def test_band_min_offload_kernel_bit_equal(dev, d, ns, w):
+    g = torch.Generator(device=dev).manual_seed(d + ns)
+
+    def plane(lo, hi, p_inf=0.0):
+        x = torch.rand((d, ns, w), generator=g, device=dev) * (hi - lo) + lo
+        x[torch.rand((d, ns, w), generator=g, device=dev) < p_inf] = math.inf
+        return x
+
+    ops = (plane(0, 8, 0.3), plane(0, 8, 0.3), plane(-4, 4), plane(-4, 4),
+           plane(-4, 4), torch.rand((ns, 1), generator=g, device=dev) * 6)
+    before = counters.snapshot().get(dp_ops.NAME_OFFLOAD, 0)
+    got = dp_ops.band_min_offload(*ops)
+    assert counters.snapshot()[dp_ops.NAME_OFFLOAD] == before + 1
+    for a, b in zip(got, dp_ref.band_min_offload(*ops)):
+        assert torch.equal(a, b)
+
+
+def _int_chain(rng, L, host=True, big_wa=False):
+    wa = rng.integers(1, 4, L + 1)
+    if big_wa:
+        wa[L // 2] = 10_000                  # larger than any budget below
+    return Chain.make(uf=rng.integers(1, 5, L + 1),
+                      ub=rng.integers(1, 5, L + 1), wa=wa,
+                      wabar=rng.integers(1, 6, L + 1),
+                      of=rng.integers(0, 2, L + 1),
+                      ob=rng.integers(0, 2, L + 1),
+                      host=HostTransferModel(
+                          bandwidth_d2h=float(rng.choice([0.5, 1.0, 4.0])),
+                          latency=float(rng.choice([0.0, 0.25])))
+                      if host else None)
+
+
+@pytest.mark.parametrize("L", [1, 4, 11, 40])
+@pytest.mark.parametrize("allow_fall", [True, False])
+def test_dp_fill_kernels_bit_equal_to_banded(dev, L, allow_fall):
+    """K2 and K5b (``cuda_fused``) and K5a (``cuda``) against the numpy
+    fills and the plain fused recursions, on chains with and without a host
+    tier and one whose activation exceeds the budget."""
+    rng = np.random.default_rng(L)
+    for host, big in ((True, False), (False, False), (True, True)):
+        ch = _int_chain(rng, L, host=host, big_wa=big)
+        m = math.ceil(Chain.make(uf=ch.uf, ub=ch.ub, wa=np.minimum(ch.wa, 4),
+                                 wabar=ch.wabar).store_all_peak() * 0.6)
+        dch = ch.discretize(m, int(m))
+        S = int(m)
+        want = dp_kernels.fill_tables(dch, S, allow_fall=allow_fall).data
+        for impl in ("cuda", "cuda_fused"):
+            got = dp_kernels.fill_tables(dch, S, impl=impl,
+                                         allow_fall=allow_fall).data
+            assert np.array_equal(got, want), impl
+        assert np.array_equal(dp_ops.fill_two_tier_fused(
+            dch, S, allow_fall=allow_fall, device="cpu").data, want)
+        tb, te = dp_kernels.fill_tables_offload(dch, S, allow_fall=allow_fall)
+        runs = [dp_kernels.fill_tables_offload(dch, S, impl=impl,
+                                               allow_fall=allow_fall)
+                for impl in ("cuda", "cuda_fused")]
+        runs.append(dp_ops.fill_offload_fused(dch, S, allow_fall=allow_fall,
+                                              device="cpu"))
+        for gb, ge in runs:
+            assert np.array_equal(gb.data, tb.data)
+            assert np.array_equal(ge.data, te.data)
+
+
+def test_fused_kernels_match_plain_on_cuda_tensors(dev):
+    rng = np.random.default_rng(7)
+    ch = _int_chain(rng, 9)
+    m = math.ceil(ch.store_all_peak() * 0.5)
+    dch = ch.discretize(m, int(m))
+    ops_ = dp_ops.FusedOperands(dch, int(m), True)
+    toff, tpre = dp_kernels.offload_vectors(dch, ops_.v)
+    tab = ops_.base_table()
+    kw = dict(L=ops_.L, W=ops_.W, allow_fall=True)
+
+    def run(device):
+        t0 = ops_.initial(tab, device)
+        ints = ops_.tensors(device, toff, tpre)
+        two = dp_ops.fused_fill_two_tier(t0, *ints[:8], **kw)
+        return (two,) + dp_ops.fused_fill_offload(t0, t0, *ints,
+                                                  host_on=True, **kw)
+
+    n0 = counters.snapshot().get(dp_ops.NAME_FUSED, 0)
+    got = run(dev)
+    assert counters.snapshot()[dp_ops.NAME_FUSED] == n0 + 1
+    for a, b in zip(got, run(torch.device("cpu"))):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dp_wrappers_reject_bad_operands(dev):
+    p = torch.zeros((2, 3, 4), device=dev)
+    strided = torch.zeros((2, 3, 8), device=dev)[:, :, ::2]
+    toff = torch.zeros((3, 1), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_ops.band_min_two_tier(strided, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_ops.band_min_offload(p, strided, p, p, p, toff)
+    with pytest.raises(TypeError):
+        dp_ops.band_min_offload(p, p, p, p.double(), p, toff)
+    rng = np.random.default_rng(1)
+    ch = _int_chain(rng, 3)
+    ops_ = dp_ops.FusedOperands(ch.discretize(12.0, 12), 12, True)
+    t0 = ops_.initial(ops_.base_table(), dev)
+    ints = ops_.tensors(dev)
+    with pytest.raises(TypeError):
+        dp_ops.fused_fill_two_tier(t0.double(), *ints, L=3, W=ops_.W,
+                                   allow_fall=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros((t0.shape[0], 2 * ops_.W), device=dev)
+        dp_ops.fused_fill_two_tier(wide[:, ::2], *ints, L=3, W=ops_.W,
+                                   allow_fall=True)
+
+
+def test_offload_walker_on_cuda_matches_store_all(dev):
+    L = 5
+    g = torch.Generator().manual_seed(0)
+    params = [{"w": (torch.randn((16, 16), generator=g) * 0.3).to(dev)
+               .requires_grad_(), "b": torch.zeros(16, device=dev)
+               .requires_grad_()} for _ in range(L)] + [{}]
+    stages = [lambda p, a: torch.tanh(a @ p["w"] + p["b"])] * L
+    stages.append(lambda p, a: torch.mean(a ** 2))
+    x = torch.randn((4, 16), generator=g).to(dev)
+    ch = Chain.make(uf=[1.0] * L + [0.0], ub=[2.0] * L + [0.0],
+                    wa=[1.0] * (L + 1), wabar=[2.0] * L + [0.0],
+                    host=HostTransferModel(bandwidth_d2h=1.0))
+    sol = solve_optimal_offload(ch, math.ceil(
+        ch.store_all_peak() * 0.35), num_slots=64)
+    assert sol.schedule.count("Foff") >= 1
+    hb, stats = HostBuffer(), {}
+    _, grads, dx = execute_offload_schedule(sol.schedule, stages, params, x,
+                                            host_buffer=hb, stats=stats)
+    assert hb.bytes_in_use == 0 and hb.peak_bytes > 0
+    assert stats["prefetches"] == sol.schedule.count("Prefetch")
+    _, want, wdx = reference_grads(stages, params, x)
+    for a, b in zip(grads[:L], want[:L]):
+        torch.testing.assert_close(a["w"], b["w"], rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(a["b"], b["b"], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(dx, wdx, rtol=1e-5, atol=1e-7)
+    store_all = execute_offload_schedule(Schedule.store_all(L), stages,
+                                         params, x)[1]
+    for a, b in zip(grads[:L], store_all[:L]):
+        torch.testing.assert_close(a["w"], b["w"], rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("B,S,H,K,D", [(1, 37, 4, 2, 16), (2, 64, 8, 1, 64),

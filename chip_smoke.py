@@ -15,12 +15,17 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    random integer chains and on the card chain, with and without the host
    tier), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps of the
    float32 plain version on the same inputs) and 1e-4 in f32, RMSNorm within
-   one bf16 ulp and rtol 1e-6 in f32;
+   one bf16 ulp and rtol 1e-6 in f32, the SSD within-chunk kernel within 2e-4
+   (rtol and atol) in f32 and with bf16 x, B, C against the plain version on
+   the same values in f32 (the kernel converts bf16 to float32 exactly) — at
+   the Mamba path's full shape, a ragged sequence, and heads that share a
+   group;
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
-   the PyTorch library call for the same function, at the main path's shapes,
-   beside the least time the card could take (bytes or operations); and the
-   host-clock time of whole fills, per-band (``cuda``) against fused
-   (``cuda_fused``), host staging included;
+   the PyTorch library call for the same function (none for the SSD and the
+   fused DP fills), at the main paths' shapes, beside the least time the card
+   could take (bytes or operations); and the host-clock time of whole fills,
+   per-band (``cuda``) against fused (``cuda_fused``), host staging
+   included;
 6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
    width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
    plan solved on the CUDA band-min kernel at the midpoint budget between the
@@ -36,10 +41,16 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
 8. planning with the other fill: the offload policy on the per-band kernel
    (K5a) and the rotor policy on the fused fill (K2) give the schedules the
    two training runs used;
-9. one JSON line describing every kernel, then the final JSON result line.
+9. Mamba path: ``repro_torch.launch.train.main`` trains Mamba2-1.3B at full
+   width (d_model 2048, 64 SSM heads of 64, state 128, chunks of 256), cut
+   to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor plan solved
+   on the CUDA band-min kernel at the midpoint budget of its own chain, every
+   SSD forward on the hand-written kernel; then the rotor plan and
+   store-all agree within 1e-2 on one batch;
+10. one JSON line describing every kernel, then the final JSON result line.
 
-Each path (6, 7, 8) runs with the launch counts set to 0 just before it and
-read just after; a kernel launched on none of them fails the run.
+Each path (6, 7, 8, 9) runs with the launch counts set to 0 just before it
+and read just after; a kernel launched on none of them fails the run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -66,6 +77,9 @@ ARCH = "qwen1.5-4b"
 LAYERS, BATCH, SEQ, STEPS = 8, 4, 2048, 3
 OVERRIDES = {"num_layers": LAYERS, "layer_kinds": ["dense"] * LAYERS,
              "n_chunks": LAYERS, "use_flash_attention": True}
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_OVERRIDES = {"num_layers": LAYERS, "layer_kinds": ["mamba"] * LAYERS,
+                   "n_chunks": LAYERS, "use_ssd_kernel": True}
 
 
 def say(*parts) -> None:
@@ -135,6 +149,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.launch import train
     from repro_torch.launch.steps import plan_chain, plan_training
     from repro_torch.models.lm import StagedLM
@@ -375,6 +391,45 @@ def main() -> int:
     say(f"[check] rms_norm ({rows}, {cfg.d_model}): bf16 within 1 ulp "
         f"(max |err| {rms_err:.3e}), f32 rtol 1e-6")
 
+    mcfg = get_config(MAMBA_ARCH, **{k: tuple(v) if isinstance(v, list) else v
+                                     for k, v in MAMBA_OVERRIDES.items()})
+    Hs = mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim
+    P, N, G, Q = (mcfg.ssm_head_dim, mcfg.ssm_state, mcfg.ssm_groups,
+                  mcfg.ssm_chunk)
+
+    def ssd_inputs(B, S, H, G, dtype):
+        """The mixer's ranges: dt = softplus(·) · 0.1, A from -1 to -16."""
+        dt = F.softplus(randn(B, S, H)) * 0.1
+        A = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device=dev))
+        return (randn(B, S, H, P, dtype=dtype), dt, A,
+                0.3 * randn(B, S, G, N, dtype=dtype),
+                0.3 * randn(B, S, G, N, dtype=dtype))
+
+    ssd_err = {}
+    for (B, S, H, G_) in ((BATCH, SEQ, Hs, G), (2, 1000, 8, G), (1, 512, 8, 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, Bm, Cm = ssd_inputs(B, S, H, G_, dtype)
+            xp, dtp, Bp, Cp = ssd_ref.pad_to_chunks(Q, x, dt, Bm, Cm)
+            got = ssd_ops.ssd_chunk_blocks(xp, dtp, A, Bp, Cp, Q)
+            want = ssd_ref.chunk_terms(xp.float(), dtp, A, Bp.float(),
+                                       Cp.float(), Q)
+            what = f"ssd_chunk {(B, S, H, P, G_, N, Q)} {dtype}"
+            err = max(check_close(f"{what} {part}", a_, b_, 2e-4)
+                      for part, a_, b_ in zip(("y_diag", "states"), got,
+                                              want))
+            del got, want
+            (y, st), (wy, wst) = (ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, Q),
+                                  ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, Q))
+            check_close(f"{what} final state", st, wst, 2e-4)
+            if not (y.shape == wy.shape and bool(torch.isfinite(y).all())):
+                raise AssertionError(f"{what}: scan output {tuple(y.shape)}")
+            ssd_err[(B, S, H, G_, dtype)] = err
+            say(f"[check] {what}: kernel vs plain max |err| {err:.3e} "
+                f"(tol 2e-4 rtol+atol, plain in f32 on the same values); "
+                f"whole scan's final state within 2e-4")
+            del x, dt, A, Bm, Cm, xp, dtp, Bp, Cp, y, st, wy, wst
+    torch.cuda.empty_cache()
+
     # -- 5. timing at the main path's shapes -------------------------------------
     kernels = []
     caps = dp_kernels.saturation_caps(dp_kernels._views(dchain), S500)
@@ -505,6 +560,32 @@ def main() -> int:
                                                    1e-6)),
         "max_abs_err": rms_err, "shape": f"bf16 ({rows}, {cfg.d_model})"})
     del xs, sc, x, s
+
+    B, S = BATCH, SEQ
+    nc = S // Q
+    x, dt, A, Bm, Cm = ssd_inputs(B, S, Hs, G, torch.bfloat16)
+    nbytes = (2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
+              + 2 * (Bm.numel() + Cm.numel())        # inputs, read once
+              + 4 * x.numel() + 4 * B * nc * Hs * P * N)  # y_diag, states
+    causal = Q * (Q + 1) // 2                    # score entries j <= i
+    b_ms, b_by = bound(nbytes, B * Hs * nc * (2 * causal * (N + P)
+                                              + 2 * Q * P * N),
+                       BF16_TENSOR_FLOPS)
+    kernels.append({
+        "name": ssd_ops.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:55",
+        "ms": median_ms(lambda: ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm,
+                                                         Q)),
+        "plain_ms": median_ms(lambda: ssd_ref.chunk_terms(x, dt, A, Bm, Cm,
+                                                          Q)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no PyTorch call computes the SSD within-chunk terms
+        "library_ms": None,
+        "max_abs_err": ssd_err[(B, S, Hs, G, torch.bfloat16)],
+        "shape": f"bf16 x ({B},{S},{Hs},{P}) B,C ({B},{S},{G},{N}), chunk "
+                 f"{Q}, {nbytes} B moved"})
+    del x, dt, A, Bm, Cm
     for kern in kernels:
         say(f"[time] {kern['name']} {kern['shape']}: {kern['ms']:.4f} ms, "
             f"plain {kern['plain_ms']:.4f} ms, library "
@@ -541,7 +622,7 @@ def main() -> int:
 
     batch = SyntheticLMData(cfg, BATCH, SEQ, seed=0).device_batch(0, dev)
 
-    def same_results(tag, params, grads_of):
+    def same_results(tag, params, grads_of, model=model, batch=batch):
         """Loss and global gradient norm of ``grads_of`` against store-all
         on one batch, within 1e-2."""
         leaves = tensors_of(params)
@@ -667,7 +748,53 @@ def main() -> int:
             f"schedule ({len(want)} ops)")
     path_launches["planning"] = counters.snapshot()
 
-    # -- 9. result lines ----------------------------------------------------------
+    # -- 9. Mamba path --------------------------------------------------------------
+    mmodel = StagedLM(mcfg)
+    mchain = plan_chain(mmodel, input_specs(mcfg, ShapeSpec(
+        "train", "train", SEQ, BATCH)), peak_flops)
+    mlow = solve_min_memory(mchain).mem_limit
+    mhigh = mchain.store_all_peak()
+    mbudget = (mlow + mhigh) / 2
+    n_params = sum(t.numel() for t in tensors_of(mmodel.init(device="meta")))
+    say(f"[mamba] {MAMBA_ARCH} cut to {mcfg.num_layers} layers: {n_params} "
+        f"parameters, d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state "
+        f"{N}, chunk {Q}; chain L={mchain.length}: min-memory {mlow:.6e} B, "
+        f"store-all {mhigh:.6e} B, budget (midpoint) {int(mbudget)} B")
+    counters.reset()
+    out = train.main([
+        "--arch", MAMBA_ARCH, "--override", json.dumps(MAMBA_OVERRIDES),
+        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+        "--steps", str(STEPS), "--policy", f"rotor:{int(mbudget)}",
+        "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
+    path_launches["mamba"] = counters.snapshot()
+    plan = out["plan"]
+    say(f"[mamba] schedule ops {json.dumps(plan.op_counts())}, predicted "
+        f"{plan.expected_time:.6e} s/step, predicted activation peak "
+        f"{plan.peak_device_mem:.6e} B")
+    for i, rec in enumerate(out["steps"]):
+        say(f"[mamba] step {i}: loss {rec['loss']:.6f}, "
+            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
+            f"measured activation peak {rec['activation_peak_bytes']} B "
+            f"on {card}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss: {out['losses']}")
+    launches = path_launches["mamba"]
+    if not launches.get(ssd_ops.NAME):
+        raise AssertionError("the Mamba path never launched the SSD kernel")
+    say(f"[mamba] launches: {launches[dp_ops.NAME]} dp band-min per plan, "
+        f"{launches[ssd_ops.NAME] / STEPS:g} ssd_chunk and "
+        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
+    mbatch = SyntheticLMData(mcfg, BATCH, SEQ, seed=0).device_batch(0, dev)
+
+    def mamba_grads(params):
+        loss = mmodel.loss_fn(params, mbatch, tree=plan.tree)
+        return loss, torch.autograd.grad(loss, tensors_of(params))
+
+    same_results("mamba rotor", out["params"], mamba_grads, mmodel, mbatch)
+    del out, plan
+    torch.cuda.empty_cache()
+
+    # -- 10. result lines ---------------------------------------------------------
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

@@ -22,8 +22,20 @@ def qwen15_4b(**ov) -> ModelConfig:
                        rope_theta=5e6, n_chunks=10, **{**_COMMON, **ov})
 
 
+def mamba2_13b(**ov) -> ModelConfig:
+    # [ssm] SSD (state-space duality) [arXiv:2405.21060; unverified]
+    return ModelConfig(name="mamba2-1.3b", num_layers=48, d_model=2048,
+                       n_heads=1, n_kv_heads=1, d_ff=0, vocab_size=50280,
+                       head_dim=64,
+                       layer_kinds=("mamba",) * 48, ssm_state=128,
+                       ssm_expand=2, ssm_head_dim=64, ssm_groups=1,
+                       ssm_conv=4, ssm_chunk=256, n_chunks=12,
+                       **{**_COMMON, **ov})
+
+
 ARCHS: Dict[str, Callable[..., ModelConfig]] = {
     "qwen1.5-4b": qwen15_4b,
+    "mamba2-1.3b": mamba2_13b,
 }
 
 

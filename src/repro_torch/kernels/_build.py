@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("dp_band_min", "dp_fused_fill", "flash_attn_fwd")
+SOURCES = ("dp_band_min", "dp_fused_fill", "flash_attn_fwd", "ssd_chunk")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

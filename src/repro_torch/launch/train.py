@@ -20,15 +20,15 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 from ..configs import get_config, smoke_config
+from ..models.lm import ModelConfig
 from ..runtime.train_loop import TrainLoopConfig, run_training
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Parse ``argv``, train, print a summary; returns the run's result
-    (see :func:`repro_torch.runtime.train_loop.run_training`)."""
+def parse(argv=None) -> Tuple[ModelConfig, TrainLoopConfig, str]:
+    """The launcher's flags → (model config, loop config, device)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -60,14 +60,21 @@ def main(argv=None) -> Dict[str, Any]:
           for k, v in json.loads(args.override or "{}").items()}
     cfg = (smoke_config(args.arch, **ov) if args.smoke
            else get_config(args.arch, **ov))
-    print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
-          f"chunks={len(cfg.chunks)} device={args.device}", flush=True)
     loop = TrainLoopConfig(steps=args.steps, global_batch=args.global_batch,
                            seq_len=args.seq_len, lr=args.lr,
                            policy=args.policy, num_slots=args.num_slots,
                            solver_impl=args.solver_impl,
                            peak_flops=args.peak_flops, log_every=1)
-    out = run_training(cfg, loop, device=args.device,
+    return cfg, loop, args.device
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Parse ``argv``, train, print a summary; returns the run's result
+    (see :func:`repro_torch.runtime.train_loop.run_training`)."""
+    cfg, loop, device = parse(argv)
+    print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
+          f"chunks={len(cfg.chunks)} device={device}", flush=True)
+    out = run_training(cfg, loop, device=device,
                        log_fn=lambda s: print(s, flush=True))
     print(f"[train] done: {len(out['losses'])} steps, "
           f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "

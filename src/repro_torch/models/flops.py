@@ -1,4 +1,5 @@
-"""Analytic per-stage FLOP counts (the dense part of ``repro.models.flops``)
+"""Analytic per-stage FLOP counts (the dense and Mamba2 part of
+``repro.models.flops``)
 — the rotor planner's ``u_f``/``u_b`` without running anything.
 
 Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
@@ -23,7 +24,24 @@ def _mlp_flops(cfg, B: int, S: int, d_ff: int) -> float:
     return 2 * B * S * cfg.d_model * d_ff * mult
 
 
+def _mamba_flops(cfg, B: int, S: int) -> float:
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    H = d_inner // cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    Q = cfg.ssm_chunk
+    proj = 2 * B * S * d * (2 * d_inner + 2 * G * N + H) + 2 * B * S * d_inner * d
+    conv = 2 * B * S * (d_inner + 2 * G * N) * cfg.ssm_conv
+    # SSD: scores (Q×N)@(N×Q), y (Q×Q)@(Q×P), states (P×Q)@(Q×N), y_off (Q×N)@(N×P)
+    nc = max(S // Q, 1)
+    ssd = B * H * nc * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * P * N * 2)
+    return proj + conv + ssd
+
+
 def _layer_flops(cfg, kind: str, B: int, S: int) -> float:
+    if kind == "mamba":
+        return _mamba_flops(cfg, B, S)
     if kind != "dense" or cfg.attention_kind != "gqa":
         raise NotImplementedError(
             f"FLOPs of {kind!r}/{cfg.attention_kind!r} layers are not ported")

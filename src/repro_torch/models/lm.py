@@ -1,4 +1,5 @@
-"""Staged decoder LM — the dense training surface of ``repro.models.lm``.
+"""Staged decoder LM — the dense and Mamba2 training surface of
+``repro.models.lm``.
 
 The model is a **chain of stages** — [embed] + [layer chunks] + [head+loss]
 — which is exactly the structure the paper's checkpointing DP consumes.
@@ -6,8 +7,9 @@ Parameters are plain nested dicts of tensors with the JAX package's pytree
 layout: each chunk's layer parameters are **stacked** along a leading
 ``(length, ...)`` axis, and the chunk stage loops over it (the JAX package
 scans it).  With ``scan_layer_remat="full"`` each layer runs under its own
-checkpoint.  MoE, MLA, Mamba, hybrid, VLM/audio stages and the serving
-methods are not ported yet.
+checkpoint.  Layer kinds: ``dense`` (GQA attention + MLP) and ``mamba``
+(the Mamba2 SSD mixer).  MoE, MLA, the Zamba2 hybrid, VLM/audio stages and
+the serving methods are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..core.rematerialize import build_remat_fn, remat
 from ..device import resolve_device
 from ..tree import tree_map
 from . import attention as attn
+from . import mamba2 as m2
 from . import mlp as mlp_mod
 from .common import (dense_apply, dense_init, rms_norm, rms_norm_init,
                      softmax_cross_entropy, truncated_normal_init)
@@ -152,8 +155,11 @@ class ModelConfig:
 # per-layer blocks
 # ---------------------------------------------------------------------------
 
-def _block_init(gen: torch.Generator, cfg, device) -> Params:
+def _block_init(gen: torch.Generator, cfg, kind: str, device) -> Params:
     dt = cfg.param_dtype
+    if kind == "mamba":
+        return {"ln": rms_norm_init(cfg.d_model, dt, device),
+                "mixer": m2.mamba2_init(gen, cfg, dt, device)}
     return {"ln1": rms_norm_init(cfg.d_model, dt, device),
             "attn": attn.gqa_init(gen, cfg, dt, device),
             "ln2": rms_norm_init(cfg.d_model, dt, device),
@@ -161,8 +167,10 @@ def _block_init(gen: torch.Generator, cfg, device) -> Params:
                                     cfg.mlp_kind, cfg.num_layers)}
 
 
-def _apply_block(p: Params, h: torch.Tensor, cfg, mask, positions
-                 ) -> torch.Tensor:
+def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
+                 positions=None) -> torch.Tensor:
+    if kind == "mamba":
+        return h + m2.mamba2_apply(p["mixer"], cfg, rms_norm(p["ln"], h))
     h = h + attn.gqa_apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
                            mask)
     return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h),
@@ -177,9 +185,10 @@ def _stack(trees: List[Params]) -> Params:
 
 def _check_supported(cfg) -> None:
     if (cfg.modality != "text" or cfg.attention_kind != "gqa"
-            or any(k != "dense" for k in cfg.layer_kinds)):
+            or cfg.hybrid_period
+            or any(k not in ("dense", "mamba") for k in cfg.layer_kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA text models are ported "
+            f"{cfg.name}: only dense GQA and Mamba2 text models are ported "
             f"(modality={cfg.modality}, attention={cfg.attention_kind}, "
             f"kinds={sorted(set(cfg.layer_kinds))})")
 
@@ -210,7 +219,7 @@ class StagedLM:
         params: Params = {"embed": {"table": truncated_normal_init(
             gen, (cfg.vocab_size, cfg.d_model), dt, 1.0, dev)}}
         params["chunks"] = [
-            _stack([_block_init(gen, cfg, dev) for _ in range(length)])
+            _stack([_block_init(gen, cfg, kind, dev) for _ in range(length)])
             for kind, start, length in cfg.chunks]
         params["final_norm"] = rms_norm_init(cfg.d_model, dt, dev)
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
@@ -242,15 +251,15 @@ class StagedLM:
 
     def _chunk_stage(self, chunk_idx: int, p: Params, a: Dict) -> Dict:
         cfg = self.cfg
+        kind, _, length = cfg.chunks[chunk_idx]
         h = a["h"]
-        B, S = h.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=h.device)[None].expand(B, S)
-        fn = functools.partial(_apply_block, cfg=cfg,
-                               mask=attn.MaskSpec(causal=True,
-                                                  window=cfg.sliding_window),
-                               positions=positions)
-        length = cfg.chunks[chunk_idx][2]
+        fn = functools.partial(_apply_block, cfg=cfg, kind=kind)
+        if kind == "dense":
+            B, S = h.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=h.device)[None].expand(B, S)
+            fn = functools.partial(fn, mask=attn.MaskSpec(
+                causal=True, window=cfg.sliding_window), positions=positions)
         for j in range(length):
             lp = tree_map(lambda t: t[j], p["chunk"])
             h = remat(fn, lp, h) if cfg.scan_layer_remat == "full" else fn(lp, h)

@@ -1,5 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions on the
-card (marked ``cuda``; skipped without one).  Run on a GPU machine with
+card (marked ``cuda``; skipped without one — except the check that a
+missing ``nvcc`` makes the build raise, which needs no card).  Run on a GPU
+machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -8,7 +10,10 @@ Tolerances: the DP kernels (K1, K5a, K2, K5b) are bit-equal (adds, mins and
 maxes only; every DP quantity of an integer chain is exact in float32);
 flash attention 2e-2 in bf16 (and 2 bf16 ulps + 1e-5 from the float32 plain
 version of the same inputs) and 1e-4 in f32 (another summation order, exp on
-the device); RMSNorm within one bf16 ulp and rtol 1e-6 in f32."""
+the device); RMSNorm within one bf16 ulp and rtol 1e-6 in f32; the SSD
+kernel (K6) 2e-4 (rtol and atol) in f32 and with bf16 x, B, C alike (it
+converts them to float32 exactly, as the plain version does), and the bf16
+output of the whole scan within 2 bf16 ulps + 2e-4."""
 
 import math
 
@@ -29,6 +34,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.offload.executor import execute_offload_schedule  # noqa: E402
 from repro_torch.offload.host_buffer import HostBuffer  # noqa: E402
 from repro_torch.offload.solver import solve_optimal_offload  # noqa: E402
@@ -284,3 +291,101 @@ def test_autograd_functions_on_the_card(dev):
     flash_ref.attention(q, k, v).square().sum().backward()
     for a, t in zip(got, (q, k, v)):
         torch.testing.assert_close(a, t.grad, rtol=1e-3, atol=1e-3)
+
+
+def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H)) * 0.1
+    A = -torch.exp(randn(H) * 0.3)
+    Bm, Cm = ((randn(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(
+        min=1e-30))) - 7)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", [
+    (2, 24, 4, 16, 1, 16, 8), (2, 24, 4, 16, 2, 16, 8),
+    (1, 160, 4, 8, 1, 32, 64), (1, 160, 4, 8, 2, 32, 64),   # ragged S
+    (2, 512, 4, 64, 1, 128, 256), (1, 600, 4, 64, 2, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=S + Q)
+    xp, dtp, Bp, Cp = ssd_ref.pad_to_chunks(Q, x, dt, Bm, Cm)
+    before = counters.snapshot().get(ssd_ops.NAME, 0)
+    got = ssd_ops.ssd_chunk_blocks(xp, dtp, A, Bp, Cp, Q)
+    assert counters.snapshot()[ssd_ops.NAME] == before + 1
+    for a, b in zip(got, ssd_ref.chunk_terms(xp, dtp, A, Bp, Cp, Q)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    (y, st), (wy, wst) = (ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, Q),
+                          ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, Q))
+    torch.testing.assert_close(st, wst, rtol=2e-4, atol=2e-4)
+    assert y.dtype == dtype and y.shape == (B, S, H, P)
+    gap = (y.float() - wy.float()).abs()
+    lim = (2 * _bf16_ulp(wy) if dtype == torch.bfloat16 else
+           2e-4 * wy.abs()) + 2e-4
+    assert bool(torch.all(gap <= lim)), float(gap.max())
+
+
+def test_ssd_kernel_reads_model_layout(dev):
+    """x, B and C as the mixer hands them over: strided views into one
+    (B, S, d_inner + 2·G·N) tensor."""
+    B, S, H, P, G, N, Q = 2, 128, 4, 32, 2, 64, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=g, device=dev)
+    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                 Cm.reshape(B, S, G, N))
+    assert not x.is_contiguous()
+    dt = torch.rand((B, S, H), generator=g, device=dev) * 0.1
+    A = -torch.rand((H,), generator=g, device=dev) * 4
+    for a, b in zip(ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
+                    ssd_ref.chunk_terms(x, dt, A, Bm, Cm, Q)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_rejects_bad_operands(dev):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 1, 16, 2, 128, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, 8)
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 1, 16, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(TypeError, match="float32 dt"):
+        ssd_ops.ssd_chunk_blocks(x, dt.bfloat16(), A, Bm, Cm, 8)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, 5)
+
+
+def test_ssd_autograd_on_the_card(dev):
+    inputs = [t.requires_grad_() for t in _ssd_inputs(dev, 1, 40, 4, 16, 2,
+                                                      16, torch.float32)]
+    y, st = ssd_ops.ssd_chunked(*inputs, 16)
+    got = torch.autograd.grad((y.square().sum() + st.sum()), inputs)
+    y, st = ssd_ref.ssd_chunked(*inputs, 16)
+    want = torch.autograd.grad((y.square().sum() + st.sum()), inputs)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_ssd_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """Needs no card: with no ``nvcc`` on PATH or in CUDA_HOME, building and
+    loading the SSD kernel raises; nothing falls back to the plain version."""
+    from repro_torch.kernels import _build
+
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.setenv("CUDA_HOME", str(empty))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(_build._LIBS, "ssd_chunk", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library("ssd_chunk")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ssd_ops._lib()
+    assert "ssd_chunk" not in _build._LIBS

@@ -60,7 +60,7 @@ def test_no_jax_or_repro_import(path):
 
 def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     from repro_torch.configs import smoke_config
-    from repro_torch.launch import train
+    from repro_torch.launch import profile, train
     from repro_torch.models.lm import StagedLM
     from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
 
@@ -74,6 +74,10 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "1",
                     "--policy", "none"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile.main(["--arch", "mamba2-1.3b", "--policy", "none"])
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        profile.main(["--arch", "mamba2-1.3b", "--device", "cpu"])
     out = train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "1",
                       "--global-batch", "2", "--seq-len", "8",
                       "--policy", "none", "--device", "cpu"])

@@ -4,8 +4,7 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     python3 chip_smoke.py          # from the root of a checkout
 
 1. environment: versions, the card, and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA kernels (one ``nvcc`` per source, in parallel) and the
-   Triton RMSNorm;
+2. build: the five CUDA sources (one ``nvcc`` per source, in parallel);
 3. host link: the median of 20 CUDA-event pinned device-to-host and
    host-to-device copies of one boundary activation (B·S·d_model bf16); the
    slower direction prices the host tier of the offload path;
@@ -13,17 +12,23 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    CUDA inputs — the DP kernels bit-equal (K1 and K5a on random planes; K1,
    K5a, K2 and K5b also as whole DP tables against the numpy banded fills, on
    random integer chains and on the card chain, with and without the host
-   tier), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps of the
-   float32 plain version on the same inputs) and 1e-4 in f32, RMSNorm within
-   one bf16 ulp and rtol 1e-6 in f32, the SSD within-chunk kernel within 2e-4
-   (rtol and atol) in f32 and with bf16 x, B, C against the plain version on
-   the same values in f32 (the kernel converts bf16 to float32 exactly) — at
+   tier), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
+   2^-8 Σp|v|/l + 1e-5 of the float32 plain version on the same inputs, at
+   the full shape for three seeds: the kernel rounds each p to bf16 before
+   P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128, RMSNorm within
+   one bf16 ulp and rtol 1e-6 in f32 at d = 2560, 2048, 4096 and a ragged
+   1000 on an offset base, the SSD within-chunk kernel within 2e-4 (rtol
+   and atol) in f32 and with bf16 x, B, C against the plain version on the
+   same values in f32 (the kernel converts bf16 to float32 exactly) — at
    the Mamba path's full shape, a ragged sequence, and heads that share a
    group;
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
    fused DP fills), at the main paths' shapes, beside the least time the card
-   could take (bytes or operations); and the host-clock time of whole fills,
+   could take (bytes or operations); one call per event pair, so the host's
+   launch time counts where the card waits for it.  K3 and K4 are also timed
+   as device time (``*device_ms``: each call queued behind a sleep kernel),
+   kernel, plain and library alike.  Then the host-clock time of whole fills,
    per-band (``cuda``) against fused (``cuda_fused``), host staging
    included;
 6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
@@ -72,6 +77,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+SLEEP_CYCLES = 2_000_000  # ~1 ms of the card's clock, for device_ms
 
 ARCH = "qwen1.5-4b"
 LAYERS, BATCH, SEQ, STEPS = 8, 4, 2048, 3
@@ -102,6 +108,40 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Like :func:`median_ms`, but each timed call is queued behind a
+    ~1-ms sleep kernel, so that the host's time to launch it (Python, ctypes,
+    tensor maps) falls outside the timed window: the call's device time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def both_ms(kernel, plain, library) -> dict:
+    """A kernel's, its plain version's and the library call's times on both
+    yardsticks: one call per event pair (``ms``, the host's launch time
+    counted where the card waits for it) and behind a sleep kernel
+    (``device_ms``)."""
+    times = {}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        times[f"{key}ms"] = median_ms(fn)
+        times[f"{key}device_ms"] = device_ms(fn)
+    return times
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -188,12 +228,6 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
-    t0 = time.perf_counter()
-    rms_ops.rms_norm_fwd(randn(4, 2560, dtype=torch.bfloat16),
-                         torch.ones(2560, device=dev, dtype=torch.bfloat16))
-    torch.cuda.synchronize()
-    say(f"[build] triton rms_norm compiled and ran in "
-        f"{time.perf_counter() - t0:.2f}s")
 
     # -- 3. host link ----------------------------------------------------------
     cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
@@ -348,6 +382,7 @@ def main() -> int:
 
     flash_err = {}
     for (B, S, H, K, D) in ((2, 200, 8, 2, 16), (1, 300, 4, 1, 64),
+                            (2, 333, 8, 2, 80),
                             (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads,
                              cfg.head_dim)):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
@@ -358,38 +393,59 @@ def main() -> int:
             flash_err[(B, S, H, K, D, dtype)] = err
             say(f"[check] flash_attention_fwd {(B, S, H, K, D)} {dtype}: "
                 f"max |err| {err:.3e} (tol {tol})")
-            if dtype == torch.bfloat16:
-                # the kernel computes in float32 and rounds once on the store:
-                # hold it to the float32 plain version of the same bf16 inputs
-                # within 2 bf16 ulps (+1e-5 for outputs near zero)
-                got = flash_ops.attention_fwd(q, k, v).float()
-                want = flash_ref.attention(q.float(), k.float(), v.float())
-                gap = (got - want).abs()
-                if not bool(torch.all(gap <= 2 * bf16_ulp(want) + 1e-5)):
-                    raise AssertionError(
-                        f"flash {B, S, H, K, D} bf16: max |err| vs float32 "
-                        f"{float(gap.max())} above 2 bf16 ulps")
-                say(f"[check] flash_attention_fwd {(B, S, H, K, D)} bf16 vs "
-                    f"float32 plain: max |err| {float(gap.max()):.3e} "
-                    f"(tol 2 bf16 ulp + 1e-5)")
-                del got, want, gap
             del q, k, v
+        # the kernel rounds o once on the store, and each p <= 1 to bf16
+        # before P·V (as the plain version rounds the probabilities), a
+        # relative error of at most 2^-8: hold it to the float32 plain
+        # version of the same bf16 inputs within 2 bf16 ulps + 2^-8 Σp|v|/l
+        # (+1e-5 near zero), Σp|v|/l being the plain attention of |v|
+        full = (B, S, H, K, D) == (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim)
+        for seed in (1, 2, 3) if full else (1,):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
+                       .to(torch.bfloat16) for h in (H, K, K))
+            got = flash_ops.attention_fwd(q, k, v).float()
+            q, k, v = q.float(), k.float(), v.float()
+            want = flash_ref.attention(q, k, v)
+            gap = (got - want).abs()
+            lim = (2 * bf16_ulp(want) + 2.0 ** -8
+                   * flash_ref.attention(q, k, v.abs()) + 1e-5)
+            if not bool(torch.all(gap <= lim)):
+                raise AssertionError(
+                    f"flash {B, S, H, K, D} bf16 seed {seed}: |err| vs "
+                    f"float32 exceeds 2 bf16 ulps + 2^-8 Σp|v|/l + 1e-5 by "
+                    f"{float((gap - lim).max())}")
+            say(f"[check] flash_attention_fwd {(B, S, H, K, D)} bf16 seed "
+                f"{seed} vs float32 plain: max |err| {float(gap.max()):.3e}, "
+                f"largest |err| / tol {float((gap / lim).max()):.4f} (tol 2 "
+                f"bf16 ulp + 2^-8 Σp|v|/l + 1e-5)")
+            del q, k, v, got, want, gap, lim
 
+    # RMSNorm at the paths' widths (Qwen 2560; Mamba's layer norms 2048 and
+    # its gated norm 4096) and a ragged width on an offset base (the scalar
+    # tail loop)
     rows = BATCH * SEQ
-    xs = {dt: randn(rows, cfg.d_model, dtype=dt)
-          for dt in (torch.bfloat16, torch.float32)}
-    sc = {dt: (1 + 0.1 * randn(cfg.d_model)).to(dt) for dt in xs}
-    got = rms_ops.rms_norm_fwd(xs[torch.bfloat16], sc[torch.bfloat16])
-    want = rms_ref.rms_norm(xs[torch.bfloat16], sc[torch.bfloat16])
-    rms_err = float((got.float() - want.float()).abs().max())
-    if not bool(torch.all((got.float() - want.float()).abs()
-                          <= bf16_ulp(want))):
-        raise AssertionError("rms_norm bf16 differs by more than one ulp")
-    got = rms_ops.rms_norm_fwd(xs[torch.float32], sc[torch.float32])
-    want = rms_ref.rms_norm(xs[torch.float32], sc[torch.float32])
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-    say(f"[check] rms_norm ({rows}, {cfg.d_model}): bf16 within 1 ulp "
-        f"(max |err| {rms_err:.3e}), f32 rtol 1e-6")
+    rms_err = {}
+    for d, offset in ((cfg.d_model, 0), (2048, 0), (4096, 0), (1000, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(rows, d + offset, dtype=dt)[:, offset:]
+            s = (1 + 0.1 * randn(d)).to(dt)
+            got = rms_ops.rms_norm_fwd(x, s)
+            want = rms_ref.rms_norm(x, s)
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.bfloat16:
+                if not bool(torch.all((got.float() - want.float()).abs()
+                                      <= bf16_ulp(want))):
+                    raise AssertionError(f"rms_norm ({rows}, {d}) bf16 "
+                                         f"differs by more than one ulp")
+                rms_err[d] = err
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+            say(f"[check] rms_norm ({rows}, {d}){' offset base' * offset} "
+                f"{dt}: max |err| {err:.3e} "
+                f"({'1 bf16 ulp' if dt == torch.bfloat16 else 'rtol 1e-6'})")
+            del x, s, got, want
 
     mcfg = get_config(MAMBA_ARCH, **{k: tuple(v) if isinstance(v, list) else v
                                      for k, v in MAMBA_OVERRIDES.items()})
@@ -537,29 +593,33 @@ def main() -> int:
         "name": flash_ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-        "ms": median_ms(lambda: flash_ops.attention_fwd(q, k, v)),
-        "plain_ms": median_ms(lambda: flash_ref.attention(q, k, v)),
+        **both_ms(lambda: flash_ops.attention_fwd(q, k, v),
+                  lambda: flash_ref.attention(q, k, v),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
         "max_abs_err": flash_err[(B, S, H, K, D, torch.bfloat16)],
         "shape": f"bf16 q ({B},{S},{H},{D}) k,v ({B},{S},{K},{D})"})
     del q, k, v, qt, kt, vt
 
-    x, s = xs[torch.bfloat16], sc[torch.bfloat16]
-    b_ms, b_by = bound(2 * 2 * rows * cfg.d_model + 2 * cfg.d_model,
-                       4 * rows * cfg.d_model, F32_FLOPS)
+    # K4 at Qwen's width (the row of the kernels line), then at Mamba's
+    rms_rows = []
+    for d in (cfg.d_model, 2048, 4096):
+        x = randn(rows, d, dtype=torch.bfloat16)
+        s = (1 + 0.1 * randn(d)).to(torch.bfloat16)
+        b_ms, b_by = bound(2 * 2 * rows * d + 2 * d, 4 * rows * d, F32_FLOPS)
+        rms_rows.append({
+            **both_ms(lambda: rms_ops.rms_norm_fwd(x, s),
+                      lambda: rms_ref.rms_norm(x, s),
+                      lambda: F.rms_norm(x, (d,), s, 1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": rms_err[d], "shape": f"bf16 ({rows}, {d})"})
+        del x, s
     kernels.append({
-        "name": rms_ops.NAME, "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+        "name": rms_ops.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rms_norm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
-        "ms": median_ms(lambda: rms_ops.rms_norm_fwd(x, s)),
-        "plain_ms": median_ms(lambda: rms_ref.rms_norm(x, s)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": median_ms(lambda: F.rms_norm(x, (cfg.d_model,), s,
-                                                   1e-6)),
-        "max_abs_err": rms_err, "shape": f"bf16 ({rows}, {cfg.d_model})"})
-    del xs, sc, x, s
+        **rms_rows[0], "other_shapes": rms_rows[1:]})
 
     B, S = BATCH, SEQ
     nc = S // Q
@@ -587,10 +647,19 @@ def main() -> int:
                  f"{Q}, {nbytes} B moved"})
     del x, dt, A, Bm, Cm
     for kern in kernels:
-        say(f"[time] {kern['name']} {kern['shape']}: {kern['ms']:.4f} ms, "
-            f"plain {kern['plain_ms']:.4f} ms, library "
-            f"{kern['library_ms']} ms, bound {kern['bound_ms']:.4f} ms "
-            f"({kern['bound_by']}) on {card}")
+        for row in [kern] + kern.get("other_shapes", []):
+            dev_t = (f"; device time {row['device_ms']:.4f} ms, plain "
+                     f"{row['plain_device_ms']:.4f} ms, library "
+                     f"{row['library_device_ms']:.4f} ms"
+                     if "device_ms" in row else "")
+            say(f"[time] {kern['name']} {row['shape']}: {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}){dev_t} on {card}")
+    say("[time] before the redesign, quoted (not measured in this run): the "
+        "first versions as this script timed them on an NVIDIA H100 80GB "
+        "HBM3, 700.00 W, one call per event pair: flash_attention_fwd "
+        "5.7805 ms, rms_norm 0.0612 ms")
     torch.cuda.empty_cache()
 
     # -- 6. rotor path ------------------------------------------------------------

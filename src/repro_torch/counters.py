@@ -1,7 +1,7 @@
 """Kernel launch counts.
 
-Each kernel wrapper adds one to its entry right where it launches its CUDA or
-Triton kernel, and nowhere else (the plain PyTorch branch does not count), so
+Each kernel wrapper adds one to its entry right where it launches its CUDA
+kernel, and nowhere else (the plain PyTorch branch does not count), so
 a run can show that its main path went through the kernels.
 """
 

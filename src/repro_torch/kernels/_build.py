@@ -24,9 +24,12 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("dp_band_min", "dp_fused_fill", "flash_attn_fwd", "ssd_chunk")
+SOURCES = ("dp_band_min", "dp_fused_fill", "flash_attn_fwd", "rms_norm",
+           "ssd_chunk")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +92,14 @@ def library(name: str) -> ctypes.CDLL:
             build_all([name])
             _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return _LIBS[name]
+
+
+def stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, as the launchers
+    take it (read without building a ``torch.cuda.Stream``: host time counts
+    on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None else device.index)
 
 
 def check(status: int, what: str, error_string) -> None:

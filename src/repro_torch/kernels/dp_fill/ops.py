@@ -98,7 +98,7 @@ def band_min_two_tier(r: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     status = lib.dp_band_min_two_tier(
         r.data_ptr(), lm.data_ptr(), out.data_ptr(), d, ns, w,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(status, NAME, lib.dp_band_min_error_string)
     counters.bump(NAME)
     return out
@@ -129,7 +129,7 @@ def band_min_offload(r: torch.Tensor, r3: torch.Tensor, lmb: torch.Tensor,
     lib = _lib()
     status = lib.dp_band_min_offload(
         *(t.data_ptr() for t in planes + (toff,) + outs), d, ns, w,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(status, NAME_OFFLOAD, lib.dp_band_min_error_string)
     counters.bump(NAME_OFFLOAD)
     return outs
@@ -174,7 +174,7 @@ def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
     lib = _fused_lib()
     status = lib.dp_fused_fill_two_tier(
         *(x.data_ptr() for x in (t, r, lm) + ints), L, W, int(allow_fall),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(status, NAME_FUSED, lib.dp_fused_fill_error_string)
     counters.bump(NAME_FUSED)
     return t
@@ -198,7 +198,7 @@ def fused_fill_offload(t0b, t0e, off, wa, wb, cum, uf, ub, mn, ma, toff,
     status = lib.dp_fused_fill_offload(
         *(x.data_ptr() for x in (tb, te) + comps + ints), L, W,
         int(allow_fall), int(host_on),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(status, NAME_FUSED_OFFLOAD, lib.dp_fused_fill_error_string)
     counters.bump(NAME_FUSED_OFFLOAD)
     return tb, te

@@ -3,15 +3,18 @@
 
 The forward runs the Hopper kernel on CUDA tensors (the model layout
 ``(B, S, H, D)`` is read through strides: no transpose, no padding) and the
-plain version on any other device.  The backward recomputes attention from
-the saved ``(q, k, v)`` through the plain :func:`.ref.attention`, as the JAX
-package's custom VJP does — no ``(S × S)`` tensor is kept between forward and
-backward.
+plain version on any other device.  bf16 inputs go to the tensor cores by
+TMA, which needs 16-byte-aligned bases and strides (:func:`tma_strides`
+raises otherwise; nothing falls back); float32 inputs to the scalar kernel.
+The backward recomputes attention from the saved ``(q, k, v)`` through the
+plain :func:`.ref.attention`, as the JAX package's custom VJP does — no
+``(S × S)`` tensor is kept between forward and backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -21,9 +24,11 @@ from .. import _build
 from . import ref
 
 NAME = "flash_attention_fwd"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+_STRIDES = ctypes.c_int64 * 12  # (batch, seq, head) of q, k, v, o
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attn_fwd")
     fn = lib.flash_attn_fwd
@@ -33,6 +38,31 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attn_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tma_strides(t: torch.Tensor, name: str) -> tuple:
+    """The (batch, seq, head) element strides of a bf16 ``(B, S, H, D)``
+    tensor as its TMA map takes them, or a ``ValueError`` naming the layout
+    when the map cannot be built: the base must be 16-byte aligned and every
+    stride a multiple of 16 bytes.  A dimension of size 1 is never stepped
+    along, so its stride is replaced by the contiguous one."""
+    B, S, H, D = t.shape
+    sb, ss, sh, _ = t.stride()
+    if B == 1:
+        sb = S * H * D
+    if S == 1:
+        ss = H * D
+    if H == 1:
+        sh = D
+    off = t.data_ptr() % 16
+    if off or sb % 8 or ss % 8 or sh % 8:
+        raise ValueError(
+            f"flash attention loads bf16 {name} by TMA, which needs a "
+            f"16-byte-aligned base and (batch, seq, head) strides that are "
+            f"multiples of 8 elements; got {name} of shape {tuple(t.shape)} "
+            f"with strides {t.stride()} and its base {off} bytes past a "
+            f"16-byte boundary")
+    return sb, ss, sh
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -56,20 +86,22 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (k.device == v.device == q.device):
+    if not (k.get_device() == v.get_device() == q.get_device()):
         raise ValueError("q, k, v must be on one device")
-    if min(t.stride(-1) for t in (q, k, v)) != 1:
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash attention needs a contiguous head dimension")
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if Sq == 0:
         return o
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
-                                      for s in t.stride()[:3]))
+    qkv = ([tma_strides(t, n) for t, n in zip((q, k, v), "qkv")] if bf16
+           else [t.stride()[:3] for t in (q, k, v)])
+    strides = _STRIDES(*qkv[0], *qkv[1], *qkv[2], *o.stride()[:3])
     lib = _lib()
     status = lib.flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, K, Sq, Skv, D, strides,
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bf16), B, H, K, Sq, Skv, D, strides, 1.0 / math.sqrt(D),
+        _build.stream(q.device))
     _build.check(status, NAME, lib.flash_attn_error_string)
     counters.bump(NAME)
     return o

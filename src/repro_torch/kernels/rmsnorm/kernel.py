@@ -1,66 +1,78 @@
-"""Fused RMSNorm — Triton kernel for Hopper.
+"""Fused RMSNorm: the ``ctypes`` binding of ``csrc/rms_norm.cu`` (K4).
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm/kernel.py ::
-rms_norm_2d``.  One program normalizes one row of ``x (N, d)``: it loads the
-row once (``BLOCK_D`` = the next power of two of ``d``, masked), reduces the
-sum of squares in float32, multiplies by ``rsqrt(mean + eps)`` and the scale
-in the same pass, and stores the row in ``x``'s dtype.
+rms_norm_2d``.  One warp normalizes one row of ``x (N, d)`` at a time, from
+16-byte vectors held in registers, with the scale kept in registers across
+the rows; a persistent grid of warps strides over the rows.  The source note
+of ``rms_norm.cu`` says what bounds it (bytes) and what the design does
+about that.
 
-Bound: bytes (one read and one write of ``x``; a handful of operations per
-element).  The single pass is the design: the row never goes back to device
-memory between the reduction and the scale.  Unlike the TPU kernel, rows are
-not padded to a multiple of 8 — a program per row needs no row tiling.
-
-Triton is imported, and the kernel compiled, at the first launch: the module
-itself imports without Triton, so CPU-only installs can import the package.
+The library is built by ``nvcc`` at the first launch (:mod:`.._build`), so
+the module imports on machines without CUDA.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-tl = None  # triton.language, bound by _compiled() at the first launch
+from .. import _build
 
-
-def _rms_norm_rows(x_ptr, s_ptr, o_ptr, x_row_stride, o_row_stride, d, eps,
-                   BLOCK_D: tl.constexpr):
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK_D)
-    mask = cols < d
-    x = tl.load(x_ptr + row * x_row_stride + cols, mask=mask,
-                other=0.0).to(tl.float32)
-    inv = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
-    s = tl.load(s_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-    y = x * inv * s
-    tl.store(o_ptr + row * o_row_stride + cols,
-             y.to(o_ptr.dtype.element_ty), mask=mask)
+NAME = "rms_norm"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
-def _compiled():
-    global tl
-    import triton
-    import triton.language
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("rms_norm")
+    fn = lib.rms_norm_fwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.rms_norm_error_string.argtypes = [ctypes.c_int]
+    lib.rms_norm_error_string.restype = ctypes.c_char_p
+    return lib
 
-    tl = triton.language
-    return triton.jit(_rms_norm_rows)
+
+def kernel_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The scale as the kernel reads it: in ``x``'s dtype if it has it, else
+    in float32 (exact for every floating dtype the kernel takes)."""
+    return scale if scale.dtype == x.dtype else scale.float()
+
+
+def launch(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
+           rows: int, x_stride: int, eps: float) -> None:
+    """Normalize ``rows`` rows of ``d = x.shape[-1]`` elements, ``x_stride``
+    elements apart, into the row-contiguous ``out``; the caller has checked
+    the layouts (unit-stride rows and scale, a dtype of ``DTYPES``)."""
+    if rows == 0:
+        return
+    d = x.shape[-1]
+    s = kernel_scale(x, scale)
+    lib = _lib()
+    status = lib.rms_norm_fwd(
+        x.data_ptr(), s.data_ptr(), int(s.dtype != x.dtype), out.data_ptr(),
+        DTYPES[x.dtype], rows, d, x_stride, d, eps, _build.stream(x.device))
+    if status:
+        _build.check(status, NAME, lib.rms_norm_error_string)
 
 
 def rms_norm_2d(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
                 ) -> torch.Tensor:
-    """x: (N, d) CUDA tensor with contiguous rows; scale: (d,) contiguous."""
-    import triton
-
+    """x: (N, d) CUDA tensor with unit-stride rows; scale: (d,) contiguous.
+    Returns ``x * rsqrt(mean(x²) + eps) * scale`` row by row, in float32,
+    stored in ``x``'s dtype."""
     N, d = x.shape
     if x.stride(1) != 1 or scale.stride(0) != 1:
         raise ValueError("rms_norm kernel needs unit-stride rows and scale, "
                          f"got x strides {x.stride()}, scale {scale.stride()}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"rms_norm kernel takes {sorted(map(str, DTYPES))}, "
+                        f"got {x.dtype}")
     out = torch.empty((N, d), dtype=x.dtype, device=x.device)
-    if N == 0:
-        return out
-    block = triton.next_power_of_2(d)
-    _compiled()[(N,)](x, scale, out, x.stride(0), out.stride(0), d, eps,
-                      BLOCK_D=block, num_warps=min(max(block // 256, 1), 8))
+    launch(x, scale, out, N, x.stride(0), eps)
     return out

@@ -1,7 +1,8 @@
-"""Differentiable RMSNorm on the Triton kernel: flattens the leading
-dimensions, runs the kernel on CUDA tensors and the plain version on any
-other device; the backward recomputes through :func:`.ref.rms_norm` from the
-saved ``(x, scale)``, as the JAX package's custom VJP does."""
+"""Differentiable RMSNorm on the CUDA kernel (``csrc/rms_norm.cu``):
+flattens the leading dimensions, runs the kernel on CUDA tensors and the
+plain version on any other device; the backward recomputes through
+:func:`.ref.rms_norm` from the saved ``(x, scale)``, as the JAX package's
+custom VJP does."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 
 from ... import counters
 from . import ref
+from . import kernel
 
 NAME = "rms_norm"
 
@@ -18,18 +20,21 @@ def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     if not x.is_cuda:
         return ref.rms_norm(x, scale, eps)
     d = x.shape[-1]
-    if scale.shape != (d,) or scale.device != x.device:
+    if scale.shape != (d,) or scale.get_device() != x.get_device():
         raise ValueError(f"rms_norm needs a ({d},) scale on {x.device}, got "
                          f"{tuple(scale.shape)} on {scale.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in kernel.DTYPES:
         raise TypeError(f"rms_norm takes a floating x, got {x.dtype}")
     if x.stride(-1) != 1:
         raise ValueError("rms_norm needs a contiguous last dimension")
-    from .kernel import rms_norm_2d
-
-    out = rms_norm_2d(x.reshape(-1, d), scale.contiguous(), eps)
+    scale = scale.contiguous()
+    if x.is_contiguous():   # the model's case: rows d apart, no reshape
+        out = torch.empty_like(x)
+        kernel.launch(x, scale, out, x.numel() // max(d, 1), d, eps)
+    else:
+        out = kernel.rms_norm_2d(x.reshape(-1, d), scale, eps).view_as(x)
     counters.bump(NAME)
-    return out.reshape(x.shape)
+    return out
 
 
 class _RMSNorm(torch.autograd.Function):

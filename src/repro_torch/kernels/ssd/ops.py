@@ -92,7 +92,7 @@ def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
         int(x.dtype == torch.bfloat16), Bsz, S, H, G, P, N, chunk, strides,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x.device))
     _build.check(status, NAME, lib.ssd_chunk_error_string)
     counters.bump(NAME)
     return y, states

@@ -31,10 +31,11 @@ from ..runtime.train_loop import run_training
 from . import train
 from .steps import make_offload_step, make_train_step
 
-# kernel-name fragments of the port's own kernels, by wrapper name
-PORT_KERNELS = {"ssd_chunk": "ssd_chunk_kernel",
-                "flash_attention_fwd": "flash_fwd_kernel",
-                "rms_norm": "_rms_norm_rows"}
+# kernel-name fragments of the port's own kernels, by wrapper name (K3: the
+# bf16 tensor-core kernel and the float32 scalar one)
+PORT_KERNELS = {"ssd_chunk": ("ssd_chunk_kernel",),
+                "flash_attention_fwd": ("flash_fwd_sm90", "flash_fwd_kernel"),
+                "rms_norm": ("rms_norm_kernel",)}
 MATMUL = ("gemm", "nvjet", "xmma", "cutlass", "splitKreduce")
 AUTOGRAD_FUNCTIONS = ("_SSDChunkedBackward", "_FlashAttentionBackward",
                       "_RMSNormBackward")
@@ -42,8 +43,8 @@ TOP = 15
 
 
 def _group(name: str) -> str:
-    for wrapper, fragment in PORT_KERNELS.items():
-        if fragment in name:
+    for wrapper, fragments in PORT_KERNELS.items():
+        if any(f in name for f in fragments):
             return wrapper
     if any(m in name for m in MATMUL):
         return "cuBLAS matmul"

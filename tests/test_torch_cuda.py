@@ -8,12 +8,16 @@ machine with
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: the DP kernels (K1, K5a, K2, K5b) are bit-equal (adds, mins and
 maxes only; every DP quantity of an integer chain is exact in float32);
-flash attention 2e-2 in bf16 (and 2 bf16 ulps + 1e-5 from the float32 plain
-version of the same inputs) and 1e-4 in f32 (another summation order, exp on
-the device); RMSNorm within one bf16 ulp and rtol 1e-6 in f32; the SSD
-kernel (K6) 2e-4 (rtol and atol) in f32 and with bf16 x, B, C alike (it
-converts them to float32 exactly, as the plain version does), and the bf16
-output of the whole scan within 2 bf16 ulps + 2e-4."""
+flash attention 2e-2 in bf16, and 2 bf16 ulps + 2^-8 Σ p |v| / l + 1e-5
+from the float32 plain version of the same inputs (the kernel rounds each
+p <= 1 to bf16 before P·V, as the plain bf16 version rounds the
+probabilities: a relative error of at most 2^-8, since bf16 keeps 8
+significant bits; Σ p |v| / l is the plain attention of |v|, at most
+max|v|), and 1e-4 in f32 (another summation order, exp on the device);
+RMSNorm within one bf16 ulp and rtol 1e-6 in f32; the SSD kernel (K6) 2e-4
+(rtol and atol) in f32 and with bf16 x, B, C alike (it converts them to
+float32 exactly, as the plain version does), and the bf16 output of the
+whole scan within 2 bf16 ulps + 2e-4."""
 
 import math
 
@@ -48,6 +52,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(
+        min=1e-30))) - 7)
 
 
 @pytest.mark.parametrize("d,ns,w", [(1, 1, 4), (3, 5, 17), (9, 2, 501),
@@ -221,24 +230,40 @@ def test_offload_walker_on_cuda_matches_store_all(dev):
         torch.testing.assert_close(a["w"], b["w"], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("B,S,H,K,D", [(1, 37, 4, 2, 16), (2, 64, 8, 1, 64),
-                                       (1, 130, 4, 4, 128), (2, 96, 6, 2, 32)])
+def _bf16_flash_bound(got, q, k, v):
+    """|got − want| against the float32 plain version of the same bf16
+    inputs: 2 bf16 ulps of want (the rounding of o, and float32 sums in
+    another order) + 2^-8 Σ p |v| / l (each p rounded to bf16 before P·V,
+    a relative error of at most 2^-8) + 1e-5."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_ref.attention(qf, kf, vf)
+    lim = (2 * _bf16_ulp(want) + 2.0 ** -8 * flash_ref.attention(qf, kf,
+                                                                 vf.abs())
+           + 1e-5)
+    gap = (got.float() - want).abs()
+    assert bool(torch.all(gap <= lim)), float((gap - lim).max())
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (1, 37, 4, 2, 16), (2, 64, 8, 1, 64), (1, 130, 4, 4, 128),
+    (2, 96, 6, 2, 32),
+    # head dim 80 and ragged lengths around one tile, group 1 and group 4
+    (2, 1, 4, 4, 80), (1, 63, 8, 2, 80), (2, 65, 4, 4, 80),
+    (1, 1000, 8, 2, 80), (1, 1, 8, 2, 128), (2, 63, 4, 4, 64),
+    (1, 65, 8, 2, 16), (1, 1000, 4, 4, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(S + D)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
                for h in (H, K, K))
+    before = counters.snapshot().get(flash_ops.NAME, 0)
     got = flash_ops.attention_fwd(q, k, v)
+    assert counters.snapshot()[flash_ops.NAME] == before + 1
     torch.testing.assert_close(got, flash_ref.attention(q, k, v), rtol=tol,
                                atol=tol)
     if dtype == torch.bfloat16:
-        # float32 inside, one rounding on the store: within 2 bf16 ulps of
-        # the float32 plain version of the same inputs
-        want = flash_ref.attention(q.float(), k.float(), v.float())
-        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30)))
-                         - 7)
-        assert bool(torch.all((got.float() - want).abs() <= 2 * ulp + 1e-5))
+        _bf16_flash_bound(got, q, k, v)
 
 
 def test_flash_kernel_reads_strided_layout(dev):
@@ -250,24 +275,73 @@ def test_flash_kernel_reads_strided_layout(dev):
                                atol=1e-4)
 
 
+def test_flash_kernel_reads_strided_layout_bf16(dev):
+    """bf16 views of one fused tensor, 16-byte aligned: the TMA maps read
+    them in place through their strides."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn((2, 50, 3, 4, 32), generator=g,
+                      device=dev).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and k.data_ptr() % 16 == 0
+    got = flash_ops.attention_fwd(q, k, v)
+    torch.testing.assert_close(got, flash_ref.attention(q, k, v), rtol=2e-2,
+                               atol=2e-2)
+    _bf16_flash_bound(got, q, k, v)
+
+
+def test_flash_kernel_rejects_unaligned_bf16(dev):
+    buf = torch.zeros(2 * 8 * 2 * 16 + 1, device=dev, dtype=torch.bfloat16)
+    shifted = buf[1:].view(2, 8, 2, 16)            # base 2 bytes off
+    padded = torch.zeros((2, 8, 2, 20), device=dev,
+                         dtype=torch.bfloat16)[..., :16]   # head stride 20
+    ok = torch.zeros((2, 8, 2, 16), device=dev, dtype=torch.bfloat16)
+    for bad in (shifted, padded):
+        with pytest.raises(ValueError, match="TMA"):
+            flash_ops.attention_fwd(bad, ok, ok)
+        with pytest.raises(ValueError, match="TMA"):
+            flash_ops.attention_fwd(ok, ok, bad)
+
+
 def test_flash_kernel_rejects_other_head_dims(dev):
     q = torch.zeros((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.attention_fwd(q, q, q)
 
 
-@pytest.mark.parametrize("shape", [(7, 2560), (3, 5, 100), (64, 16)])
+@pytest.mark.parametrize("shape", [(7, 2560), (3, 5, 100), (64, 16),
+                                   (33, 2048), (130, 2560), (16, 4096),
+                                   (9, 1000), (5, 1001)])
 def test_rms_norm_kernel_matches_plain(dev, shape):
     g = torch.Generator(device=dev).manual_seed(shape[-1])
     x = torch.randn(shape, generator=g, device=dev)
     s = 1 + 0.1 * torch.randn(shape[-1:], generator=g, device=dev)
+    before = counters.snapshot().get(rms_ops.NAME, 0)
     torch.testing.assert_close(rms_ops.rms_norm_fwd(x, s),
                                rms_ref.rms_norm(x, s), rtol=1e-6, atol=0)
+    assert counters.snapshot()[rms_ops.NAME] == before + 1
     xb, sb = x.bfloat16(), s.bfloat16()
     got = rms_ops.rms_norm_fwd(xb, sb).float()
     want = rms_ref.rms_norm(xb, sb).float()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
-    assert bool(torch.all((got - want).abs() <= ulp))
+    assert bool(torch.all((got - want).abs() <= _bf16_ulp(want)))
+    # a float32 scale beside bf16 rows
+    got = rms_ops.rms_norm_fwd(xb, s).float()
+    want = rms_ref.rms_norm(xb, s).float()
+    assert bool(torch.all((got - want).abs() <= _bf16_ulp(want)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_offset_base(dev, dtype):
+    """Rows whose base is not 16-byte aligned take the scalar tail loop."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    big = torch.randn((12, 1010), generator=g, device=dev).to(dtype)
+    x = big[:, 1:1001]
+    s = (1 + 0.1 * torch.randn((1000,), generator=g, device=dev)).to(dtype)
+    got = rms_ops.rms_norm_fwd(x, s).float()
+    want = rms_ref.rms_norm(x, s).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert bool(torch.all((got - want).abs() <= _bf16_ulp(want)))
 
 
 def test_rms_norm_kernel_strided_rows(dev):
@@ -304,11 +378,6 @@ def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
     A = -torch.exp(randn(H) * 0.3)
     Bm, Cm = ((randn(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
     return x, dt, A, Bm, Cm
-
-
-def _bf16_ulp(x):
-    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(
-        min=1e-30))) - 7)
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,Q", [

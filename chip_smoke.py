@@ -18,19 +18,20 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128, RMSNorm within
    one bf16 ulp and rtol 1e-6 in f32 at d = 2560, 2048, 4096 and a ragged
    1000 on an offset base, the SSD within-chunk kernel within 2e-4 (rtol
-   and atol) in f32 and with bf16 x, B, C against the plain version on the
-   same values in f32 (the kernel converts bf16 to float32 exactly) — at
-   the Mamba path's full shape, a ragged sequence, and heads that share a
-   group;
+   and atol) in f32 (scalar kernel) and with bf16 x, B, C (tensor-core
+   kernel, W and the scaled x split into bf16 hi + lo) against the plain
+   version on the same values in f32 — at the Mamba path's full shape, a
+   ragged sequence, heads that share a group, a group whose 12 heads
+   do not fill whole slices of 8, and the Mamba path's own layout (x, B, C
+   as strided views into the mixer's one xBC tensor);
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
    fused DP fills), at the main paths' shapes, beside the least time the card
-   could take (bytes or operations); one call per event pair, so the host's
-   launch time counts where the card waits for it.  K3 and K4 are also timed
-   as device time (``*device_ms``: each call queued behind a sleep kernel),
-   kernel, plain and library alike.  Then the host-clock time of whole fills,
-   per-band (``cuda``) against fused (``cuda_fused``), host staging
-   included;
+   could take (bytes or operations), on two yardsticks: one call per event
+   pair (``ms``: the host's launch time counts where the card waits for it)
+   and as device time (``*device_ms``: each call queued behind a sleep
+   kernel).  Then the host-clock time of whole fills, per-band (``cuda``)
+   against fused (``cuda_fused``), host staging included;
 6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
    width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
    plan solved on the CUDA band-min kernel at the midpoint budget between the
@@ -132,16 +133,25 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def both_ms(kernel, plain, library) -> dict:
-    """A kernel's, its plain version's and the library call's times on both
-    yardsticks: one call per event pair (``ms``, the host's launch time
-    counted where the card waits for it) and behind a sleep kernel
-    (``device_ms``)."""
-    times = {}
-    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        times[f"{key}ms"] = median_ms(fn)
-        times[f"{key}device_ms"] = device_ms(fn)
+def both_ms(kernel, plain, library=None) -> dict:
+    """A kernel's, its plain version's and the library call's times (None
+    without one) on both yardsticks: one call per event pair (``ms``, the
+    host's launch time counted where the card waits for it) and behind a
+    sleep kernel (``device_ms``)."""
+    fns = (("", kernel), ("plain_", plain), ("library_", library))
+    # the three event-pair times back to back, then the three device times,
+    # so no sleep kernel runs between the calls compared on the first
+    times = {f"{key}ms": None if fn is None else median_ms(fn)
+             for key, fn in fns}
+    times.update({f"{key}device_ms": None if fn is None else device_ms(fn)
+                  for key, fn in fns})
     return times
+
+
+def add_times(total: dict, times: dict) -> dict:
+    """``total`` plus ``times``, key by key (bands of one fill)."""
+    return {k: v if total.get(k) is None else total[k] + v
+            for k, v in times.items()}
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -461,8 +471,17 @@ def main() -> int:
                 0.3 * randn(B, S, G, N, dtype=dtype),
                 0.3 * randn(B, S, G, N, dtype=dtype))
 
+    def ssd_kind(dtype, H, G):
+        slice_ = ssd_ops.head_slice(dtype, P, N, Q, H, G)
+        return (f"tensor-core kernel, slices of {slice_} heads" if slice_
+                else "scalar kernel")
+
     ssd_err = {}
-    for (B, S, H, G_) in ((BATCH, SEQ, Hs, G), (2, 1000, 8, G), (1, 512, 8, 4)):
+    # the Mamba path's shape, a ragged sequence, heads that share a group,
+    # and a group of 12 heads: a slice of 8 and a ragged slice of 4 on the
+    # bf16 tensor-core kernel
+    for (B, S, H, G_) in ((BATCH, SEQ, Hs, G), (2, 1000, 8, G), (1, 512, 8, 4),
+                          (1, 512, 12, 1)):
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, A, Bm, Cm = ssd_inputs(B, S, H, G_, dtype)
             xp, dtp, Bp, Cp = ssd_ref.pad_to_chunks(Q, x, dt, Bm, Cm)
@@ -480,24 +499,50 @@ def main() -> int:
             if not (y.shape == wy.shape and bool(torch.isfinite(y).all())):
                 raise AssertionError(f"{what}: scan output {tuple(y.shape)}")
             ssd_err[(B, S, H, G_, dtype)] = err
-            say(f"[check] {what}: kernel vs plain max |err| {err:.3e} "
+            say(f"[check] {what} ({ssd_kind(dtype, H, G_)}): kernel vs "
+                f"plain max |err| {err:.3e} "
                 f"(tol 2e-4 rtol+atol, plain in f32 on the same values); "
                 f"whole scan's final state within 2e-4")
             del x, dt, A, Bm, Cm, xp, dtp, Bp, Cp, y, st, wy, wst
+    # the Mamba path's layout: x, B and C are strided views into the mixer's
+    # one (B, S, d_inner + 2·G·N) tensor, split as the mixer splits it
+    d_inner = Hs * P
+    for dtype in (torch.float32, torch.bfloat16):
+        xbc = randn(BATCH, SEQ, d_inner + 2 * G * N, dtype=dtype)
+        xbc[..., d_inner:] *= 0.3
+        x, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+        x = x.reshape(BATCH, SEQ, Hs, P)
+        Bm, Cm = (t.reshape(BATCH, SEQ, G, N) for t in (Bm, Cm))
+        dt = F.softplus(randn(BATCH, SEQ, Hs)) * 0.1
+        A = -torch.exp(torch.linspace(0.0, math.log(16.0), Hs, device=dev))
+        what = (f"ssd_chunk {(BATCH, SEQ, Hs, P, G, N, Q)} {dtype} as strided "
+                f"views into the mixer's xBC")
+        err = max(check_close(f"{what} {part}", a_, b_, 2e-4)
+                  for part, a_, b_ in zip(
+                      ("y_diag", "states"),
+                      ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
+                      ssd_ref.chunk_terms(x.float(), dt, A, Bm.float(),
+                                          Cm.float(), Q)))
+        say(f"[check] {what} ({ssd_kind(dtype, Hs, G)}, row stride "
+            f"{x.stride(1)}): kernel vs plain max |err| {err:.3e} (tol 2e-4 "
+            f"rtol+atol, plain in f32 on the same values)")
+        del xbc, x, Bm, Cm, dt, A
     torch.cuda.empty_cache()
 
     # -- 5. timing at the main path's shapes -------------------------------------
     kernels = []
     caps = dp_kernels.saturation_caps(dp_kernels._views(dchain), S500)
-    ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    times, nbytes, ops = {}, 0.0, 0.0
     for d in range(1, chain.length + 1):
         ns = chain.length + 1 - d
         w = dp_kernels.band_width(caps, d, S500)
         r, lm = planes(d, ns, w)
-        ms += median_ms(lambda: dp_ops.band_min_two_tier(r, lm))
-        plain_ms += median_ms(lambda: dp_ref.band_min_two_tier(r, lm))
-        # the library call is the plain version's own expression
-        lib_ms += median_ms(lambda: torch.amin(r + lm, 0))
+        # the library call is the plain version's own expression; each of
+        # the three allocates its output
+        times = add_times(times, both_ms(
+            lambda: dp_ops.band_min_two_tier(r, lm),
+            lambda: dp_ref.band_min_two_tier(r, lm),
+            lambda: torch.amin(r + lm, 0)))
         nbytes += 4 * (2 * d + 1) * ns * w
         ops += 2 * d * ns * w
     b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
@@ -505,23 +550,22 @@ def main() -> int:
         "name": dp_ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
         "replaces": "src/repro/kernels/dp_fill/kernel.py:86",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "max_abs_err": dp_err,
+        **times, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dp_err,
         "shape": f"one fill: {chain.length} bands of (d, L+1-d, W)"})
 
     # K5a: the bands of the card chain's offload fill at the offload budget
     caps_off = dp_kernels.saturation_caps(dp_kernels._views(hdchain), S500)
-    ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    times, nbytes, ops = {}, 0.0, 0.0
     for d in range(1, chain.length + 1):
         ns = chain.length + 1 - d
         w = dp_kernels.band_width(caps_off, d, S500)
         r, r3, lmb, lme, lmb3, toff = offload_planes(d, ns, w)
         ops5 = (r, r3, lmb, lme, lmb3, toff)
-        ms += median_ms(lambda: dp_ops.band_min_offload(*ops5))
-        plain_ms += median_ms(lambda: dp_ref.band_min_offload(*ops5))
-        lib_ms += median_ms(lambda: (
-            torch.amin(r + lmb, 0), torch.amin(r + lme, 0),
-            torch.amin(torch.maximum(r3, toff) + lmb3, 0)))
+        times = add_times(times, both_ms(
+            lambda: dp_ops.band_min_offload(*ops5),
+            lambda: dp_ref.band_min_offload(*ops5),
+            lambda: (torch.amin(r + lmb, 0), torch.amin(r + lme, 0),
+                     torch.amin(torch.maximum(r3, toff) + lmb3, 0))))
         nbytes += 4 * (5 * d * ns * w + ns + 3 * ns * w)
         ops += 7 * d * ns * w
     b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
@@ -529,8 +573,7 @@ def main() -> int:
         "name": dp_ops.NAME_OFFLOAD, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
         "replaces": "src/repro/kernels/dp_fill/kernel.py:142",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "max_abs_err": 0.0,
+        **times, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
         "shape": f"one offload fill: {chain.length} bands of five "
                  f"(d, L+1-d, W) planes"})
 
@@ -554,10 +597,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/dp_fill/kernel.py:{line}",
-            "ms": median_ms(run), "plain_ms": median_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call runs a DP recursion
-            "library_ms": None, "max_abs_err": 0.0,
+            # no single PyTorch call runs a DP recursion: no library call
+            **both_ms(run, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": 0.0,
             "shape": f"one fill: ({fused.ncells}, {fused.W}) f32 tables, "
                      f"{chain.length} bands + the base companions, one "
                      f"C call of {chain.length + 1} launches"})
@@ -635,31 +677,27 @@ def main() -> int:
         "name": ssd_ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:55",
-        "ms": median_ms(lambda: ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm,
-                                                         Q)),
-        "plain_ms": median_ms(lambda: ssd_ref.chunk_terms(x, dt, A, Bm, Cm,
-                                                          Q)),
-        "bound_ms": b_ms, "bound_by": b_by,
         # no PyTorch call computes the SSD within-chunk terms
-        "library_ms": None,
+        **both_ms(lambda: ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
+                  lambda: ssd_ref.chunk_terms(x, dt, A, Bm, Cm, Q)),
+        "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": ssd_err[(B, S, Hs, G, torch.bfloat16)],
         "shape": f"bf16 x ({B},{S},{Hs},{P}) B,C ({B},{S},{G},{N}), chunk "
                  f"{Q}, {nbytes} B moved"})
     del x, dt, A, Bm, Cm
     for kern in kernels:
         for row in [kern] + kern.get("other_shapes", []):
-            dev_t = (f"; device time {row['device_ms']:.4f} ms, plain "
-                     f"{row['plain_device_ms']:.4f} ms, library "
-                     f"{row['library_device_ms']:.4f} ms"
-                     if "device_ms" in row else "")
             say(f"[time] {kern['name']} {row['shape']}: {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, library "
                 f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}){dev_t} on {card}")
-    say("[time] before the redesign, quoted (not measured in this run): the "
-        "first versions as this script timed them on an NVIDIA H100 80GB "
-        "HBM3, 700.00 W, one call per event pair: flash_attention_fwd "
-        "5.7805 ms, rms_norm 0.0612 ms")
+                f"({row['bound_by']}); device time {row['device_ms']:.4f} "
+                f"ms, plain {row['plain_device_ms']:.4f} ms, library "
+                f"{row['library_device_ms']} ms on {card}")
+    say("[time] before the redesigns, quoted (not measured in this run): "
+        "the earlier versions as this script timed them on an NVIDIA H100 "
+        "80GB HBM3, 700.00 W, one call per event pair: flash_attention_fwd "
+        "5.7805 ms, rms_norm 0.0612 ms, ssd_chunk 2.1108 ms, "
+        "dp_band_min_two_tier 0.2258 ms against torch.amin 0.2067 ms")
     torch.cuda.empty_cache()
 
     # -- 6. rotor path ------------------------------------------------------------

@@ -9,7 +9,10 @@ flags, so an edited source is rebuilt and a stale library is never loaded.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 
 Nothing is built at import: the first launch of a kernel builds and loads its
-library, and a failed build raises.
+library, and a failed build raises.  A wrapper holds each C function as a
+:class:`Binding`, whose ``argtypes`` and ``restype`` are set once, when the
+library loads; a launch then costs one attribute read before the ``ctypes``
+call, with no lock.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -94,18 +97,38 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def stream(device: torch.device) -> int:
-    """The handle of the current CUDA stream on ``device``, as the launchers
-    take it (read without building a ``torch.cuda.Stream``: host time counts
-    on every launch)."""
-    return torch._C._cuda_getCurrentRawStream(
-        torch.cuda.current_device() if device.index is None else device.index)
+class Binding:
+    """One C function of ``csrc/<lib>.cu``: ``fn`` is the ``ctypes``
+    function, typed, once :meth:`load` has run (``None`` before)."""
+
+    __slots__ = ("lib", "name", "argtypes", "restype", "fn")
+
+    def __init__(self, lib: str, name: str, argtypes: Sequence[Any],
+                 restype: Any = ctypes.c_int):
+        self.lib, self.name = lib, name
+        self.argtypes, self.restype = list(argtypes), restype
+        self.fn: Optional[Any] = None
+
+    def load(self):
+        """Build and load the library if need be, type the function, keep
+        it in ``fn`` and return it."""
+        fn = getattr(library(self.lib), self.name)
+        fn.argtypes, fn.restype = self.argtypes, self.restype
+        self.fn = fn
+        return fn
 
 
-def check(status: int, what: str, error_string) -> None:
+def stream(index: int) -> int:
+    """The handle of the current CUDA stream on the device of this index (a
+    tensor's ``get_device()``), as the launchers take it (read without
+    building a ``torch.cuda.Stream``: host time counts on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def check(status: int, what: str, error_string: Binding) -> None:
     """Raise if a launcher returned a CUDA error code (a refused launch
     never runs, and a later synchronize would not report it);
-    ``error_string`` is the library's ``cudaGetErrorString`` export."""
+    ``error_string`` binds the library's ``cudaGetErrorString`` export."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} "
-                           f"({error_string(status).decode()})")
+        text = (error_string.fn or error_string.load())(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({text})")

@@ -11,9 +11,8 @@
 // and writes both in float32: y_diag as (B, S, H, P), states as
 // (B, S/Q, H, P, N).  x (B, S, H, P) and B, C (B, S, G, N) are float32 or
 // bfloat16 and read through their element strides (last axis contiguous);
-// dt (B, S, H) and A (H,) are float32.  B and C are never repeated per head:
-// each block reads its head's group directly.  S is a multiple of Q (the
-// wrapper pads).
+// dt (B, S, H) and A (H,) are float32.  B and C are never repeated per head.
+// S is a multiple of Q (the wrapper pads).
 //
 // Bound: bytes.  At B = 4, S = 2048, H = 64, P = 64, N = 128, Q = 256, G = 1
 // with x, B, C in bf16 the function moves 274,726,912 B per call (x 67.1 MB,
@@ -21,26 +20,47 @@
 // written), 0.082 ms at 3.35 TB/s, against ~35 GFLOP of causal products
 // (0.035 ms at the bf16 tensor-core rate).
 //
-// The TPU kernel holds a whole (Q x Q) float32 tile in VMEM (256 KB at
-// Q = 256), more than the 227 KB of shared memory a Hopper block can use.
-// This first version is the simple, correct one: float32 FMAs on the CUDA
-// cores, no tensor cores, no TMA.  Each block of 256 threads computes the
-// chunk's cumulative sum itself (a warp-shuffle scan), then either one
-// 64-row tile of y_diag or the chunk's state:
+// Two kernels; ssd_chunk_fwd picks one, as ssd_chunk_head_slice says:
 //
-// - a y tile loops over the 64-column tiles j0 <= i0 of the chunk: the
-//   (64 x 64) scores C_i . B_j over N, each thread a 4 x 4 block from
-//   registers, are scaled by exp(cs_i - cs_j) dt_j where j <= i and set to
-//   0 above the diagonal without evaluating exp there (cs_i - cs_j > 0
-//   there, and exp could overflow), then accumulated times the x tile into
-//   the (64 x P) output, 4 x 4 per thread;
-// - the state block scales each B row by exp(cs_{Q-1} - cs_j) dt_j and
-//   accumulates x_j^T B_j over the chunk, 4 x 8 outputs per thread.
-//
-// Tiles live in shared memory as float32, B and C rows at an odd stride so
-// that column reads are free of bank conflicts; ragged tiles (Q < 64, or Q
-// not a multiple of 64) are zero-filled and bounds-checked.  The heaviest
-// y tile of each chunk is launched first.
+// - ssd_chunk_mma (namespace tc): bf16 x, B, C at P = 64, N = 128, Q = 256,
+//   the main path, on the tensor cores (mma.sync.m16n8k16, bf16 operands,
+//   float32 accumulators).  A block of 8 warps owns (batch, chunk, group,
+//   a slice of at most 8 of the group's heads, one of two halves of the
+//   chunk's work):
+//     * C . B^T does not depend on the head, so the block computes the
+//       group's causal score tiles once (16 x 16 tiles, K = N) and keeps
+//       them in shared memory as float32, in the accumulator's own register
+//       order, for all its heads;
+//     * warps 0-3 own the y rows: the chunk's 16 strips of 16 rows are
+//       paired (r, 15 - r) so that every warp has 17 tiles of work; half 0
+//       of the chunk takes strips 0-3 and 12-15, half 1 strips 4-11.  Per
+//       head, W = S * exp(cs_i - cs_j) * dt_j (j <= i; exp, one
+//       ex2.approx, is never kept above the diagonal; cs is computed once
+//       per head and block) is formed in float32 in registers and split
+//       into W_hi = bf16(W) and W_lo = bf16(W - W_hi); y += W_hi x + W_lo x.
+//       Products of bf16 values are exact in float32, so the split keeps
+//       W to ~2^-17 relative, far inside the 2e-4 check; one bf16 W alone
+//       (2^-9) would not be;
+//     * warps 4-7 own the state's columns n of this half (64 of 128), one
+//       16-row strip of p each: state += (x * s)^T B over the chunk, with
+//       s_j = exp(cs_{Q-1} - cs_j) dt_j folded into x (64 columns, cheaper
+//       than B's 128) and split the same way;
+//     * x tiles (one head, 256 x 64 bf16) arrive by cp.async into a ring of
+//       two buffers: the next head's tile loads while this head computes.
+//       B and C land once per block.  All tiles are stored with an XOR
+//       swizzle of their 16-byte chunks, so ldmatrix reads are free of bank
+//       conflicts;
+//     * y and the states (201 MB of the 275 MB moved) leave registers as
+//       8-byte stores that fill whole 32-byte sectors.
+//   mma.sync rather than wgmma: the bytes, not the ~35 GFLOP of products,
+//   bound the function, and the warp-level instruction needs no shared-
+//   memory descriptors or warpgroup-wide ordering; each warp forms, masks
+//   and splits its W fragments in registers and feeds them straight in.
+// - ssd_chunk_kernel: float32 inputs, and bf16 at other shapes: float32
+//   FMAs on the CUDA cores.  Each block of 256 threads computes the chunk's
+//   cumulative sum (a warp-shuffle scan), then one 64-row tile of y_diag or
+//   the chunk's state; tiles live in shared memory as float32 at an odd row
+//   stride; ragged tiles are zero-filled and bounds-checked.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,6 +74,7 @@ constexpr int kTile = 64;         // rows of a y tile; columns j of a step
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kMaxQ = 1024;
+constexpr int kMisalignedRows = -1;  // ssd_chunk_fwd's status, not CUDA's
 constexpr int kLdN = kMaxN + 1;   // odd row stride of the B and C tiles
 constexpr int kLdW = kTile + 1;   // odd row stride of the weight tile
 
@@ -283,9 +304,418 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at (P, N, Q) = (64, 128, 256): mma.sync on the tensor cores.
+namespace tc {
+
+constexpr int kQ = 256, kP = 64, kN = 128;
+constexpr int kThreads = 256;                 // 8 warps; one thread per step
+constexpr int kMaxSlice = 8;                  // heads per block, at most
+constexpr int kTiles = kQ / 16 + 1;           // score tiles of one y warp
+constexpr int kRowB = kN * 2;                 // bytes of a B or C row
+constexpr int kRowX = kP * 2;                 // bytes of an x row
+constexpr int kBBytes = kQ * kRowB;           // B: all Q rows
+constexpr int kXBytes = kQ * kRowX;           // x: one head, all Q rows
+constexpr int kSBytes = 4 * kTiles * 32 * 8 * 4;  // score tiles, float32
+constexpr int kVecBytes = 3 * kMaxSlice * kQ * 4;  // cs, dt, state scale
+// B | x ring (2) | scores | vectors; C (8 strips of 16 rows) shares the
+// second x buffer, which is first written after the scores are done
+constexpr int kSmem = kBBytes + 2 * kXBytes + kSBytes + kVecBytes;
+static_assert(8 * 16 * kRowB == kXBytes, "C fills one x buffer");
+static_assert(kSmem <= 232448, "shared memory of one block");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `ch` of row `row`: chunks are XOR-swizzled
+// by the row's low three bits, so eight consecutive rows at one logical
+// chunk fall into eight distinct bank groups
+__device__ __forceinline__ uint32_t swz(int row, int ch, int row_bytes) {
+  return row * row_bytes + ((ch ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as a bf16 pair hi and the bf16 pair of what hi leaves out, lo:
+// hi + lo carries a and b to ~2^-17 relative
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// exp(d) as one ex2.approx of d log2(e): ~2^-22 relative, plus |d| 2^-24
+// from the product's rounding, where the kernel keeps a term at all
+__device__ __forceinline__ float exp_fast(float d) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(d * 1.4426950408889634f));
+  return r;
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// Fragment layouts (m16n8k16, lane = 4 g + q): an accumulator holds rows
+// g, g + 8 and columns 2q, 2q + 1 as (c0, c1 | c2, c3); the A operand holds
+// rows g, g + 8 at columns 2q, 2q + 1 (registers 0, 1) and 2q + 8, 2q + 9
+// (registers 2, 3); the B operand column g at rows 2q, 2q + 1 and
+// 2q + 8, 2q + 9.  Two accumulators of adjacent 8-column tiles are thus
+// the A operand of one 16-column step, which is how the score tiles are
+// kept: tile t, lane l, as float4 t*64 + l (columns 0-7) and
+// t*64 + 32 + l (columns 8-15).
+
+// The y strips of warp w (0-3) in half `half` of the chunk.
+__device__ __forceinline__ int strip_lo(int half, int w) {
+  return 4 * half + w;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
+              const float* __restrict__ dt, const float* __restrict__ A,
+              const __nv_bfloat16* __restrict__ bm,
+              const __nv_bfloat16* __restrict__ cm, float* __restrict__ y,
+              float* __restrict__ states, int seqlen, int heads, int groups,
+              int slice, int n_slices, Layout lx, Layout ldt, Layout lb,
+              Layout lc) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  uint8_t* s_b = tc_smem;
+  uint8_t* s_x = s_b + kBBytes;                 // two buffers
+  uint8_t* s_c = s_x + kXBytes;                 // = the second x buffer
+  float4* s_s = reinterpret_cast<float4*>(s_x + 2 * kXBytes);
+  float* cs = reinterpret_cast<float*>(s_x + 2 * kXBytes + kSBytes);
+  float* dtv = cs + kMaxSlice * kQ;
+  float* sst = dtv + kMaxSlice * kQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3, mi = lane >> 3, rr = lane & 7;
+  int rest = blockIdx.x;
+  const int half = rest & 1;
+  rest >>= 1;
+  const int sl = rest % n_slices;
+  rest /= n_slices;
+  const int grp = rest % groups;
+  rest /= groups;
+  const int nc = seqlen / kQ;
+  const int c = rest % nc, b = rest / nc;
+  const int per_group = heads / groups;
+  const int h0 = grp * per_group + sl * slice;
+  const int nh = min(slice, per_group - sl * slice);
+  const int t0 = c * kQ;
+
+  const __nv_bfloat16* bb = bm + b * lb.b + grp * lb.h + (int64_t)t0 * lb.s;
+  const __nv_bfloat16* cb = cm + b * lc.b + grp * lc.h + (int64_t)t0 * lc.s;
+  const __nv_bfloat16* xb = x + b * lx.b + (int64_t)t0 * lx.s;
+  const uint32_t a_b = smem_addr(s_b), a_x0 = smem_addr(s_x);
+  const uint32_t a_c = smem_addr(s_c);
+
+  // the 256 x 64 x tile of head h into x buffer `buf`
+  auto load_x = [&](int h, int buf) {
+    const __nv_bfloat16* src = xb + h * lx.h;
+    const uint32_t dst = a_x0 + buf * kXBytes;
+    for (int k = tid; k < kQ * (kRowX / 16); k += kThreads) {
+      const int row = k >> 3, ch = k & 7;
+      cp_async16(dst + swz(row, ch, kRowX), src + row * lx.s + 8 * ch);
+    }
+  };
+
+  // B (all rows), C (the rows of this half's strips), x of the first head
+  for (int k = tid; k < kQ * (kRowB / 16); k += kThreads) {
+    const int row = k >> 4, ch = k & 15;
+    cp_async16(a_b + swz(row, ch, kRowB), bb + row * lb.s + 8 * ch);
+  }
+  for (int k = tid; k < 128 * (kRowB / 16); k += kThreads) {
+    const int lr = k >> 4, ch = k & 15;           // local strip lr / 16
+    const int cl = lr >> 4, lo = strip_lo(half, cl >> 1);
+    const int strip = (cl & 1) ? kQ / 16 - 1 - lo : lo;
+    cp_async16(a_c + swz(lr, ch, kRowB),
+               cb + (16 * strip + (lr & 15)) * lc.s + 8 * ch);
+  }
+  load_x(h0, 0);
+  cp_commit();
+
+  // dt of every head of the slice, then one warp per head: cs (a shuffle
+  // scan over eight segments of 32 steps) and the state's scale
+  {
+    const float* src = dt + b * ldt.b + (int64_t)(t0 + tid) * ldt.s +
+                       h0 * ldt.h;
+    for (int k = 0; k < nh; ++k) dtv[k * kQ + tid] = src[k * ldt.h];
+  }
+  __syncthreads();
+  if (warp < nh) {
+    const float a = A[h0 + warp];
+    float* csw = cs + warp * kQ;
+    const float* dtw = dtv + warp * kQ;
+    float carry = 0.f;
+    for (int base = 0; base < kQ; base += 32) {
+      float v = dtw[base + lane] * a;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += up;
+      }
+      csw[base + lane] = carry + v;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    __syncwarp();
+    const float last = csw[kQ - 1];
+    for (int j = lane; j < kQ; j += 32)
+      sst[warp * kQ + j] = expf(last - csw[j]) * dtw[j];
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the group's score tiles S = C B^T, once for all heads: tile t of 68 is
+  // tile rem of y warp w = t / 17 (strip lo's tiles 0..lo, then strip hi's)
+  for (int t = warp; t < 4 * kTiles; t += 8) {
+    const int w = t / kTiles, rem = t % kTiles, lo = strip_lo(half, w);
+    const int cl = 2 * w + (rem <= lo ? 0 : 1);
+    const int kb = rem <= lo ? rem : rem - lo - 1;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      uint32_t fa[4], fb[4];
+      const int arow = 16 * cl + (mi & 1) * 8 + rr;
+      ldsm_x4(fa, a_c + swz(arow, 2 * kk + (mi >> 1), kRowB));
+      const int brow = 16 * kb + (mi >> 1) * 8 + rr;
+      ldsm_x4(fb, a_b + swz(brow, 2 * kk + (mi & 1), kRowB));
+      mma(acc[0], fa, fb[0], fb[1]);
+      mma(acc[1], fa, fb[2], fb[3]);
+    }
+    s_s[t * 64 + lane] = make_float4(acc[0][0], acc[0][1], acc[0][2],
+                                     acc[0][3]);
+    s_s[t * 64 + 32 + lane] = make_float4(acc[1][0], acc[1][1], acc[1][2],
+                                          acc[1][3]);
+  }
+  __syncthreads();  // scores done: C's buffer is free for x
+
+  for (int hl = 0; hl < nh; ++hl) {
+    const int buf = hl & 1, h = h0 + hl;
+    if (hl + 1 < nh) {
+      load_x(h + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // this head's x tile is in, from every thread
+    const uint32_t a_x = a_x0 + buf * kXBytes;
+    const float* csh = cs + hl * kQ;
+    float acc[8][4];
+
+    if (warp < 4) {
+      // y rows of strips lo and 15 - lo
+      const int lo = strip_lo(half, warp);
+      for (int part = 0; part < 2; ++part) {
+        const int strip = part ? kQ / 16 - 1 - lo : lo;
+        const int tile0 = warp * kTiles + (part ? lo + 1 : 0);
+        const int i0 = 16 * strip + g;   // rows i0 and i0 + 8
+        const float c0 = csh[i0], c1 = csh[i0 + 8];
+        const float* dth = dtv + hl * kQ;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll 2
+        for (int kb = 0; kb <= strip; ++kb) {
+          const float4 s0 = s_s[(tile0 + kb) * 64 + lane];
+          const float4 s1 = s_s[(tile0 + kb) * 64 + 32 + lane];
+          const int ja = 16 * kb + 2 * q;  // columns ja, ja+1, ja+8, ja+9
+          const float2 ca = *reinterpret_cast<const float2*>(csh + ja);
+          const float2 cc = *reinterpret_cast<const float2*>(csh + ja + 8);
+          const float2 da = *reinterpret_cast<const float2*>(dth + ja);
+          const float2 dc = *reinterpret_cast<const float2*>(dth + ja + 8);
+          float wv[8] = {s0.x * exp_fast(c0 - ca.x) * da.x,
+                         s0.y * exp_fast(c0 - ca.y) * da.y,
+                         s0.z * exp_fast(c1 - ca.x) * da.x,
+                         s0.w * exp_fast(c1 - ca.y) * da.y,
+                         s1.x * exp_fast(c0 - cc.x) * dc.x,
+                         s1.y * exp_fast(c0 - cc.y) * dc.y,
+                         s1.z * exp_fast(c1 - cc.x) * dc.x,
+                         s1.w * exp_fast(c1 - cc.y) * dc.y};
+          if (kb == strip) {
+            // the diagonal tile: keep column j <= row i (local indices);
+            // a value above it is dropped, never used
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int jl = 2 * q + (e & 1) + 8 * (e >> 2);
+              const int il = g + 8 * ((e >> 1) & 1);
+              wv[e] = jl <= il ? wv[e] : 0.f;
+            }
+          }
+          uint32_t wh[4], wl[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            split(wv[2 * r], wv[2 * r + 1], wh[r], wl[r]);
+          const int xrow = 16 * kb + (mi & 1) * 8 + rr;
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            uint32_t fx[4];
+            ldsm_x4_t(fx, a_x + swz(xrow, 2 * m + (mi >> 1), kRowX));
+            mma(acc[2 * m], wl, fx[0], fx[1]);
+            mma(acc[2 * m], wh, fx[0], fx[1]);
+            mma(acc[2 * m + 1], wl, fx[2], fx[3]);
+            mma(acc[2 * m + 1], wh, fx[2], fx[3]);
+          }
+        }
+        float* y0 = y + (((int64_t)b * seqlen + t0 + i0) * heads + h) * kP;
+        float* y1 = y0 + (int64_t)8 * heads * kP;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          *reinterpret_cast<float2*>(y0 + 8 * n + 2 * q) =
+              make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(y1 + 8 * n + 2 * q) =
+              make_float2(acc[n][2], acc[n][3]);
+        }
+      }
+    } else {
+      // the state's rows p = 16 k .. 16 k + 15, columns 64 half .. + 63
+      const int k = warp - 4;
+      const float* ssh = sst + hl * kQ;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < kQ / 16; ++ks) {
+        uint32_t fx[4];
+        const int xrow = 16 * ks + (mi >> 1) * 8 + rr;
+        ldsm_x4_t(fx, a_x + swz(xrow, 2 * k + (mi & 1), kRowX));
+        const int ja = 16 * ks + 2 * q;
+        const float2 sa = *reinterpret_cast<const float2*>(ssh + ja);
+        const float2 sc = *reinterpret_cast<const float2*>(ssh + ja + 8);
+        uint32_t xh[4], xl[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 v = unpack(fx[r]);
+          const float2 s = r < 2 ? sa : sc;
+          split(v.x * s.x, v.y * s.y, xh[r], xl[r]);
+        }
+        const int brow = 16 * ks + (mi & 1) * 8 + rr;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint32_t fb[4];
+          ldsm_x4_t(fb, a_b + swz(brow, 8 * half + 2 * m + (mi >> 1), kRowB));
+          mma(acc[2 * m], xl, fb[0], fb[1]);
+          mma(acc[2 * m], xh, fb[0], fb[1]);
+          mma(acc[2 * m + 1], xl, fb[2], fb[3]);
+          mma(acc[2 * m + 1], xh, fb[2], fb[3]);
+        }
+      }
+      float* s0 = states + (((int64_t)b * nc + c) * heads + h) * kP * kN +
+                  (16 * k + g) * kN + 64 * half + 2 * q;
+      float* s1 = s0 + 8 * kN;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        *reinterpret_cast<float2*>(s0 + 8 * n) =
+            make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(s1 + 8 * n) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this x buffer
+  }
+}
+
+cudaError_t launch(const void* x, const void* dt, const void* A,
+                   const void* bm, const void* cm, void* y, void* states,
+                   int batch, int seqlen, int heads, int groups, int slice,
+                   const Layout* layouts, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  // the shared-memory opt-in, once per device (the first 64 devices)
+  static uint64_t opted_in = 0;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(opted_in & bit)) {
+    e = cudaFuncSetAttribute(ssd_chunk_mma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return e;
+    opted_in |= bit;
+  }
+  const int n_slices = (heads / groups + slice - 1) / slice;
+  const int64_t blocks =
+      (int64_t)batch * (seqlen / kQ) * groups * n_slices * 2;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  ssd_chunk_mma<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(bm),
+      static_cast<const __nv_bfloat16*>(cm), static_cast<float*>(y),
+      static_cast<float*>(states), seqlen, heads, groups, slice, n_slices,
+      layouts[0], layouts[1], layouts[2], layouts[3]);
+  return cudaGetLastError();
+}
+
+// 16-byte rows: every base and the batch, sequence and head strides of x,
+// B and C at a multiple of 8 elements (cp.async moves 16 aligned bytes)
+bool aligned(const void* const* bases, const Layout* layouts) {
+  const int use[3] = {0, 2, 3};  // x, B, C
+  for (int i = 0; i < 3; ++i) {
+    const Layout& l = layouts[use[i]];
+    if ((reinterpret_cast<uintptr_t>(bases[i]) & 15) || (l.b & 7) ||
+        (l.s & 7) || (l.h & 7))
+      return false;
+  }
+  return true;
+}
+
+}  // namespace tc
+
 }  // namespace
 
+// The kernel a launch takes: bf16 at (P, N, Q) = (64, 128, 256) the
+// tensor-core kernel, with at most kMaxSlice heads of a group a block (the
+// returned slice; the last slice of a group is shorter when it does not
+// divide the group's heads); anything else the scalar kernel (0).
+extern "C" int ssd_chunk_head_slice(int is_bf16, int head_dim, int state_dim,
+                                    int chunk, int heads, int groups) {
+  if (!is_bf16 || head_dim != tc::kP || state_dim != tc::kN ||
+      chunk != tc::kQ || groups < 1 || heads < groups)
+    return 0;
+  return heads / groups < tc::kMaxSlice ? heads / groups : tc::kMaxSlice;
+}
+
 // strides: 12 element strides, (batch, seq, head or group) for x, dt, B, C.
+// Returns a CUDA error code, or kMisalignedRows when the tensor-core kernel
+// would take the call but the rows of x, B or C are not 16-byte aligned.
 extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
                              const void* bm, const void* cm, void* y,
                              void* states, int is_bf16, int batch, int seqlen,
@@ -302,6 +732,15 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
     layouts[i] = Layout{strides[3 * i], strides[3 * i + 1],
                         strides[3 * i + 2]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int slice = ssd_chunk_head_slice(is_bf16, head_dim, state_dim, chunk,
+                                         heads, groups);
+  if (slice > 0) {
+    const void* bases[3] = {x, bm, cm};
+    if (!tc::aligned(bases, layouts)) return kMisalignedRows;
+    return static_cast<int>(tc::launch(x, dt, A, bm, cm, y, states, batch,
+                                       seqlen, heads, groups, slice, layouts,
+                                       st));
+  }
   cudaError_t e =
       is_bf16 ? launch<__nv_bfloat16>(x, dt, A, bm, cm, y, states, batch,
                                       seqlen, heads, groups, head_dim,
@@ -313,5 +752,7 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
 }
 
 extern "C" const char* ssd_chunk_error_string(int status) {
+  if (status == kMisalignedRows)
+    return "rows of x, B or C not 16-byte aligned for the tensor-core kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -44,62 +44,57 @@ NAME_FUSED_OFFLOAD = "dp_fused_fill_offload"
 INT_CLAMP = 1 << 30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_F32 = torch.float32
+_F32_PAIR = (_F32, _F32)
+
+_TWO_TIER = _build.Binding("dp_band_min", NAME, [_P, _P, _P, _I, _I, _I, _P])
+_OFFLOAD = _build.Binding("dp_band_min", NAME_OFFLOAD,
+                          [_P] * 9 + [_I, _I, _I, _P])
+_BAND_ERROR = _build.Binding("dp_band_min", "dp_band_min_error_string", [_I],
+                             ctypes.c_char_p)
+_FUSED = _build.Binding("dp_fused_fill", NAME_FUSED,
+                        [_P] * 11 + [_I, _I, _I, _P])
+_FUSED_OFFLOAD = _build.Binding("dp_fused_fill", NAME_FUSED_OFFLOAD,
+                                [_P] * 16 + [_I, _I, _I, _I, _P])
+_FUSED_ERROR = _build.Binding("dp_fused_fill", "dp_fused_fill_error_string",
+                              [_I], ctypes.c_char_p)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("dp_band_min")
-    lib.dp_band_min_two_tier.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-    lib.dp_band_min_two_tier.restype = _I
-    lib.dp_band_min_offload.argtypes = [_P] * 9 + [_I, _I, _I, _P]
-    lib.dp_band_min_offload.restype = _I
-    lib.dp_band_min_error_string.argtypes = [_I]
-    lib.dp_band_min_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _fused_lib() -> ctypes.CDLL:
-    lib = _build.library("dp_fused_fill")
-    lib.dp_fused_fill_two_tier.argtypes = [_P] * 11 + [_I, _I, _I, _P]
-    lib.dp_fused_fill_two_tier.restype = _I
-    lib.dp_fused_fill_offload.argtypes = [_P] * 16 + [_I, _I, _I, _I, _P]
-    lib.dp_fused_fill_offload.restype = _I
-    lib.dp_fused_fill_error_string.argtypes = [_I]
-    lib.dp_fused_fill_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_operands(what: str, tensors, dtypes) -> torch.device:
-    """One device for all; each of its dtype; contiguous on CUDA."""
-    dev = tensors[0].device
+def _check_operands(what: str, tensors, dtypes) -> int:
+    """One device for all; each of its dtype; contiguous on CUDA.  Returns
+    the device's index, -1 off the card.  One launch is a few microseconds
+    of device work, so this runs once per call and reads little."""
+    index = tensors[0].get_device()
     for t, dt in zip(tensors, dtypes):
         if t.dtype != dt:
             raise TypeError(f"{what} needs {dt} operands, got {t.dtype}")
-        if t.device != dev:
+        if t.get_device() != index:
             raise ValueError(f"{what}: operands must be on one device")
-        if dev.type == "cuda" and not t.is_contiguous():
+        if index >= 0 and not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous operands")
-    return dev
+    return index
 
 
 def band_min_two_tier(r: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
     """``min_j (r[j] + lm[j])`` of two ``(d, ns, W)`` float32 stacks: the
     Hopper kernel on CUDA tensors, the plain version on any other device."""
-    if r.ndim != 3 or r.shape != lm.shape:
+    shape = r.shape
+    if len(shape) != 3 or lm.shape != shape:
         raise ValueError(f"band_min_two_tier needs two (d, ns, W) stacks of "
-                         f"one shape, got {tuple(r.shape)} and "
+                         f"one shape, got {tuple(shape)} and "
                          f"{tuple(lm.shape)}")
-    dev = _check_operands(NAME, (r, lm), (torch.float32,) * 2)
-    if dev.type != "cuda":
+    index = _check_operands(NAME, (r, lm), _F32_PAIR)
+    if index < 0:
         return ref.band_min_two_tier(r, lm)
-    d, ns, w = r.shape
-    out = torch.empty((ns, w), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    d, ns, w = shape
+    out = r.new_empty((ns, w))
+    if ns * w == 0:
         return out
-    lib = _lib()
-    status = lib.dp_band_min_two_tier(
+    status = (_TWO_TIER.fn or _TWO_TIER.load())(
         r.data_ptr(), lm.data_ptr(), out.data_ptr(), d, ns, w,
-        _build.stream(dev))
-    _build.check(status, NAME, lib.dp_band_min_error_string)
+        _build.stream(index))
+    if status:
+        _build.check(status, NAME, _BAND_ERROR)
     counters.bump(NAME)
     return out
 
@@ -118,19 +113,17 @@ def band_min_offload(r: torch.Tensor, r3: torch.Tensor, lmb: torch.Tensor,
     if tuple(toff.shape) != (ns, 1):
         raise ValueError(f"band_min_offload needs toff of shape ({ns}, 1), "
                          f"got {tuple(toff.shape)}")
-    dev = _check_operands(NAME_OFFLOAD, planes + (toff,),
-                          (torch.float32,) * 6)
-    if dev.type != "cuda":
+    index = _check_operands(NAME_OFFLOAD, planes + (toff,), (_F32,) * 6)
+    if index < 0:
         return ref.band_min_offload(r, r3, lmb, lme, lmb3, toff)
-    outs = tuple(torch.empty((ns, w), dtype=torch.float32, device=dev)
-                 for _ in range(3))
-    if outs[0].numel() == 0:
+    outs = tuple(r.new_empty((ns, w)) for _ in range(3))
+    if ns * w == 0:
         return outs
-    lib = _lib()
-    status = lib.dp_band_min_offload(
+    status = (_OFFLOAD.fn or _OFFLOAD.load())(
         *(t.data_ptr() for t in planes + (toff,) + outs), d, ns, w,
-        _build.stream(dev))
-    _build.check(status, NAME_OFFLOAD, lib.dp_band_min_error_string)
+        _build.stream(index))
+    if status:
+        _build.check(status, NAME_OFFLOAD, _BAND_ERROR)
     counters.bump(NAME_OFFLOAD)
     return outs
 
@@ -138,7 +131,7 @@ def band_min_offload(r: torch.Tensor, r3: torch.Tensor, lmb: torch.Tensor,
 _FUSED_TYPES = (torch.int32,) * 3 + (torch.float32,) * 3 + (torch.int32,) * 2
 
 
-def _check_fused(what: str, tables, ints, L: int, W: int) -> torch.device:
+def _check_fused(what: str, tables, ints, L: int, W: int) -> int:
     """``ints`` = (off, wa, wb, cum, uf, ub, mn, ma[, toff, tpre])."""
     ncells = (L + 1) * (L + 2) // 2
     if L < 1 or W < 1:
@@ -154,8 +147,8 @@ def _check_fused(what: str, tables, ints, L: int, W: int) -> torch.device:
             or any(t.numel() < L + 1 for t in ints[8:]):
         raise ValueError(f"{what}: operand vectors too short for L={L}")
     return _check_operands(what, tuple(tables) + tuple(ints),
-                           (torch.float32,) * len(tables) + _FUSED_TYPES
-                           + (torch.float32,) * (len(ints) - 8))
+                           (_F32,) * len(tables) + _FUSED_TYPES
+                           + (_F32,) * (len(ints) - 8))
 
 
 def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
@@ -165,17 +158,16 @@ def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
     ``wa``/``wb`` (clamped to ``[0, 2^30]``) and ``mn``/``ma`` ``(L, L)``
     thresholds; float32 ``cum``/``uf``/``ub``.  Returns the filled table."""
     ints = (off, wa, wb, cum, uf, ub, mn, ma)
-    dev = _check_fused(NAME_FUSED, (t0,), ints, L, W)
-    if dev.type != "cuda":
+    index = _check_fused(NAME_FUSED, (t0,), ints, L, W)
+    if index < 0:
         return ref.fused_fill_two_tier(t0, *ints, L=L, W=W,
                                        allow_fall=allow_fall)
     t = t0.clone()
     r, lm = torch.empty_like(t), torch.empty_like(t)
-    lib = _fused_lib()
-    status = lib.dp_fused_fill_two_tier(
+    status = (_FUSED.fn or _FUSED.load())(
         *(x.data_ptr() for x in (t, r, lm) + ints), L, W, int(allow_fall),
-        _build.stream(dev))
-    _build.check(status, NAME_FUSED, lib.dp_fused_fill_error_string)
+        _build.stream(index))
+    _build.check(status, NAME_FUSED, _FUSED_ERROR)
     counters.bump(NAME_FUSED)
     return t
 
@@ -188,18 +180,16 @@ def fused_fill_offload(t0b, t0e, off, wa, wb, cum, uf, ub, mn, ma, toff,
     CUM-shifted offload times ``toff`` and prefetch times ``tpre`` (zeros
     without a host tier).  Returns ``(Cb, Ce)``."""
     ints = (off, wa, wb, cum, uf, ub, mn, ma, toff, tpre)
-    dev = _check_fused(NAME_FUSED_OFFLOAD, (t0b, t0e), ints, L, W)
-    if dev.type != "cuda":
+    index = _check_fused(NAME_FUSED_OFFLOAD, (t0b, t0e), ints, L, W)
+    if index < 0:
         return ref.fused_fill_offload(t0b, t0e, *ints, L=L, W=W,
                                       allow_fall=allow_fall, host_on=host_on)
     tb, te = t0b.clone(), t0e.clone()
     comps = tuple(torch.empty_like(tb) for _ in range(4))  # R, Lmb, Lme, Lmb3
-    lib = _fused_lib()
-    status = lib.dp_fused_fill_offload(
+    status = (_FUSED_OFFLOAD.fn or _FUSED_OFFLOAD.load())(
         *(x.data_ptr() for x in (tb, te) + comps + ints), L, W,
-        int(allow_fall), int(host_on),
-        _build.stream(dev))
-    _build.check(status, NAME_FUSED_OFFLOAD, lib.dp_fused_fill_error_string)
+        int(allow_fall), int(host_on), _build.stream(index))
+    _build.check(status, NAME_FUSED_OFFLOAD, _FUSED_ERROR)
     counters.bump(NAME_FUSED_OFFLOAD)
     return tb, te
 

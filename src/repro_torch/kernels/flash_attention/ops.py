@@ -14,7 +14,6 @@ plain :func:`.ref.attention`, as the JAX package's custom VJP does — no
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -28,16 +27,12 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 _STRIDES = ctypes.c_int64 * 12  # (batch, seq, head) of q, k, v, o
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.flash_attn_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attn_error_string.restype = ctypes.c_char_p
-    return lib
+_FWD = _build.Binding(
+    "flash_attn_fwd", "flash_attn_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
+_ERROR = _build.Binding("flash_attn_fwd", "flash_attn_error_string",
+                        [ctypes.c_int], ctypes.c_char_p)
 
 
 def tma_strides(t: torch.Tensor, name: str) -> tuple:
@@ -97,12 +92,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     qkv = ([tma_strides(t, n) for t, n in zip((q, k, v), "qkv")] if bf16
            else [t.stride()[:3] for t in (q, k, v)])
     strides = _STRIDES(*qkv[0], *qkv[1], *qkv[2], *o.stride()[:3])
-    lib = _lib()
-    status = lib.flash_attn_fwd(
+    status = (_FWD.fn or _FWD.load())(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(bf16), B, H, K, Sq, Skv, D, strides, 1.0 / math.sqrt(D),
-        _build.stream(q.device))
-    _build.check(status, NAME, lib.flash_attn_error_string)
+        _build.stream(q.get_device()))
+    _build.check(status, NAME, _ERROR)
     counters.bump(NAME)
     return o
 

@@ -14,7 +14,6 @@ the module imports on machines without CUDA.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -24,18 +23,13 @@ NAME = "rms_norm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("rms_norm")
-    fn = lib.rms_norm_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.rms_norm_error_string.argtypes = [ctypes.c_int]
-    lib.rms_norm_error_string.restype = ctypes.c_char_p
-    return lib
+_FWD = _build.Binding(
+    "rms_norm", "rms_norm_fwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+     ctypes.c_float, ctypes.c_void_p])
+_ERROR = _build.Binding("rms_norm", "rms_norm_error_string", [ctypes.c_int],
+                        ctypes.c_char_p)
 
 
 def kernel_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -53,12 +47,12 @@ def launch(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
         return
     d = x.shape[-1]
     s = kernel_scale(x, scale)
-    lib = _lib()
-    status = lib.rms_norm_fwd(
+    status = (_FWD.fn or _FWD.load())(
         x.data_ptr(), s.data_ptr(), int(s.dtype != x.dtype), out.data_ptr(),
-        DTYPES[x.dtype], rows, d, x_stride, d, eps, _build.stream(x.device))
+        DTYPES[x.dtype], rows, d, x_stride, d, eps,
+        _build.stream(x.get_device()))
     if status:
-        _build.check(status, NAME, lib.rms_norm_error_string)
+        _build.check(status, NAME, _ERROR)
 
 
 def rms_norm_2d(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6

@@ -1,14 +1,19 @@
 """The SSD scan on the within-chunk kernel K6 (``csrc/ssd_chunk.cu``).
 
 :func:`ssd_chunk_blocks` launches the kernel on CUDA tensors and returns the
-plain :func:`.ref.chunk_terms` on any other device.  :func:`ssd_chunked` is
-differentiable: its forward pads time to whole chunks, runs the within-chunk
-terms through :func:`ssd_chunk_blocks` and the short recurrence across chunks
-in PyTorch (the JAX package leaves that part to XLA too); its backward
-recomputes through the plain :func:`.ref.ssd_chunked` from the saved inputs,
-as the JAX package's custom VJP does, so no (Q × Q) tensor is kept between
-forward and backward.  The JAX package has no SSD backward kernel, so
-neither has the port.
+plain :func:`.ref.chunk_terms` on any other device.  The C launcher picks
+the kernel: bf16 x, B, C at Mamba2's (P, N, Q) = (64, 128, 256) take the
+tensor-core kernel, which shares each group's C·Bᵀ among a slice of the
+group's heads; float32, and bf16 at other shapes, take the scalar kernel.
+:func:`head_slice` asks the library which one a call would take.
+
+:func:`ssd_chunked` is differentiable: its forward pads time to whole chunks,
+runs the within-chunk terms through :func:`ssd_chunk_blocks` and the short
+recurrence across chunks in PyTorch (the JAX package leaves that part to XLA
+too); its backward recomputes through the plain :func:`.ref.ssd_chunked`
+from the saved inputs, as the JAX package's custom VJP does, so no (Q × Q)
+tensor is kept between forward and backward.  The JAX package has no SSD
+backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -27,16 +32,27 @@ MAX_HEAD_DIM = 64       # P: the kernel's output tile is 64 columns wide
 MAX_STATE = 128         # N: B and C tiles are 128 columns wide
 MAX_CHUNK = 1024        # Q: the chunk's cumulative sum lives in shared memory
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.c_int64 * 12  # (batch, seq, head or group) of x, dt, B, C
+_FWD = _build.Binding("ssd_chunk", "ssd_chunk_fwd",
+                      [_P] * 7 + [_I] * 8 + [ctypes.POINTER(ctypes.c_int64),
+                                             _P])
+_SLICE = _build.Binding("ssd_chunk", "ssd_chunk_head_slice", [_I] * 6)
+_MISALIGNED_ROWS = -1   # ssd_chunk_fwd's status for the tensor-core kernel
+_ERROR = _build.Binding("ssd_chunk", "ssd_chunk_error_string", [_I],
+                        ctypes.c_char_p)
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("ssd_chunk")
-    fn = lib.ssd_chunk_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ssd_chunk_error_string.argtypes = [ctypes.c_int]
-    lib.ssd_chunk_error_string.restype = ctypes.c_char_p
-    return lib
+
+def head_slice(dtype: torch.dtype, P: int, N: int, chunk: int, heads: int,
+               groups: int) -> int:
+    """Heads per block of the tensor-core kernel for these operands, or 0
+    when they take the scalar kernel, as the built library decides (so it
+    builds the library).  A group of ``R`` heads is cut into
+    ``ceil(R / slice)`` slices, the last one shorter when ``slice`` does not
+    divide ``R``; each block computes its group's scores once for its
+    slice."""
+    return (_SLICE.fn or _SLICE.load())(int(dtype == torch.bfloat16), P, N,
+                                        chunk, heads, groups)
 
 
 def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -45,9 +61,10 @@ def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Within-chunk terms (see :func:`.ref.chunk_terms`): the kernel on CUDA
     tensors, the plain version on any other device.  x (B, S, H, P) and
     Bm/Cm (B, S, G, N) in one dtype (float32 or bfloat16) with a contiguous
-    last axis, read through their strides; dt (B, S, H) and A (H,) float32;
-    S a multiple of ``chunk``.  Returns y_diag (B, S, H, P) and states
-    (B, S/chunk, H, P, N), both float32."""
+    last axis, read through their strides (on the tensor-core kernel, rows
+    of 16 aligned bytes: bases and strides at multiples of 8 elements); dt
+    (B, S, H) and A (H,) float32; S a multiple of ``chunk``.  Returns y_diag
+    (B, S, H, P) and states (B, S/chunk, H, P, N), both float32."""
     if not x.is_cuda:
         return ref.chunk_terms(x, dt, A, Bm, Cm, chunk)
     Bsz, S, H, P = x.shape
@@ -78,6 +95,9 @@ def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd operands must be on one device")
     if min(t.stride(-1) for t in (x, Bm, Cm)) != 1:
         raise ValueError("ssd kernel needs a contiguous last axis of x, Bm, Cm")
+    # a stride of a size-1 axis is never stepped along: 0
+    strides = tuple(0 if t.shape[i] == 1 else t.stride(i)
+                    for t in (x, dt, Bm, Cm) for i in range(3))
     A = A.contiguous()
     nc = S // chunk
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
@@ -85,15 +105,17 @@ def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          device=x.device)
     if Bsz == 0 or S == 0:
         return y, states
-    strides = (ctypes.c_int64 * 12)(*(s for t in (x, dt, Bm, Cm)
-                                      for s in t.stride()[:3]))
-    lib = _lib()
-    status = lib.ssd_chunk_fwd(
+    status = (_FWD.fn or _FWD.load())(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
-        int(x.dtype == torch.bfloat16), Bsz, S, H, G, P, N, chunk, strides,
-        _build.stream(x.device))
-    _build.check(status, NAME, lib.ssd_chunk_error_string)
+        int(x.dtype == torch.bfloat16), Bsz, S, H, G, P, N, chunk,
+        _STRIDES(*strides), _build.stream(x.get_device()))
+    if status == _MISALIGNED_ROWS:
+        raise ValueError(
+            f"the bf16 ssd kernel loads rows of x, Bm, Cm as 16 aligned "
+            f"bytes: bases 16-byte aligned and (batch, seq, head) strides at "
+            f"multiples of 8 elements; got strides {strides}")
+    _build.check(status, NAME, _ERROR)
     counters.bump(NAME)
     return y, states
 

@@ -31,9 +31,9 @@ from ..runtime.train_loop import run_training
 from . import train
 from .steps import make_offload_step, make_train_step
 
-# kernel-name fragments of the port's own kernels, by wrapper name (K3: the
-# bf16 tensor-core kernel and the float32 scalar one)
-PORT_KERNELS = {"ssd_chunk": ("ssd_chunk_kernel",),
+# kernel-name fragments of the port's own kernels, by wrapper name (K3, K6:
+# the bf16 tensor-core kernel and the scalar one)
+PORT_KERNELS = {"ssd_chunk": ("ssd_chunk_mma", "ssd_chunk_kernel"),
                 "flash_attention_fwd": ("flash_fwd_sm90", "flash_fwd_kernel"),
                 "rms_norm": ("rms_norm_kernel",)}
 MATMUL = ("gemm", "nvjet", "xmma", "cutlass", "splitKreduce")

@@ -15,11 +15,16 @@ probabilities: a relative error of at most 2^-8, since bf16 keeps 8
 significant bits; Σ p |v| / l is the plain attention of |v|, at most
 max|v|), and 1e-4 in f32 (another summation order, exp on the device);
 RMSNorm within one bf16 ulp and rtol 1e-6 in f32; the SSD kernel (K6) 2e-4
-(rtol and atol) in f32 and with bf16 x, B, C alike (it converts them to
-float32 exactly, as the plain version does), and the bf16 output of the
+(rtol and atol) in f32 and with bf16 x, B, C alike (the scalar kernel
+converts them to float32 exactly, as the plain version does; the
+tensor-core kernel multiplies bf16 values exactly and splits W and the
+scaled x into bf16 hi + lo, ~2^-17 relative), and the bf16 output of the
 whole scan within 2 bf16 ulps + 2e-4."""
 
 import math
+import os
+import shutil
+import subprocess
 
 import pytest
 
@@ -45,6 +50,8 @@ from repro_torch.offload.host_buffer import HostBuffer  # noqa: E402
 from repro_torch.offload.solver import solve_optimal_offload  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+TC_SHAPE = (64, 128, 256)   # (P, N, Q) of K6's tensor-core kernel
 
 
 @pytest.fixture
@@ -383,7 +390,12 @@ def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
 @pytest.mark.parametrize("B,S,H,P,G,N,Q", [
     (2, 24, 4, 16, 1, 16, 8), (2, 24, 4, 16, 2, 16, 8),
     (1, 160, 4, 8, 1, 32, 64), (1, 160, 4, 8, 2, 32, 64),   # ragged S
-    (2, 512, 4, 64, 1, 128, 256), (1, 600, 4, 64, 2, 128, 256)])
+    (2, 512, 4, 64, 1, 128, 256), (1, 600, 4, 64, 2, 128, 256),
+    # bf16 takes the tensor-core kernel at (P, N, Q) = (64, 128, 256): the
+    # Mamba path's shape (8 slices of 8 heads), four groups of 4 heads, 12
+    # heads in slices of 8 and 4, groups of 10 heads in slices of 8 and 2
+    (4, 2048, 64, 64, 1, 128, 256), (1, 512, 16, 64, 4, 128, 256),
+    (1, 512, 12, 64, 1, 128, 256), (2, 768, 20, 64, 2, 128, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
     x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=S + Q)
@@ -403,20 +415,69 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
     assert bool(torch.all(gap <= lim)), float(gap.max())
 
 
-def test_ssd_kernel_reads_model_layout(dev):
+@pytest.mark.parametrize("dtype,shape,heads,groups,want", [
+    (torch.bfloat16, TC_SHAPE, 64, 1, 8),     # Mamba2-1.3B: 8 slices of 8
+    (torch.bfloat16, TC_SHAPE, 12, 1, 8),     # slices of 8 and 4
+    (torch.bfloat16, TC_SHAPE, 8, 4, 2),      # one slice of each group
+    (torch.float32, TC_SHAPE, 64, 1, 0),      # float32: scalar kernel
+    (torch.bfloat16, (32, 128, 256), 64, 1, 0),   # another head dim
+    (torch.bfloat16, (64, 64, 256), 64, 1, 0),    # another state size
+    (torch.bfloat16, (64, 128, 128), 64, 1, 0),   # another chunk
+])
+def test_ssd_head_slice_picks_the_kernel(dev, dtype, shape, heads, groups,
+                                         want):
+    """The library's choice of K6 kernel, and the tensor-core kernel's heads
+    per block, for a dtype and a shape."""
+    P, N, Q = shape
+    assert ssd_ops.head_slice(dtype, P, N, Q, heads, groups) == want
+
+
+def test_ssd_tensor_core_kernel_rejects_unaligned_rows(dev):
+    P, N, Q = TC_SHAPE
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 1, Q, 2, P, 1, N, torch.bfloat16)
+    wide = torch.zeros((1, Q, 1, N + 4), dtype=torch.bfloat16, device=dev)
+    odd = wide[..., 4:]                  # rows 8 bytes past 16-byte marks
+    odd.copy_(Bm)
+    with pytest.raises(ValueError, match="16 aligned bytes"):
+        ssd_ops.ssd_chunk_blocks(x, dt, A, odd, Cm, Q)
+
+
+def test_ssd_tensor_core_kernel_holds_tensor_core_instructions(dev):
+    """The bf16 kernel of the built library runs its products as HMMA (or
+    HGMMA) instructions, as cuobjdump's SASS shows."""
+    from repro_torch.kernels import _build
+
+    ssd_ops._FWD.load()
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "ssd_chunk"))], capture_output=True, text=True, check=True).stdout
+    body = sass[sass.index("ssd_chunk_mma"):]
+    body = body[:body.find("Function :", 1)] if "Function :" in body[1:] \
+        else body
+    assert "HMMA" in body or "HGMMA" in body
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q,dtype", [
+    (2, 128, 4, 32, 2, 64, 64, torch.float32),          # scalar kernel
+    (2, 512, 8, *TC_SHAPE[:1], 1, *TC_SHAPE[1:], torch.bfloat16)])  # mma
+def test_ssd_kernel_reads_model_layout(dev, B, S, H, P, G, N, Q, dtype):
     """x, B and C as the mixer hands them over: strided views into one
     (B, S, d_inner + 2·G·N) tensor."""
-    B, S, H, P, G, N, Q = 2, 128, 4, 32, 2, 64, 64
     g = torch.Generator(device=dev).manual_seed(5)
-    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=g, device=dev)
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=g,
+                      device=dev).to(dtype)
     x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
     x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
                  Cm.reshape(B, S, G, N))
     assert not x.is_contiguous()
     dt = torch.rand((B, S, H), generator=g, device=dev) * 0.1
     A = -torch.rand((H,), generator=g, device=dev) * 4
+    assert bool(ssd_ops.head_slice(dtype, P, N, Q, H, G)) == (
+        dtype == torch.bfloat16)
     for a, b in zip(ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
-                    ssd_ref.chunk_terms(x, dt, A, Bm, Cm, Q)):
+                    ssd_ref.chunk_terms(x.float(), dt, A, Bm.float(),
+                                        Cm.float(), Q)):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
 
 
@@ -456,5 +517,5 @@ def test_ssd_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library("ssd_chunk")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        ssd_ops._lib()
+        ssd_ops._FWD.load()
     assert "ssd_chunk" not in _build._LIBS

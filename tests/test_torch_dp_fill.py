@@ -22,7 +22,9 @@ from repro_torch.core import dp_kernels as pdp  # noqa: E402
 from repro_torch.core import solver as psolver  # noqa: E402
 from repro_torch.core.chain import Chain as PChain  # noqa: E402
 from repro_torch.core.schedule import simulate as psimulate  # noqa: E402
+from repro_torch import counters  # noqa: E402
 from repro_torch.kernels.dp_fill import ops as pops  # noqa: E402
+from repro_torch.kernels.dp_fill import ref as pref  # noqa: E402
 
 from helpers import random_chain  # noqa: E402
 
@@ -56,6 +58,54 @@ def test_band_min_wrapper_rejects_bad_stacks():
         pops.band_min_two_tier(r, torch.zeros(2, 3, 5))
     with pytest.raises(TypeError):
         pops.band_min_two_tier(r.double(), r.double())
+
+
+@pytest.mark.parametrize("name", [pops.NAME, pops.NAME_OFFLOAD])
+def test_band_min_wrappers_run_plain_off_the_card(name):
+    """On CPU tensors K1's and K5a's wrappers return their plain versions'
+    results and count no launch."""
+    rng = np.random.default_rng(3)
+    planes = [torch.from_numpy(rng.uniform(0, 9, (3, 4, 5)).astype(
+        np.float32)) for _ in range(5)]
+    toff = torch.from_numpy(rng.uniform(0, 9, (4, 1)).astype(np.float32))
+    before = counters.snapshot()
+    if name == pops.NAME:
+        got = (pops.band_min_two_tier(*planes[:2]),)
+        want = (pref.band_min_two_tier(*planes[:2]),)
+    else:
+        got = pops.band_min_offload(*planes, toff)
+        want = pref.band_min_offload(*planes, toff)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counters.snapshot() == before
+
+
+@pytest.mark.parametrize("bad", ["table dtype", "vector dtype", "table shape",
+                                 "short vectors"])
+def test_fused_fill_wrappers_reject_bad_operands(bad):
+    """K2's and K5b's wrappers check their operands before choosing a
+    device: every bad operand raises, on the CPU too."""
+    ch = _port_chain(random_chain(np.random.default_rng(2), max_len=4))
+    m = _budgets(ch, (0.7,))[0]
+    ops_ = pops.FusedOperands(ch.discretize(m, int(m)), int(m), True)
+    t0 = ops_.initial(ops_.base_table(), torch.device("cpu"))
+    ints = list(ops_.tensors(torch.device("cpu"), np.zeros(ops_.L + 1,
+                                                           np.float32),
+                             np.zeros(ops_.L + 1, np.float32)))
+    L, W, err = ops_.L, ops_.W, ValueError
+    if bad == "table dtype":
+        t0, err = t0.double(), TypeError
+    elif bad == "vector dtype":
+        ints[0], err = ints[0].long(), TypeError
+    elif bad == "table shape":
+        t0 = t0[:, :-1]
+    else:
+        L += 1
+    with pytest.raises(err):
+        pops.fused_fill_two_tier(t0, *ints[:8], L=L, W=W, allow_fall=True)
+    with pytest.raises(err):
+        pops.fused_fill_offload(t0, t0, *ints, L=L, W=W, allow_fall=True,
+                                host_on=True)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -12,7 +12,9 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    CUDA inputs — the DP kernels bit-equal (K1 and K5a on random planes; K1,
    K5a, K2 and K5b also as whole DP tables against the numpy banded fills, on
    random integer chains and on the card chain, with and without the host
-   tier), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
+   tier; the card chain, L = 9, and the chain of the same model at its
+   published 40 layers, L = 41, profiled on meta tensors, both at two
+   budgets), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
    2^-8 Σp|v|/l + 1e-5 of the float32 plain version on the same inputs, at
    the full shape for three seeds: the kernel rounds each p to bf16 before
    P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128, RMSNorm within
@@ -26,12 +28,15 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    as strided views into the mixer's one xBC tensor);
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
-   fused DP fills), at the main paths' shapes, beside the least time the card
-   could take (bytes or operations), on two yardsticks: one call per event
-   pair (``ms``: the host's launch time counts where the card waits for it)
-   and as device time (``*device_ms``: each call queued behind a sleep
-   kernel).  Then the host-clock time of whole fills, per-band (``cuda``)
-   against fused (``cuda_fused``), host staging included;
+   fused DP fills), at the main paths' shapes (K2 and K5b at L = 9 and at
+   L = 41), beside the least time the card could take (bytes or
+   operations), on two yardsticks: one call per event pair (``ms``: the
+   host's launch time counts where the card waits for it) and as device time
+   (``*device_ms``: each call queued behind a sleep kernel); for K2 and K5b
+   also the host's own cost of the call (``host_ms``, host clock, behind a
+   sleep kernel).  Then the host-clock time of whole fills at both lengths, numpy (``banded``),
+   per-band (``cuda``) and fused (``cuda_fused``), host staging included,
+   median of 20 with min and max;
 6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
    width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
    plan solved on the CUDA band-min kernel at the midpoint budget between the
@@ -130,6 +135,25 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median host-clock ms of one call to ``fn`` queued behind a ~1-ms
+    sleep kernel, so that it returns before the card reaches its work: the
+    host's own cost of the call (checks, allocations, the launch)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t_0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t_0) * 1e3)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -351,36 +375,58 @@ def main() -> int:
         raise AssertionError("CUDA DP table differs from the banded fill")
     say(f"[check] DP table of the card chain (L={chain.length}, "
         f"S={S500}, budget {budget:.6e} B): cuda == banded")
-    for b_, what in ((budget, "midpoint"), (budget_off, "offload")):
-        fills_agree(chain.discretize(b_, S500), S500,
-                    f"card chain, {what} budget, no host tier")
-        fills_agree(hchain.discretize(b_, S500), S500,
-                    f"card chain, {what} budget, host tier")
-    say(f"[check] card chain (L={chain.length}, S={S500}) at budgets "
-        f"{budget:.6e} and {budget_off:.6e} B, host tier on and off: "
-        f"cuda and cuda_fused tables == banded (np.array_equal)")
+    # the chain users plan: the same model at its published depth, one layer
+    # a chunk, profiled on meta tensors (no weights are allocated)
+    full_cfg = get_config(ARCH, n_chunks=get_config(ARCH).num_layers,
+                          use_flash_attention=True)
+    full_chain = plan_chain(StagedLM(full_cfg), input_specs(
+        full_cfg, ShapeSpec("train", "train", SEQ, BATCH)), peak_flops)
+    full_hchain = full_chain.with_host(host)
+    full_low = solve_min_memory(full_chain).mem_limit
+    full_budgets = ((full_low + full_chain.store_all_peak()) / 2,
+                    (solve_min_device_memory(full_hchain).mem_limit
+                     + full_low) / 2)
+    # one host-tier chain at its offload budget per length: the operands on
+    # which K2 and K5b are checked against their plain versions and timed
+    fused_chains = {}
+    for ch, hch, budgets in ((chain, hchain, (budget, budget_off)),
+                             (full_chain, full_hchain, full_budgets)):
+        for b_, what in zip(budgets, ("midpoint", "offload")):
+            fills_agree(ch.discretize(b_, S500), S500,
+                        f"L={ch.length} chain, {what} budget, no host tier")
+            fills_agree(hch.discretize(b_, S500), S500,
+                        f"L={ch.length} chain, {what} budget, host tier")
+        say(f"[check] Qwen1.5-4B chain L={ch.length} (S={S500}) at budgets "
+            f"{budgets[0]:.6e} and {budgets[1]:.6e} B, host tier on and off: "
+            f"cuda and cuda_fused tables == banded (np.array_equal)")
+        fused_chains[ch.length] = hch.discretize(budgets[1], S500)
 
-    hdchain = hchain.discretize(budget_off, S500)
-    fused = dp_ops.FusedOperands(hdchain, S500, True)
-    toff_np, tpre_np = dp_kernels.offload_vectors(hdchain, fused.v)
-    fkw = dict(L=fused.L, W=fused.W, allow_fall=True)
-    t0 = fused.initial(fused.base_table(), dev)
-    ints2 = fused.tensors(dev)
-    ints5 = fused.tensors(dev, toff_np, tpre_np)
-    if not torch.equal(dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
-                       dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)):
-        raise AssertionError("K2 differs from its plain version")
-    for host_on in (True, False):
-        got = dp_ops.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
-                                        **fkw)
-        want = dp_ref.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
-                                         **fkw)
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"K5b (host_on={host_on}) differs from "
-                                 f"its plain version")
-    say(f"[check] K2 and K5b (host tier on and off) == their plain "
-        f"versions on the same CUDA tensors (torch.equal), card chain "
-        f"({fused.ncells}, {fused.W}) tables")
+    def fused_operands(hd):
+        """K2's and K5b's operands on the card: (t0, two-tier vectors,
+        offload vectors, keywords, FusedOperands)."""
+        fo = dp_ops.FusedOperands(hd, S500, True)
+        toff_np, tpre_np = dp_kernels.offload_vectors(hd, fo.v)
+        return (fo.initial(fo.base_table(), dev), fo.tensors(dev),
+                fo.tensors(dev, toff_np, tpre_np),
+                dict(L=fo.L, W=fo.W, allow_fall=True), fo)
+
+    for hd in fused_chains.values():
+        t0, ints2, ints5, fkw, fused = fused_operands(hd)
+        if not torch.equal(dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
+                           dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)):
+            raise AssertionError(f"K2 differs from its plain version at "
+                                 f"L={fused.L}")
+        for host_on in (True, False):
+            got = dp_ops.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
+                                            **fkw)
+            want = dp_ref.fused_fill_offload(t0, t0, *ints5, host_on=host_on,
+                                             **fkw)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"K5b (host_on={host_on}) differs from "
+                                     f"its plain version at L={fused.L}")
+        say(f"[check] K2 and K5b (host tier on and off) == their plain "
+            f"versions on the same CUDA tensors (torch.equal), L={fused.L} "
+            f"chain, ({fused.ncells}, {fused.W}) tables")
 
     def check_close(name, got, want, tol):
         err = (got.float() - want.float()).abs()
@@ -554,7 +600,8 @@ def main() -> int:
         "shape": f"one fill: {chain.length} bands of (d, L+1-d, W)"})
 
     # K5a: the bands of the card chain's offload fill at the offload budget
-    caps_off = dp_kernels.saturation_caps(dp_kernels._views(hdchain), S500)
+    caps_off = dp_kernels.saturation_caps(
+        dp_kernels._views(fused_chains[chain.length]), S500)
     times, nbytes, ops = {}, 0.0, 0.0
     for d in range(1, chain.length + 1):
         ns = chain.length + 1 - d
@@ -577,34 +624,44 @@ def main() -> int:
         "shape": f"one offload fill: {chain.length} bands of five "
                  f"(d, L+1-d, W) planes"})
 
-    # K2 and K5b: one whole fill of the card chain, staged tensors in place
-    bands = [(d, chain.length + 1 - d) for d in range(1, chain.length + 1)]
-    cells_w = fused.ncells * fused.W
-    n_ops2 = sum(ns * fused.W * (2 * d + 5) for d, ns in bands)
-    n_ops5 = sum(ns * fused.W * (8 * d + 10) for d, ns in bands)
-    for name, src, line, nb, op, run, plain in (
-            (dp_ops.NAME_FUSED, "dp_fused_fill.cu", 285, 4 * 2 * cells_w,
-             n_ops2, lambda: dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
-             lambda: dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)),
-            (dp_ops.NAME_FUSED_OFFLOAD, "dp_fused_fill.cu", 439,
-             4 * 4 * cells_w, n_ops5,
-             lambda: dp_ops.fused_fill_offload(t0, t0, *ints5, host_on=True,
-                                               **fkw),
-             lambda: dp_ref.fused_fill_offload(t0, t0, *ints5, host_on=True,
-                                               **fkw))):
-        b_ms, b_by = bound(nb, op, F32_FLOPS)
+    # K2 and K5b: one whole fill, staged tensors in place, at the main path's
+    # chain (its row) and at the full-depth chain (its other shape)
+    fused_rows = {dp_ops.NAME_FUSED: [], dp_ops.NAME_FUSED_OFFLOAD: []}
+    for hd in fused_chains.values():
+        t0, ints2, ints5, fkw, fused = fused_operands(hd)
+        L_ = fused.L
+        bands = [(d, L_ + 1 - d) for d in range(1, L_ + 1)]
+        cells_w = fused.ncells * fused.W
+        n_ops2 = sum(ns * fused.W * (2 * d + 5) for d, ns in bands)
+        n_ops5 = sum(ns * fused.W * (8 * d + 10) for d, ns in bands)
+        for name, nb, op, run, plain in (
+                (dp_ops.NAME_FUSED, 4 * 2 * cells_w, n_ops2,
+                 lambda: dp_ops.fused_fill_two_tier(t0, *ints2, **fkw),
+                 lambda: dp_ref.fused_fill_two_tier(t0, *ints2, **fkw)),
+                (dp_ops.NAME_FUSED_OFFLOAD, 4 * 4 * cells_w, n_ops5,
+                 lambda: dp_ops.fused_fill_offload(t0, t0, *ints5,
+                                                   host_on=True, **fkw),
+                 lambda: dp_ref.fused_fill_offload(t0, t0, *ints5,
+                                                   host_on=True, **fkw))):
+            b_ms, b_by = bound(nb, op, F32_FLOPS)
+            fused_rows[name].append({
+                # no single PyTorch call runs a DP recursion: no library call
+                **both_ms(run, plain), "host_ms": host_ms(run),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                "shape": f"one fill, L={L_}: ({fused.ncells}, {fused.W}) f32 "
+                         f"tables, {L_} bands"})
+        del t0, ints2, ints5
+    for name, line in ((dp_ops.NAME_FUSED, 285),
+                       (dp_ops.NAME_FUSED_OFFLOAD, 439)):
+        main_row, *others = fused_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "source": "src/repro_torch/kernels/csrc/dp_fused_fill.cu",
             "replaces": f"src/repro/kernels/dp_fill/kernel.py:{line}",
-            # no single PyTorch call runs a DP recursion: no library call
-            **both_ms(run, plain), "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": 0.0,
-            "shape": f"one fill: ({fused.ncells}, {fused.W}) f32 tables, "
-                     f"{chain.length} bands + the base companions, one "
-                     f"C call of {chain.length + 1} launches"})
+            **main_row, "other_shapes": others})
 
-    def wall_ms(fn, reps=5):
+    def wall_ms(fn, reps=20):
+        """Median, min and max host-clock ms of ``reps`` calls (after one)."""
         fn()
         times = []
         for _ in range(reps):
@@ -612,18 +669,22 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t_0) * 1e3)
-        return statistics.median(times)
+        return statistics.median(times), min(times), max(times)
 
-    fills = {}
-    for impl in ("banded", "cuda", "cuda_fused"):
-        fills[("two-tier", impl)] = wall_ms(
-            lambda: dp_kernels.fill_tables(dchain, S500, impl=impl))
-        fills[("offload", impl)] = wall_ms(
-            lambda: dp_kernels.fill_tables_offload(hdchain, S500, impl=impl))
-    for (kind, impl), t in fills.items():
-        say(f"[time] whole {kind} fill of the card chain (L={chain.length}, "
-            f"S={S500}), impl {impl}, host staging included: {t:.4f} ms "
-            f"(host clock, median of 5) on {card}")
+    for (ch, hd) in ((dchain, fused_chains[chain.length]),
+                     (full_chain.discretize(full_budgets[0], S500),
+                      fused_chains[full_chain.length])):
+        for impl in ("banded", "cuda", "cuda_fused"):
+            for kind, fill in (
+                    ("two-tier", lambda: dp_kernels.fill_tables(
+                        ch, S500, impl=impl)),
+                    ("offload", lambda: dp_kernels.fill_tables_offload(
+                        hd, S500, impl=impl))):
+                med, lo, hi = wall_ms(fill)
+                say(f"[time] whole {kind} fill of the L={hd.length} chain "
+                    f"(S={S500}), impl {impl}, host staging included: "
+                    f"{med:.4f} ms (min {lo:.4f}, max {hi:.4f}; host clock, "
+                    f"median of 20) on {card}")
 
     B, S, H, K, D = BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (randn(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))
@@ -692,7 +753,9 @@ def main() -> int:
                 f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}); device time {row['device_ms']:.4f} "
                 f"ms, plain {row['plain_device_ms']:.4f} ms, library "
-                f"{row['library_device_ms']} ms on {card}")
+                f"{row['library_device_ms']} ms"
+                + (f"; host {row['host_ms']:.4f} ms" if "host_ms" in row
+                   else "") + f" on {card}")
     say("[time] before the redesigns, quoted (not measured in this run): "
         "the earlier versions as this script timed them on an NVIDIA H100 "
         "80GB HBM3, 700.00 W, one call per event pair: flash_attention_fwd "

@@ -4,15 +4,10 @@
 // Replaces the Pallas TPU kernels repro/kernels/dp_fill/kernel.py ::
 // fused_fill_two_tier (_fused_two_tier_kernel, K2) and fused_fill_offload
 // (_fused_offload_kernel, K5b).  Each runs the whole band recursion of
-// repro_torch/core/dp_kernels.py on the card: for every sub-chain length d it
-// takes the split minimum of the band's cells, masks the columns below m_none,
-// adds the C2 (F_all-first) branch masked below m_all and, for the offload
-// fill, the C3 (offload-first) branch; then it rebuilds the companion tables
-// of the new band, which later bands read:
-//
-//   R  [row][c] = T[row][c - WA[p]] + CUM[p]   (+inf where c < WA[p])
-//   Lm [row][c] = T[row][c] - CUM[p]           (p = row index in its band)
-//   Lmb3[row][c] = Lmb[row][c] + T_pre[p]     (offload fill, host tier on)
+// repro_torch/core/dp_kernels.py on the card, in one launch: for every
+// sub-chain length d it takes the split minimum of the band's cells, masks
+// the columns below m_none, adds the C2 (F_all-first) branch masked below
+// m_all and, for the offload fill, the C3 (offload-first) branch.
 //
 // Layout: every table is (ncells, W) float32, row off[d] + r holding the cell
 // (s = r + 1, t = s + d); W is the widest unsaturated band, and the host
@@ -21,204 +16,297 @@
 // [0, 2^30] by the host, as the Pallas kernels' are.
 //
 // Design.  A TPU grid runs in order, so the Pallas kernel walks (band, row
-// tile) in one dispatch and rebuilds the companions at each band's first
-// tile.  CUDA blocks run in no order, so here each band is one launch on one
-// stream, and stream order separates the bands.  One block owns one whole
-// row: its threads stride over the columns, compute the cells, and after a
-// __syncthreads() rebuild that row's companions from the row they have just
-// written (a row's rebuild reads only that row), so no second launch and no
-// grid-wide barrier is needed.  Band 0 (the base case, staged by the host)
-// gets a rebuild-only launch first.  All buffers stay in device memory from
-// the first band to the last; the host C launcher issues the L + 1 launches
-// and the Python wrapper counts the fill once.
+// tile) in one dispatch.  Here one cooperative launch puts one persistent
+// block on every SM, and a grid-wide barrier separates the bands.  A band's
+// work is cut into units of (row, 32 columns), each owned by a group of g
+// warps of one block: the group's warps take the splits in turn (warp k of
+// the group the splits j = k, k + g, ...), and the group's first warp takes
+// the minimum of their partial minima from shared memory, applies the
+// thresholds and the C2/C3 branches and writes the cells.  g is the largest
+// power of two (at most the block's 16 warps, at most d) with which the
+// band's units times g fit the grid's warps, so every band fills the card
+// in one round: the early bands have many rows and few splits (g = 1), the
+// late ones a row or two and many splits (g = 16).
 //
-// Bound: bytes and latency.  A cell of band d reads 2d (two-tier) or 4d plus
-// d gathers (offload) floats and writes one; at the main path's chain
-// (L = 9, S = 500) the whole fill moves well under a megabyte, so the time is
-// the launches' latency.  The reads of one split are coalesced across the
-// row's threads.
+// The recursion's companion terms (R = T shifted by WA[p] plus CUM[p],
+// Lm = T - CUM[p], Lmb3 = Lmb + T_pre[p]) are formed where they are read,
+// from the table and the staged vectors, with the same adds in the same
+// order, and never stored: so a band depends only on the table rows of the
+// bands before it, and one barrier per band is all the ordering the fill
+// needs (stored companions would need a second one).  The block stages
+// off, WA, WB and CUM in shared memory once.  Each band's cost is a chain
+// of dependent L2 round trips (the splits' reads, the cells' stores, the
+// barrier's arrival and release), so a unit issues its threshold and C2
+// reads before its splits'.
+//
+// Bound: bytes on the roofline (each table read and written once: 3.6 MB
+// for the two-tier fill of the Qwen1.5-4B chain at its 40 layers, L = 41,
+// W = 501, about 1 us), latency in fact.  A cell of band d reads 2d
+// (two-tier) or 4d (offload, half of them gathers) floats and writes one:
+// ~14.5 M table operations and ~50 MB of split reads at L = 41, all from L2
+// (every table fits the 50 MB L2), so each band costs its reads' latency
+// and the barrier; at L = 9 the fill moves under a megabyte.  The reads of
+// one split are coalesced across a warp's 32 columns.
+//
+// Limits: L <= kMaxLength (the staged vectors fit the 48 KB of shared memory
+// a block has without opting in; dp_fused_fill_max_length exports it); the
+// grid is one block per SM, so the cooperative launch always fits.  A fill
+// outside them is refused with an error status, never split into more
+// launches.
 //
 // Exactness: IEEE adds, fminf and fmaxf only, in the numpy fill's operand
-// order (c2 = (C + uf) + ub; c3 = max(C + cum, toff) + (lmb + tpre)), no
-// multiplies (so no fused multiply-add can form) and no fast-math, so every
-// table is bit-equal to the numpy banded fill on f32-exact chains.  Shifted
-// reads follow _shifted_gather of the Pallas kernel: an index below 0 reads
-// +inf, an index past the row clamps to column W - 1 (equal to column S by
-// the saturation invariant).
+// order (R + Lm with R = T_shift + cum and Lm = T - cum; c2 = (C + uf) + ub;
+// c3 = max(T_shift3 + cum, toff) + ((T - cum) + tpre)), no multiplies (so
+// no fused multiply-add can form) and no fast-math; the minimum of a set is
+// the same in any order (no NaN or -0 arises), so every table is bit-equal
+// to the numpy banded fill on f32-exact chains.  Shifted reads follow
+// _shifted_gather of the Pallas kernel: an index below 0 reads +inf, an
+// index past the row clamps to column W - 1 (equal to column S by the
+// saturation invariant).
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kIntClamp = 1 << 30;
+// (4 L + 5) staged ints and floats and the partial minima stay under 48 KB
+constexpr int kMaxLength = 2048;
+constexpr int kMaxDevices = 64;
+
+struct Fill {
+  float* tb;             // the table (two-tier) or the bare-input table
+  float* te;             // the embedded-input table (offload fill)
+  const int* off;
+  const int* wa;
+  const int* wb;
+  const float* cum;
+  const float* uf;
+  const float* ub;
+  const int* mn;
+  const int* ma;
+  const float* toff;     // offload fill: CUM-shifted offload times
+  const float* tpre;     //               and prefetch times
+  int L, W, allow_fall, host_on;
+};
+
+// Table reads go to L2 (ld.global.cg): rows written in one band are read in
+// later bands by other SMs, whose L1 must not hold a line of them from
+// before they were written.
+__device__ __forceinline__ float table(const float* at) { return __ldcg(at); }
 
 __device__ __forceinline__ float shifted(const float* row, int idx, int w) {
-  return idx < 0 ? CUDART_INF_F : row[idx < w ? idx : w - 1];
+  return idx < 0 ? CUDART_INF_F : table(row + (idx < w ? idx : w - 1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-two_tier_band(float* __restrict__ t, float* __restrict__ r,
-              float* __restrict__ lm, const int* __restrict__ off,
-              const int* __restrict__ wa, const int* __restrict__ wb,
-              const float* __restrict__ cum, const float* __restrict__ uf,
-              const float* __restrict__ ub, const int* __restrict__ mn,
-              const int* __restrict__ ma, int L, int W, int d,
-              int allow_fall) {
-  const int row = blockIdx.x;              // s - 1
-  const int64_t w = W;
-  const int64_t own = static_cast<int64_t>(off[d]) + row;
-  float* trow = t + own * w;
-  if (d > 0) {
-    const int thr_n = mn[(d - 1) * L + row];
-    const int thr_a = ma[(d - 1) * L + row];
-    const float* c2row =
-        t + (static_cast<int64_t>(off[d - 1]) + 1 + row) * w;
-    const int wb_s = wb[1 + row];
-    const float uf_s = uf[1 + row], ub_s = ub[1 + row];
-    for (int c = threadIdx.x; c < W; c += kThreads) {
-      float acc = CUDART_INF_F;
-      for (int j = 0; j < d; ++j) {        // split sp = s + 1 + j
-        const int64_t rrow = static_cast<int64_t>(off[d - 1 - j]) + 1 + j + row;
-        const int64_t lrow = static_cast<int64_t>(off[j]) + row;
-        acc = fminf(acc, r[rrow * w + c] + lm[lrow * w + c]);
-      }
-      float res = c < thr_n ? CUDART_INF_F : acc;
-      if (allow_fall) {
-        float c2 = (shifted(c2row, c - wb_s, W) + uf_s) + ub_s;
-        res = fminf(res, c < thr_a ? CUDART_INF_F : c2);
-      }
-      trow[c] = res;
-    }
-    __syncthreads();
-  }
-  const int wa_p = wa[row];
-  const float cum_p = cum[row];
-  for (int c = threadIdx.x; c < W; c += kThreads) {
-    r[own * w + c] = shifted(trow, c - wa_p, W) + cum_p;
-    lm[own * w + c] = trow[c] - cum_p;
-  }
+inline size_t smem_bytes(int L, int n_acc) {
+  return sizeof(int) * (4 * static_cast<size_t>(L) + 5)
+         + sizeof(float) * n_acc * kThreads;
 }
 
-__global__ void __launch_bounds__(kThreads)
-offload_band(float* __restrict__ tb, float* __restrict__ te,
-             float* __restrict__ r, float* __restrict__ lmb,
-             float* __restrict__ lme, float* __restrict__ lmb3,
-             const int* __restrict__ off, const int* __restrict__ wa,
-             const int* __restrict__ wb, const float* __restrict__ cum,
-             const float* __restrict__ uf, const float* __restrict__ ub,
-             const int* __restrict__ mn, const int* __restrict__ ma,
-             const float* __restrict__ toff, const float* __restrict__ tpre,
-             int L, int W, int d, int allow_fall, int host_on) {
-  const int row = blockIdx.x;              // s - 1
+// Warps per unit in band d: see the design note.
+__device__ __forceinline__ int group_size(int d, int units, int warps) {
+  int g = 1;
+  while (2 * g <= kWarps && 2 * g <= d && units * 2 * g <= warps) g *= 2;
+  return g;
+}
+
+template <bool kOffload>
+__global__ void __launch_bounds__(kThreads, 1) fused_fill(const Fill f) {
+  extern __shared__ int smem[];
+  const int L = f.L, W = f.W;
+  int* s_off = smem;                                   // L + 2
+  int* s_wa = s_off + (L + 2);                         // L + 1
+  int* s_wb = s_wa + (L + 1);                          // L + 1
+  float* s_cum = reinterpret_cast<float*>(s_wb + (L + 1));   // L + 1
+  float* s_part = s_cum + (L + 1);                     // 1 or 3 x kThreads
+  for (int i = threadIdx.x; i < L + 2; i += kThreads) s_off[i] = f.off[i];
+  for (int i = threadIdx.x; i < L + 1; i += kThreads) {
+    s_wa[i] = f.wa[i];
+    s_wb[i] = f.wb[i];
+    s_cum[i] = f.cum[i];
+  }
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ntiles = (W + 31) / 32;
   const int64_t w = W;
-  const int64_t own = static_cast<int64_t>(off[d]) + row;
-  float* tbrow = tb + own * w;
-  float* terow = te + own * w;
-  if (d > 0) {
-    const int thr_n = mn[(d - 1) * L + row];
-    const int thr_a = ma[(d - 1) * L + row];
-    const int64_t c2off = (static_cast<int64_t>(off[d - 1]) + 1 + row) * w;
-    const int wb_s = wb[1 + row];
-    const int wa_s = wa[row];                // WA[s-1]
-    const float uf_s = uf[1 + row], ub_s = ub[1 + row];
-    const float toff_s = toff[row];
-    for (int c = threadIdx.x; c < W; c += kThreads) {
-      float accb = CUDART_INF_F, acce = CUDART_INF_F, acc3 = CUDART_INF_F;
-      for (int j = 0; j < d; ++j) {        // split sp = s + 1 + j
-        const int64_t rrow = static_cast<int64_t>(off[d - 1 - j]) + 1 + j + row;
-        const int64_t lrow = static_cast<int64_t>(off[j]) + row;
-        const float rv = r[rrow * w + c];
-        accb = fminf(accb, rv + lmb[lrow * w + c]);
-        acce = fminf(acce, rv + lme[lrow * w + c]);
-        if (host_on) {
-          // C3 right segment: the offloaded input's slots are reclaimed, so
-          // the shift is WA[sp-1] - WA[s-1]; the clamp ladder is the Pallas
-          // kernel's (int32-safe, clip to W-1, sentinel below 0) and the
-          // transfer stall folds into the max
-          const int wa_sp = wa[1 + j + row];
-          int raw = c - wa_sp;
-          raw = raw < -kIntClamp ? -kIntClamp : (raw > W - 1 ? W - 1 : raw);
-          int idx3 = raw + wa_s;
-          idx3 = idx3 < -1 ? -1 : (idx3 > W - 1 ? W - 1 : idx3);
-          float c3 = shifted(tb + rrow * w, idx3, W) + cum[1 + j + row];
-          c3 = fmaxf(c3, toff_s);
-          c3 = c3 + lmb3[lrow * w + c];
-          acc3 = fminf(acc3, c3);
+  float* const tb = f.tb;
+  float* const te = f.te;
+  for (int d = 1; d <= L; ++d) {
+    const int ns = L + 1 - d;
+    const int units = ns * ntiles;
+    const int g = group_size(d, units, gridDim.x * kWarps);
+    const int per_block = kWarps / g;
+    const int part = warp % g;
+    const int lead = warp - part;                      // the group's warp 0
+    for (int base = blockIdx.x * per_block; base < units;
+         base += gridDim.x * per_block) {             // uniform in the block
+      const int unit = base + warp / g;
+      const int row = unit / ntiles;                   // s - 1
+      const int c = (unit % ntiles) * 32 + lane;
+      const bool live = unit < units && c < W;
+      // the group's first warp reads the thresholds and the C2 branch
+      // first, so that those reads overlap the splits'; the C2 child
+      // (s + 1, t) is row `row + 1` of band d - 1, and its input is
+      // embedded, so the offload fill reads the Ce table
+      bool infeas = false;
+      float c2 = CUDART_INF_F;
+      if (part == 0 && live) {
+        infeas = c < f.mn[(d - 1) * L + row];
+        if (f.allow_fall && c >= f.ma[(d - 1) * L + row]) {
+          const float* c2row =
+              (kOffload ? te : tb) + (s_off[d - 1] + 1 + row) * w;
+          c2 = (shifted(c2row, c - s_wb[1 + row], W) + f.uf[1 + row])
+               + f.ub[1 + row];
         }
       }
-      const bool infeas = c < thr_n;
-      float resb = infeas ? CUDART_INF_F : accb;
-      float rese = infeas ? CUDART_INF_F : acce;
-      if (allow_fall) {
-        // the C2 child's input is embedded: read the Ce table
-        float c2 = (shifted(te + c2off, c - wb_s, W) + uf_s) + ub_s;
-        c2 = c < thr_a ? CUDART_INF_F : c2;
-        resb = fminf(resb, c2);
-        rese = fminf(rese, c2);
+      float accb = CUDART_INF_F, acce = CUDART_INF_F, acc3 = CUDART_INF_F;
+      if (live) {
+        const float cum_s = s_cum[row];
+        const int wa_s = s_wa[row];                    // WA[s-1]
+        const float tpre_s = kOffload && f.host_on ? f.tpre[row] : 0.f;
+        const float toff_s = kOffload && f.host_on ? f.toff[row] : 0.f;
+        for (int j = part; j < d; j += g) {            // split sp = s + 1 + j
+          const int pr = 1 + j + row;                  // its right row's p
+          const float* rrow = tb + (s_off[d - 1 - j] + pr) * w;
+          const int64_t lcell = (s_off[j] + row) * w + c;
+          const float rv = shifted(rrow, c - s_wa[pr], W) + s_cum[pr];
+          const float lb = table(tb + lcell) - cum_s;
+          accb = fminf(accb, rv + lb);
+          if (kOffload) {
+            acce = fminf(acce, rv + (table(te + lcell) - cum_s));
+            if (f.host_on) {
+              // C3 right segment: the offloaded input's slots are
+              // reclaimed, so the shift is WA[sp-1] - WA[s-1]; the clamp
+              // ladder is the Pallas kernel's (int32-safe, clip to W-1,
+              // sentinel below 0) and the transfer stall folds into the max
+              int raw = c - s_wa[pr];
+              raw = raw < -kIntClamp ? -kIntClamp : (raw > W - 1 ? W - 1 : raw);
+              int idx3 = raw + wa_s;
+              idx3 = idx3 < -1 ? -1 : (idx3 > W - 1 ? W - 1 : idx3);
+              float c3 = shifted(rrow, idx3, W) + s_cum[pr];
+              c3 = fmaxf(c3, toff_s);
+              c3 = c3 + (lb + tpre_s);
+              acc3 = fminf(acc3, c3);
+            }
+          }
+        }
       }
-      if (host_on) resb = fminf(resb, infeas ? CUDART_INF_F : acc3);
-      tbrow[c] = resb;
-      terow[c] = rese;
+      if (g > 1) {
+        s_part[threadIdx.x] = accb;
+        if (kOffload) {
+          s_part[kThreads + threadIdx.x] = acce;
+          s_part[2 * kThreads + threadIdx.x] = acc3;
+        }
+        __syncthreads();
+        if (part == 0 && live) {
+          for (int k = 1; k < g; ++k) {
+            const int at = (lead + k) * 32 + lane;
+            accb = fminf(accb, s_part[at]);
+            if (kOffload) {
+              acce = fminf(acce, s_part[kThreads + at]);
+              acc3 = fminf(acc3, s_part[2 * kThreads + at]);
+            }
+          }
+        }
+      }
+      if (part == 0 && live) {
+        float resb = fminf(infeas ? CUDART_INF_F : accb, c2);
+        const float rese = fminf(infeas ? CUDART_INF_F : acce, c2);
+        if (kOffload && f.host_on) resb = fminf(resb, infeas ? CUDART_INF_F
+                                                             : acc3);
+        const int64_t own = (s_off[d] + row) * w + c;
+        tb[own] = resb;
+        if (kOffload) te[own] = rese;
+      }
+      if (g > 1) __syncthreads();                      // s_part is reused
     }
-    __syncthreads();
+    if (d < L) grid.sync();
   }
-  const int wa_p = wa[row];
-  const float cum_p = cum[row];
-  const float tpre_p = tpre[row];
-  for (int c = threadIdx.x; c < W; c += kThreads) {
-    r[own * w + c] = shifted(tbrow, c - wa_p, W) + cum_p;
-    const float b = tbrow[c] - cum_p;
-    lmb[own * w + c] = b;
-    lme[own * w + c] = terow[c] - cum_p;
-    if (host_on) lmb3[own * w + c] = b + tpre_p;
+}
+
+// The grid size (the device's SM count) of the current device, read once
+// per device: a fill is one launch, so two attribute queries a call would
+// be a large part of its host time.  0 if the device cannot launch
+// cooperatively.
+cudaError_t grid_blocks(int* sms) {
+  static std::atomic<int> cache[kMaxDevices];        // 2 * sms + coop; 0: unread
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int packed = device < kMaxDevices ? cache[device].load() : 0;
+  if (packed == 0) {
+    int n = 0, coop = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                   device);
+    if (err != cudaSuccess) return err;
+    packed = 2 * n + (coop ? 1 : 0);
+    if (device < kMaxDevices) cache[device].store(packed);
   }
+  *sms = packed & 1 ? packed / 2 : 0;
+  return cudaSuccess;
+}
+
+template <bool kOffload>
+int launch(const Fill& f, void* stream) {
+  if (f.L < 1 || f.W < 1 || f.L > kMaxLength)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = grid_blocks(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!sms) return static_cast<int>(cudaErrorNotSupported);
+  Fill arg = f;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&fused_fill<kOffload>), dim3(sms),
+      dim3(kThreads), args, smem_bytes(f.L, kOffload ? 3 : 1),
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// One whole two-tier fill: L + 1 launches on `stream` (band 0's companion
-// rebuild, then one per band).  Returns the first CUDA error, 0 if none.
-extern "C" int dp_fused_fill_two_tier(float* t, float* r, float* lm,
-                                      const int* off, const int* wa,
-                                      const int* wb, const float* cum,
-                                      const float* uf, const float* ub,
-                                      const int* mn, const int* ma, int L,
-                                      int W, int allow_fall, void* stream) {
-  if (L < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int d = 0; d <= L; ++d) {
-    two_tier_band<<<L + 1 - d, kThreads, 0, s>>>(
-        t, r, lm, off, wa, wb, cum, uf, ub, mn, ma, L, W, d, allow_fall);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+// One whole two-tier fill in one cooperative launch on `stream`, in place
+// on `t` (the base-case band staged, +inf elsewhere).  Returns the CUDA
+// error of the launch, 0 if none.
+extern "C" int dp_fused_fill_two_tier(float* t, const int* off,
+                                      const int* wa, const int* wb,
+                                      const float* cum, const float* uf,
+                                      const float* ub, const int* mn,
+                                      const int* ma, int L, int W,
+                                      int allow_fall, void* stream) {
+  return launch<false>(Fill{t, nullptr, off, wa, wb, cum, uf, ub, mn, ma,
+                            nullptr, nullptr, L, W, allow_fall, 0},
+                       stream);
 }
 
-// One whole offload fill: L + 1 launches, two tables and four companions.
-extern "C" int dp_fused_fill_offload(float* tb, float* te, float* r,
-                                     float* lmb, float* lme, float* lmb3,
-                                     const int* off, const int* wa,
-                                     const int* wb, const float* cum,
-                                     const float* uf, const float* ub,
-                                     const int* mn, const int* ma,
-                                     const float* toff, const float* tpre,
-                                     int L, int W, int allow_fall,
-                                     int host_on, void* stream) {
-  if (L < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int d = 0; d <= L; ++d) {
-    offload_band<<<L + 1 - d, kThreads, 0, s>>>(
-        tb, te, r, lmb, lme, lmb3, off, wa, wb, cum, uf, ub, mn, ma, toff,
-        tpre, L, W, d, allow_fall, host_on);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+// One whole offload fill in one cooperative launch, in place on both tables.
+extern "C" int dp_fused_fill_offload(float* tb, float* te, const int* off,
+                                     const int* wa, const int* wb,
+                                     const float* cum, const float* uf,
+                                     const float* ub, const int* mn,
+                                     const int* ma, const float* toff,
+                                     const float* tpre, int L, int W,
+                                     int allow_fall, int host_on,
+                                     void* stream) {
+  return launch<true>(Fill{tb, te, off, wa, wb, cum, uf, ub, mn, ma, toff,
+                           tpre, L, W, allow_fall, host_on},
+                      stream);
 }
+
+// The longest chain the fused fills take.
+extern "C" int dp_fused_fill_max_length() { return kMaxLength; }
 
 extern "C" const char* dp_fused_fill_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

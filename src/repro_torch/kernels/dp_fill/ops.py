@@ -9,8 +9,9 @@ its launches in :mod:`repro_torch.counters`):
   :func:`band_min_offload` (K5a, same file): one band's split minimum, one
   launch per band;
 - :func:`fused_fill_two_tier` (K2) and :func:`fused_fill_offload` (K5b),
-  ``dp_fused_fill.cu``: the whole band recursion on the card, one count per
-  fill (the C launcher issues its ``L + 1`` band launches).
+  ``dp_fused_fill.cu``: the whole band recursion on the card in one
+  cooperative launch per fill, for chains of up to :func:`max_length`
+  stages.
 
 Drivers: :func:`fill_two_tier` / :func:`fill_offload` hand the one copy of
 the recursion in :mod:`repro_torch.core.dp_kernels` a band minimum that
@@ -53,11 +54,13 @@ _OFFLOAD = _build.Binding("dp_band_min", NAME_OFFLOAD,
 _BAND_ERROR = _build.Binding("dp_band_min", "dp_band_min_error_string", [_I],
                              ctypes.c_char_p)
 _FUSED = _build.Binding("dp_fused_fill", NAME_FUSED,
-                        [_P] * 11 + [_I, _I, _I, _P])
+                        [_P] * 9 + [_I, _I, _I, _P])
 _FUSED_OFFLOAD = _build.Binding("dp_fused_fill", NAME_FUSED_OFFLOAD,
-                                [_P] * 16 + [_I, _I, _I, _I, _P])
+                                [_P] * 12 + [_I, _I, _I, _I, _P])
 _FUSED_ERROR = _build.Binding("dp_fused_fill", "dp_fused_fill_error_string",
                               [_I], ctypes.c_char_p)
+_FUSED_MAX_LENGTH = _build.Binding("dp_fused_fill",
+                                   "dp_fused_fill_max_length", [])
 
 
 def _check_operands(what: str, tensors, dtypes) -> int:
@@ -146,9 +149,20 @@ def _check_fused(what: str, tables, ints, L: int, W: int) -> int:
             or tuple(mn.shape) != (L, L) or tuple(ma.shape) != (L, L) \
             or any(t.numel() < L + 1 for t in ints[8:]):
         raise ValueError(f"{what}: operand vectors too short for L={L}")
-    return _check_operands(what, tuple(tables) + tuple(ints),
-                           (_F32,) * len(tables) + _FUSED_TYPES
-                           + (_F32,) * (len(ints) - 8))
+    index = _check_operands(what, tuple(tables) + tuple(ints),
+                            (_F32,) * len(tables) + _FUSED_TYPES
+                            + (_F32,) * (len(ints) - 8))
+    if index >= 0 and L > max_length():
+        raise ValueError(f"{what} takes chains of up to {max_length()} "
+                         f"stages in one launch, got L={L}")
+    return index
+
+
+def max_length() -> int:
+    """The longest chain K2 and K5b take on the card, as the built library
+    says (a block stages the chain's offsets, ``WA`` and ``CUM`` in shared
+    memory; so it builds the library).  The plain versions take any."""
+    return (_FUSED_MAX_LENGTH.fn or _FUSED_MAX_LENGTH.load())()
 
 
 def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
@@ -163,9 +177,8 @@ def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
         return ref.fused_fill_two_tier(t0, *ints, L=L, W=W,
                                        allow_fall=allow_fall)
     t = t0.clone()
-    r, lm = torch.empty_like(t), torch.empty_like(t)
     status = (_FUSED.fn or _FUSED.load())(
-        *(x.data_ptr() for x in (t, r, lm) + ints), L, W, int(allow_fall),
+        *(x.data_ptr() for x in (t,) + ints), L, W, int(allow_fall),
         _build.stream(index))
     _build.check(status, NAME_FUSED, _FUSED_ERROR)
     counters.bump(NAME_FUSED)
@@ -185,9 +198,8 @@ def fused_fill_offload(t0b, t0e, off, wa, wb, cum, uf, ub, mn, ma, toff,
         return ref.fused_fill_offload(t0b, t0e, *ints, L=L, W=W,
                                       allow_fall=allow_fall, host_on=host_on)
     tb, te = t0b.clone(), t0e.clone()
-    comps = tuple(torch.empty_like(tb) for _ in range(4))  # R, Lmb, Lme, Lmb3
     status = (_FUSED_OFFLOAD.fn or _FUSED_OFFLOAD.load())(
-        *(x.data_ptr() for x in (tb, te) + comps + ints), L, W,
+        *(x.data_ptr() for x in (tb, te) + ints), L, W,
         int(allow_fall), int(host_on), _build.stream(index))
     _build.check(status, NAME_FUSED_OFFLOAD, _FUSED_ERROR)
     counters.bump(NAME_FUSED_OFFLOAD)
@@ -343,7 +355,8 @@ def fill_offload_fused(dchain, S: int, allow_fall: bool = True,
                        device: Union[str, torch.device] = "cuda"
                        ) -> Tuple[BandedTable, BandedTable]:
     """Offload fill with the whole recursion in :func:`fused_fill_offload`
-    on ``device``: both tables and all four companions stay there."""
+    on ``device``: both tables stay there from the first band to the
+    last."""
     ops_ = FusedOperands(dchain, S, allow_fall, v)
     tb, te = ops_.base_table(), ops_.base_table()
     L = ops_.L

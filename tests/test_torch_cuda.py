@@ -33,10 +33,14 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import counters  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core import dp_kernels  # noqa: E402
 from repro_torch.core.chain import Chain, HostTransferModel  # noqa: E402
 from repro_torch.core.executor import reference_grads  # noqa: E402
 from repro_torch.core.schedule import Schedule  # noqa: E402
+from repro_torch.core.solver import solve_min_memory  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.dp_fill import ops as dp_ops  # noqa: E402
 from repro_torch.kernels.dp_fill import ref as dp_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -47,7 +51,10 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.offload.executor import execute_offload_schedule  # noqa: E402
 from repro_torch.offload.host_buffer import HostBuffer  # noqa: E402
-from repro_torch.offload.solver import solve_optimal_offload  # noqa: E402
+from repro_torch.launch.steps import plan_chain  # noqa: E402
+from repro_torch.models.lm import StagedLM  # noqa: E402
+from repro_torch.offload.solver import (solve_min_device_memory,  # noqa: E402
+                                        solve_optimal_offload)
 
 pytestmark = pytest.mark.cuda
 
@@ -127,7 +134,7 @@ def _int_chain(rng, L, host=True, big_wa=False):
                       if host else None)
 
 
-@pytest.mark.parametrize("L", [1, 4, 11, 40])
+@pytest.mark.parametrize("L", [1, 4, 11, 40, 64])
 @pytest.mark.parametrize("allow_fall", [True, False])
 def test_dp_fill_kernels_bit_equal_to_banded(dev, L, allow_fall):
     """K2 and K5b (``cuda_fused``) and K5a (``cuda``) against the numpy
@@ -180,6 +187,94 @@ def test_fused_kernels_match_plain_on_cuda_tensors(dev):
     assert counters.snapshot()[dp_ops.NAME_FUSED] == n0 + 1
     for a, b in zip(got, run(torch.device("cpu"))):
         assert torch.equal(a.cpu(), b)
+
+
+def test_fused_fills_bit_equal_on_qwen_full_depth_chain(dev):
+    """K2 and K5b on the chain users plan: Qwen1.5-4B at its 40 layers, one
+    layer a chunk (L = 41, (903, 501) tables), profiled on meta tensors, at
+    the two-tier midpoint and the offload budget, host tier on and off."""
+    cfg = get_config("qwen1.5-4b", n_chunks=40, use_flash_attention=True)
+    ch = plan_chain(StagedLM(cfg), input_specs(
+        cfg, ShapeSpec("train", "train", 2048, 4)), 7.75e14)
+    hch = ch.with_host(HostTransferModel(bandwidth_d2h=5e10))
+    low = solve_min_memory(ch).mem_limit
+    S = 500
+    for m in ((low + ch.store_all_peak()) / 2,
+              (solve_min_device_memory(hch).mem_limit + low) / 2):
+        for c in (ch, hch):
+            dch = c.discretize(m, S)
+            want = dp_kernels.fill_tables(dch, S).data
+            assert np.array_equal(dp_kernels.fill_tables(
+                dch, S, impl="cuda_fused").data, want)
+            tb, te = dp_kernels.fill_tables_offload(dch, S)
+            gb, ge = dp_kernels.fill_tables_offload(dch, S, impl="cuda_fused")
+            assert np.array_equal(gb.data, tb.data)
+            assert np.array_equal(ge.data, te.data)
+
+
+def _fused_case(dev, L=40):
+    """K2's and K5b's operands for a random host-tier chain of L stages."""
+    ch = _int_chain(np.random.default_rng(5), L)
+    m = math.ceil(ch.store_all_peak() * 0.5)
+    dch = ch.discretize(m, int(m))
+    ops_ = dp_ops.FusedOperands(dch, int(m), True)
+    toff, tpre = dp_kernels.offload_vectors(dch, ops_.v)
+    return (ops_.initial(ops_.base_table(), dev),
+            ops_.tensors(dev, toff, tpre),
+            dict(L=ops_.L, W=ops_.W, allow_fall=True))
+
+
+def test_fused_fill_is_one_kernel_launch(dev):
+    """A whole fill of K2 or K5b runs exactly one device kernel (besides the
+    copy of the staged table), seen by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0, ints, kw = _fused_case(dev)
+    for run in (lambda: dp_ops.fused_fill_two_tier(t0, *ints[:8], **kw),
+                lambda: dp_ops.fused_fill_offload(t0, t0, *ints,
+                                                  host_on=True, **kw)):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        assert len(names) == 1 and "fused_fill" in names[0], names
+
+
+def test_fused_fill_refuses_what_it_cannot_take(dev):
+    """A chain longer than K2 and K5b take raises, in the wrapper and in the
+    C launcher, and nothing runs in its place."""
+    # operands of the right shapes for a chain one stage too long
+    L, W = dp_ops.max_length() + 1, 1
+    ncells = (L + 1) * (L + 2) // 2
+    tl = torch.full((ncells, W), math.inf, device=dev)
+    vi = torch.zeros(L + 1, dtype=torch.int32, device=dev)
+    vf = torch.zeros(L + 1, device=dev)
+    thr = torch.zeros((L, L), dtype=torch.int32, device=dev)
+    long_ints = (torch.zeros(L + 2, dtype=torch.int32, device=dev), vi, vi,
+                 vf, vf, vf, thr, thr)
+    before = counters.snapshot()
+    with pytest.raises(ValueError, match=f"up to {L - 1} stages"):
+        dp_ops.fused_fill_two_tier(tl, *long_ints, L=L, W=W, allow_fall=True)
+    with pytest.raises(ValueError, match=f"up to {L - 1} stages"):
+        dp_ops.fused_fill_offload(tl, tl, *long_ints, vf, vf, L=L, W=W,
+                                  allow_fall=True, host_on=True)
+    assert counters.snapshot() == before
+    t0, ints, kw = _fused_case(dev, L=4)
+    t = t0.clone()
+    fn = dp_ops._FUSED.fn or dp_ops._FUSED.load()
+    status = fn(t.data_ptr(), *(x.data_ptr() for x in ints[:8]),
+                dp_ops.max_length() + 1, kw["W"], 1,
+                torch.cuda.current_stream().cuda_stream)
+    assert status != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(status, dp_ops.NAME_FUSED, dp_ops._FUSED_ERROR)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t0)
 
 
 def test_dp_wrappers_reject_bad_operands(dev):

@@ -1,8 +1,13 @@
 """The port's DP fill against the JAX package: the plain PyTorch band
 minimum against the Pallas kernel (interpret mode) and its jnp oracle, the
-port's banded and plain fills against ``repro.core.dp_kernels``, and the
-solver's schedules — all **bit-equal** on f32-exact chains (integer stage
-costs: every DP quantity is exact in float32, and min does not round)."""
+port's banded and plain fills against ``repro.core.dp_kernels``, the fused
+drivers' plain path (what K2 and K5b compute on the card) against the JAX
+banded fills on chains of up to 48 stages and on the Qwen1.5-4B chain at
+its 40 layers, with the per-band Pallas fill in interpret mode as a second
+witness, and the solver's schedules — all **bit-equal**: on f32-exact chains
+(integer stage costs and dyadic transfer times, so every DP quantity is
+exact in float32 and min does not round), and on the analytic Qwen chain
+because both sides do the same float32 adds in the same order."""
 
 import math
 
@@ -15,23 +20,43 @@ import torch  # noqa: E402
 
 from repro.core import dp_kernels as jdp  # noqa: E402
 from repro.core import solver as jsolver  # noqa: E402
+from repro.core.chain import Chain as JChain  # noqa: E402
+from repro.core.chain import HostTransferModel as JHost  # noqa: E402
 from repro.core.schedule import Schedule, simulate  # noqa: E402
 from repro.kernels.dp_fill import kernel as jkernel  # noqa: E402
+from repro.kernels.dp_fill import ops as jops  # noqa: E402
 from repro.kernels.dp_fill import ref as jref  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core import dp_kernels as pdp  # noqa: E402
 from repro_torch.core import solver as psolver  # noqa: E402
 from repro_torch.core.chain import Chain as PChain  # noqa: E402
+from repro_torch.core.chain import HostTransferModel as PHost  # noqa: E402
 from repro_torch.core.schedule import simulate as psimulate  # noqa: E402
 from repro_torch import counters  # noqa: E402
 from repro_torch.kernels.dp_fill import ops as pops  # noqa: E402
 from repro_torch.kernels.dp_fill import ref as pref  # noqa: E402
+from repro_torch.launch.steps import plan_chain  # noqa: E402
+from repro_torch.models.lm import StagedLM  # noqa: E402
+from repro_torch.offload.solver import solve_min_device_memory  # noqa: E402
 
 from helpers import random_chain  # noqa: E402
 
 
 def _port_chain(ch) -> PChain:
+    host = None if ch.host is None else PHost(
+        bandwidth_d2h=ch.host.bandwidth_d2h,
+        bandwidth_h2d=ch.host.bandwidth_h2d, latency=ch.host.latency)
     return PChain.make(uf=ch.uf, ub=ch.ub, wa=ch.wa, wabar=ch.wabar,
-                       wdelta=ch.wdelta, of=ch.of, ob=ch.ob)
+                       wdelta=ch.wdelta, of=ch.of, ob=ch.ob, host=host)
+
+
+def _jax_chain(ch) -> JChain:
+    host = None if ch.host is None else JHost(
+        bandwidth_d2h=ch.host.bandwidth_d2h,
+        bandwidth_h2d=ch.host.bandwidth_h2d, latency=ch.host.latency)
+    return JChain.make(uf=ch.uf, ub=ch.ub, wa=ch.wa, wabar=ch.wabar,
+                       wdelta=ch.wdelta, of=ch.of, ob=ch.ob, host=host)
 
 
 def _budgets(ch, fracs):
@@ -106,6 +131,98 @@ def test_fused_fill_wrappers_reject_bad_operands(bad):
     with pytest.raises(err):
         pops.fused_fill_offload(t0, t0, *ints, L=L, W=W, allow_fall=True,
                                 host_on=True)
+
+
+def _long_chain(case: int):
+    """(JAX chain, budget): an integer chain of 13 to 48 stages with a
+    dyadic host link; in cases 1 and 3 one activation is wider than the
+    budget (the C3 plane then gathers), the budget being sized on the chain
+    with that activation capped."""
+    L = (13, 24, 37, 48)[case]
+    rng = np.random.default_rng(200 + case)
+    n = L + 1
+    wa = rng.integers(1, 4, n).astype(float)
+    capped = JChain.make(uf=np.ones(n), ub=np.ones(n), wa=wa,
+                         wabar=rng.integers(1, 6, n).astype(float))
+    m = _budgets(capped, (0.6,))[0]
+    if case % 2:
+        wa = wa.copy()
+        wa[L // 2] = 10 * m
+    ch = JChain.make(uf=rng.integers(1, 5, n).astype(float),
+                     ub=rng.integers(1, 5, n).astype(float), wa=wa,
+                     wabar=capped.wabar,
+                     of=rng.integers(0, 2, n).astype(float),
+                     ob=rng.integers(0, 2, n).astype(float),
+                     host=JHost(bandwidth_d2h=float(rng.choice([0.5, 1.0,
+                                                                4.0])),
+                                latency=float(rng.choice([0.0, 0.25]))))
+    return ch, m
+
+
+def _fused_fills_match(pdch, want_two, want_off, S, allow_fall=True):
+    got = pops.fill_two_tier_fused(pdch, S, allow_fall=allow_fall,
+                                   device="cpu")
+    assert np.array_equal(got.data, want_two.data)
+    gb, ge = pops.fill_offload_fused(pdch, S, allow_fall=allow_fall,
+                                     device="cpu")
+    assert np.array_equal(gb.data, want_off[0].data)
+    assert np.array_equal(ge.data, want_off[1].data)
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("allow_fall", [True, False])
+def test_fused_fills_bit_equal_to_jax_on_long_chains(case, allow_fall):
+    """The fused drivers' plain path (K2's and K5b's arithmetic) against the
+    JAX package's banded fills, host tier on and off."""
+    ch, m = _long_chain(case)
+    S = int(m)
+    for jch in (ch, ch.with_host(None)):
+        jd = jch.discretize(m, S)
+        _fused_fills_match(_port_chain(jch).discretize(m, S),
+                           jdp.fill_two_tier(jd, S, allow_fall=allow_fall),
+                           jdp.fill_offload(jd, S, allow_fall=allow_fall), S,
+                           allow_fall)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_fused_fills_bit_equal_to_jax_pallas_band_fill(case):
+    """The second witness: JAX's per-band Pallas fill in interpret mode (its
+    fused fill does not run under the installed jax) gives the tables the
+    port's fused drivers give."""
+    ch, m = _long_chain(case)
+    S = int(m)
+    jd = ch.discretize(m, S)
+    jops.set_interpret(True)
+    try:
+        want_two = jops.fill_two_tier(jd, S)
+        want_off = jops.fill_offload(jd, S)
+    finally:
+        jops.set_interpret(None)
+    assert np.array_equal(want_two.data, jdp.fill_two_tier(jd, S).data)
+    _fused_fills_match(_port_chain(ch).discretize(m, S), want_two, want_off,
+                       S)
+
+
+def test_fused_fills_bit_equal_to_jax_on_qwen_full_depth_chain():
+    """Qwen1.5-4B at its published 40 layers, one layer a chunk (L = 41),
+    profiled analytically on meta tensors (batch 4 × 2048) with a 50 GB/s
+    host link, at S = 500 and two budgets: the two-tier midpoint and the
+    midpoint between the three- and two-tier floors."""
+    cfg = get_config("qwen1.5-4b", n_chunks=40, use_flash_attention=True)
+    pch = plan_chain(StagedLM(cfg), input_specs(
+        cfg, ShapeSpec("train", "train", 2048, 4)), 7.75e14,
+        host=PHost(bandwidth_d2h=5e10))
+    assert pch.length == 41
+    low = psolver.solve_min_memory(pch).mem_limit
+    budgets = ((low + pch.store_all_peak()) / 2,
+               (solve_min_device_memory(pch).mem_limit + low) / 2)
+    S = 500
+    for m in budgets:
+        jd = _jax_chain(pch).discretize(m, S)
+        want_off = jdp.fill_offload(jd, S)
+        pd = pch.discretize(m, S)
+        assert pops.FusedOperands(pd, S, True).W == 501
+        _fused_fills_match(pd, jdp.fill_two_tier(jd, S), want_off, S)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -9,12 +9,16 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    host-to-device copies of one boundary activation (B·S·d_model bf16); the
    slower direction prices the host tier of the offload path;
 4. kernel vs plain: each kernel against its plain PyTorch version on the same
-   CUDA inputs — the DP kernels bit-equal (K1 and K5a on random planes; K1,
-   K5a, K2 and K5b also as whole DP tables against the numpy banded fills, on
-   random integer chains and on the card chain, with and without the host
-   tier; the card chain, L = 9, and the chain of the same model at its
-   published 40 layers, L = 41, profiled on meta tensors, both at two
-   budgets), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
+   CUDA inputs — the DP kernels bit-equal (K1 and K5a on random stacked
+   planes, and on random companion tables kept on the card as the per-band
+   fill keeps them, every band of the L = 9 and L = 41 chains at their
+   widths, without a host tier and with C3 by slice and by gather; K1, K5a,
+   K2 and K5b also as whole DP tables against the numpy banded fills,
+   allow_fall on and off, on random integer chains of up to 64 stages and
+   on the card chain, with and without the host tier, with an activation
+   wider than the budget; the card chain, L = 9, and the chain of the same
+   model at its published 40 layers, L = 41, profiled on meta tensors, both
+   at two budgets), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
    2^-8 Σp|v|/l + 1e-5 of the float32 plain version on the same inputs, at
    the full shape for three seeds: the kernel rounds each p to bf16 before
    P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128, RMSNorm within
@@ -28,15 +32,22 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    as strided views into the mixer's one xBC tensor);
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
-   fused DP fills), at the main paths' shapes (K2 and K5b at L = 9 and at
-   L = 41), beside the least time the card could take (bytes or
-   operations), on two yardsticks: one call per event pair (``ms``: the
-   host's launch time counts where the card waits for it) and as device time
-   (``*device_ms``: each call queued behind a sleep kernel); for K2 and K5b
-   also the host's own cost of the call (``host_ms``, host clock, behind a
-   sleep kernel).  Then the host-clock time of whole fills at both lengths, numpy (``banded``),
-   per-band (``cuda``) and fused (``cuda_fused``), host staging included,
-   median of 20 with min and max;
+   fused DP fills), at the main paths' shapes (K1 and K5a as the per-band
+   fill calls them, one launch per band on resident tables, summed over the
+   bands of one fill; all four DP kernels at L = 9 and at L = 41), beside
+   the least time the card could take (bytes or operations), on two
+   yardsticks: one call per event pair (``ms``: the host's launch time
+   counts where the card waits for it) and as device time (``*device_ms``:
+   each call queued behind a sleep kernel); for the DP kernels also the
+   host's own cost of the call (``host_ms``, host clock, behind a sleep
+   kernel).  Then the host-clock time of whole fills at both lengths, numpy
+   (``banded``), per-band (``cuda``) and fused (``cuda_fused``), host
+   staging included, median of 20 with min and max, taken in turns, and
+   the band kernels' device time within one ``cuda`` fill (profiler;
+   :func:`time_fills`, which :func:`fill_report` runs alone for a
+   parent/change comparison); where the per-band fill's time goes at
+   L = 41 (host recursion, uploads, launches, downloads); and the host's
+   cost of one band's copy through the library and through ``copy_``;
 6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
    width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
    plan solved on the CUDA band-min kernel at the midpoint budget between the
@@ -192,6 +203,118 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def time_fills(fills: dict, card: str, reps: int = 20,
+               profiles: int = 5) -> list:
+    """Time the planner's DP fills of ``fills`` ({L: (two-tier chain,
+    offload chain)}, discretized to ``DEFAULT_NUM_SLOTS`` slots) and print
+    one JSON line per fill:
+
+    - ``wall_ms``: the whole fill on the host clock for each impl
+      (``banded``, ``cuda``, ``cuda_fused``), host staging included, median,
+      min and max of ``reps`` calls after one, the impls taken in turns so
+      that the host's drift falls on all;
+    - ``band_min_device_ms``: the device time of the band-min kernels (K1 or
+      K5a) within one ``cuda`` fill, from ``torch.profiler``'s kernel
+      events, median of ``profiles`` fills, with their launches and the
+      device time of the fill's copies.
+
+    It reads only ``dp_kernels.fill_tables[_offload]``, which every tree of
+    the port has, so :func:`fill_report` can run it in another tree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dp_kernels
+    from repro_torch.plan.plan import DEFAULT_NUM_SLOTS as slots
+
+    def band_kernels(fill):
+        runs = []
+        for _ in range(profiles):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fill()
+            kern = copies = 0.0
+            launches = 0
+            for e in prof.events():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                if "band_min" in e.name:
+                    kern += e.time_range.elapsed_us() / 1e3
+                    launches += 1
+                elif e.name.startswith("Memcpy"):
+                    copies += e.time_range.elapsed_us() / 1e3
+            runs.append((kern, launches, copies))
+        return [statistics.median(r[i] for r in runs) for i in range(3)]
+
+    rows = []
+    for L in sorted(fills):
+        for kind, dch, fill in zip(("two-tier", "offload"), fills[L],
+                                   (dp_kernels.fill_tables,
+                                    dp_kernels.fill_tables_offload)):
+            def run(impl, dch=dch, fill=fill):
+                fill(dch, slots, impl=impl)
+                torch.cuda.synchronize()
+
+            impls = ("banded", "cuda", "cuda_fused")
+            times = {impl: [] for impl in impls}
+            for impl in impls:
+                run(impl)
+            for _ in range(reps):
+                for impl in impls:
+                    t_0 = time.perf_counter()
+                    run(impl)
+                    times[impl].append((time.perf_counter() - t_0) * 1e3)
+            kern, launches, copies = band_kernels(lambda: run("cuda"))
+            rows.append({"chain_L": L, "fill": kind, "wall_ms": {
+                impl: {"median": statistics.median(t), "min": min(t),
+                       "max": max(t)} for impl, t in times.items()},
+                "band_min_device_ms": kern, "band_min_launches": launches,
+                "copies_device_ms": copies, "card": card})
+            say(f"[fills] {json.dumps(rows[-1])}")
+    return rows
+
+
+def fill_report() -> int:
+    """The DP fills of Qwen1.5-4B's chain cut to 8 layers (L = 9) and at its
+    40 layers (L = 41), priced at a fixed 7.75e14 FLOP/s and a 5e10-B/s
+    host link, through :func:`time_fills`: a parent/change comparison
+    copies this file into each tree and runs, from its root,
+    ``python3 -c "import chip_smoke; chip_smoke.fill_report()"``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec, input_specs
+    from repro_torch.core.chain import HostTransferModel
+    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.launch.steps import plan_chain
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.offload.solver import solve_min_device_memory
+    from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
+
+    fills = {}
+    for layers in (LAYERS, get_config(ARCH).num_layers):
+        cfg = get_config(ARCH, num_layers=layers, n_chunks=layers,
+                         layer_kinds=("dense",) * layers,
+                         use_flash_attention=True)
+        ch = plan_chain(StagedLM(cfg), input_specs(
+            cfg, ShapeSpec("train", "train", SEQ, BATCH)), 7.75e14)
+        hch = ch.with_host(HostTransferModel(bandwidth_d2h=5e10))
+        low = solve_min_memory(ch).mem_limit
+        fills[ch.length] = (
+            ch.discretize((low + ch.store_all_peak()) / 2, DEFAULT_NUM_SLOTS),
+            hch.discretize((solve_min_device_memory(hch).mem_limit + low) / 2,
+                           DEFAULT_NUM_SLOTS))
+    time_fills(fills, card_name())
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -242,10 +365,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- 1. environment ----------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
@@ -316,29 +436,34 @@ def main() -> int:
     say("[check] dp_band_min_offload == plain (torch.equal, all three "
         "minima) at (3,5,17), (9,2,501)")
 
-    def fills_agree(dch, S, what):
+    def fills_agree(dch, S, what, falls=(True,)):
         """K1/K2 tables (two-tier) and K5a/K5b tables (offload) against the
         numpy banded fills of the same discretized chain."""
-        want = dp_kernels.fill_tables(dch, S, impl="banded").data
-        for impl in ("cuda", "cuda_fused"):
-            if not np.array_equal(dp_kernels.fill_tables(dch, S,
-                                                         impl=impl).data,
-                                  want):
-                raise AssertionError(f"{what}: two-tier {impl} table "
-                                     f"differs from the banded fill")
-        tb, te = dp_kernels.fill_tables_offload(dch, S, impl="banded")
-        for impl in ("cuda", "cuda_fused"):
-            gb, ge = dp_kernels.fill_tables_offload(dch, S, impl=impl)
-            if not (np.array_equal(gb.data, tb.data)
-                    and np.array_equal(ge.data, te.data)):
-                raise AssertionError(f"{what}: offload {impl} tables "
-                                     f"differ from the banded fill")
+        for fall in falls:
+            kw = dict(allow_fall=fall)
+            want = dp_kernels.fill_tables(dch, S, impl="banded", **kw).data
+            for impl in ("cuda", "cuda_fused"):
+                if not np.array_equal(dp_kernels.fill_tables(
+                        dch, S, impl=impl, **kw).data, want):
+                    raise AssertionError(f"{what}: two-tier {impl} table "
+                                         f"differs from the banded fill "
+                                         f"(allow_fall={fall})")
+            tb, te = dp_kernels.fill_tables_offload(dch, S, impl="banded",
+                                                    **kw)
+            for impl in ("cuda", "cuda_fused"):
+                gb, ge = dp_kernels.fill_tables_offload(dch, S, impl=impl,
+                                                        **kw)
+                if not (np.array_equal(gb.data, tb.data)
+                        and np.array_equal(ge.data, te.data)):
+                    raise AssertionError(f"{what}: offload {impl} tables "
+                                         f"differ from the banded fill "
+                                         f"(allow_fall={fall})")
 
     rng = np.random.default_rng(0)
-    for i in range(6):
-        L = int(rng.integers(1, 13))
+    for i in range(8):
+        L = int(rng.integers(1, 13)) if i < 6 else (40, 64)[i - 6]
         wa = rng.integers(1, 4, L + 1)
-        if i == 5:
+        if i in (5, 7):
             wa[L // 2] = 10_000        # wider than the budget: C3 gathers
         ch = Chain.make(uf=rng.integers(1, 5, L + 1),
                         ub=rng.integers(1, 5, L + 1), wa=wa,
@@ -348,11 +473,14 @@ def main() -> int:
                         host=None if i == 4 else HostTransferModel(
                             bandwidth_d2h=float(rng.choice([0.5, 1.0, 4.0])),
                             latency=float(rng.choice([0.0, 0.25]))))
-        m = math.ceil(ch.store_all_peak() * 0.6) if i < 5 else 24
-        fills_agree(ch.discretize(m, int(m)), int(m), f"random chain {i}")
-    say("[check] K1/K2 and K5a/K5b fills == banded (np.array_equal) on 6 "
-        "random integer chains (L 1..12, one without a host tier, one with "
-        "an activation wider than the budget)")
+        m = math.ceil(Chain.make(uf=ch.uf, ub=ch.ub, wa=np.minimum(wa, 4),
+                                 wabar=ch.wabar).store_all_peak() * 0.6)
+        fills_agree(ch.discretize(m, int(m)), int(m), f"random chain {i}",
+                    (True, False))
+    say("[check] K1/K2 and K5a/K5b fills == banded (np.array_equal), "
+        "allow_fall on and off, on 8 random integer chains (6 of L 1..12, "
+        "one of 40 and one of 64 stages; one without a host tier, two with "
+        "an activation wider than the budget, where C3 gathers)")
 
     n = 8192
     a, b = randn(n, n, dtype=torch.bfloat16), randn(n, n, dtype=torch.bfloat16)
@@ -388,18 +516,91 @@ def main() -> int:
                      + full_low) / 2)
     # one host-tier chain at its offload budget per length: the operands on
     # which K2 and K5b are checked against their plain versions and timed
-    fused_chains = {}
+    # and the two-tier chain at its midpoint budget per length, on which K1
+    # is checked and timed as the per-band fill calls it
+    fused_chains, two_tier_chains = {}, {}
     for ch, hch, budgets in ((chain, hchain, (budget, budget_off)),
                              (full_chain, full_hchain, full_budgets)):
         for b_, what in zip(budgets, ("midpoint", "offload")):
             fills_agree(ch.discretize(b_, S500), S500,
-                        f"L={ch.length} chain, {what} budget, no host tier")
+                        f"L={ch.length} chain, {what} budget, no host tier",
+                        (True, False))
             fills_agree(hch.discretize(b_, S500), S500,
-                        f"L={ch.length} chain, {what} budget, host tier")
+                        f"L={ch.length} chain, {what} budget, host tier",
+                        (True, False))
         say(f"[check] Qwen1.5-4B chain L={ch.length} (S={S500}) at budgets "
-            f"{budgets[0]:.6e} and {budgets[1]:.6e} B, host tier on and off: "
-            f"cuda and cuda_fused tables == banded (np.array_equal)")
+            f"{budgets[0]:.6e} and {budgets[1]:.6e} B, host tier on and off, "
+            f"allow_fall on and off: cuda and cuda_fused tables == banded "
+            f"(np.array_equal)")
         fused_chains[ch.length] = hch.discretize(budgets[1], S500)
+        two_tier_chains[ch.length] = ch.discretize(budgets[0], S500)
+
+    def table_operands(dch, c3="chain"):
+        """K1's and K5a's operands as the per-band fill of ``dch`` keeps
+        them on the card: random tables of its shapes (``+inf`` in 30 % of
+        the right-child cells), its own vectors, its C3 case (or ``c3``) and
+        band widths: (tables, (wa, cum, toff), c3, widths)."""
+        v = dp_kernels._views(dch)
+        L, S1 = dch.length, S500 + 1
+        ctx = dp_kernels._FillCtx(v, L, S500)
+        if c3 == "chain":
+            h = dch.chain.host
+            c3 = None if h is None or not h.enabled else (
+                "slice" if ctx.wa_uncapped else "gather")
+        ncells = (L + 1) * (L + 2) // 2
+
+        def table(width, lo, hi, p_inf=0.0):
+            t = torch.rand((ncells, width), generator=gen, device=dev)
+            t = t * (hi - lo) + lo
+            t[torch.rand(t.shape, generator=gen, device=dev) < p_inf] = \
+                math.inf
+            return t
+
+        cb = table(S1 + 1, 0, 8, 0.3)
+        cb[:, 0] = math.inf                     # the sentinel column
+        tables = (table(S1 + (ctx.wcap if c3 == "slice" else 0), 0, 8, 0.3),
+                  table(S1, -4, 4), table(S1, -4, 4), table(S1, -4, 4), cb)
+        wa = np.minimum(ctx.WA, S1) if c3 == "slice" else ctx.WA
+        vecs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (wa.astype(np.int32), ctx.CUM32,
+                               dp_kernels.offload_vectors(dch, v)[0]))
+        caps = dp_kernels.saturation_caps(v, S500)
+        return (tables, vecs, c3,
+                [dp_kernels.band_width(caps, d, S500) for d in range(1, L + 1)])
+
+    def table_bands(kind, tables, vecs, c3, L):
+        """K1 (``kind`` "two-tier") or K5a bound to resident tables, as the
+        per-band fill binds it once per fill (its output buffer too)."""
+        out = torch.empty(3 * L * (S500 + 1), device=dev)
+        if kind == "two-tier":
+            return dp_ops.TableBands(tables[0], tables[1:2], out, L=L)
+        wa, cum, toff = vecs
+        return dp_ops.TableBands(tables[0], tables[1:4], out, L=L, S=S500,
+                                 c3=c3, cb=tables[4], wa=wa, cum=cum,
+                                 toff=toff)
+
+    for L_ in sorted(fused_chains):
+        cases = [("two-tier", table_operands(two_tier_chains[L_])),
+                 ("offload", table_operands(fused_chains[L_]))]
+        cases += [("offload", table_operands(fused_chains[L_], c3))
+                  for c3 in (None, "slice", "gather")
+                  if c3 != cases[1][1][2]]
+        for kind, (tables, vecs, c3, widths) in cases:
+            bands = table_bands(kind, tables, vecs, c3, L_)
+            for d, W in enumerate(widths, 1):
+                n = bands.launch(d, W)
+                if not torch.equal(bands.out[:n],
+                                   bands.plain(d, W).reshape(-1)):
+                    raise AssertionError(f"{kind} band-min on resident "
+                                         f"tables differs from plain at "
+                                         f"L={L_}, d={d}, c3={c3}")
+        say(f"[check] K1 and K5a (no host tier, C3 by slice and by gather; "
+            f"the chain's own: {cases[1][1][2]}) on resident tables == their "
+            f"plain versions (torch.equal), every band of the L={L_} chain "
+            f"at its widths")
+        # the tables would stay on the card and count in the training
+        # paths' measured activation peaks
+        del cases, bands, tables, vecs
 
     def fused_operands(hd):
         """K2's and K5b's operands on the card: (t0, two-tier vectors,
@@ -577,52 +778,86 @@ def main() -> int:
 
     # -- 5. timing at the main path's shapes -------------------------------------
     kernels = []
-    caps = dp_kernels.saturation_caps(dp_kernels._views(dchain), S500)
-    times, nbytes, ops = {}, 0.0, 0.0
-    for d in range(1, chain.length + 1):
-        ns = chain.length + 1 - d
-        w = dp_kernels.band_width(caps, d, S500)
-        r, lm = planes(d, ns, w)
-        # the library call is the plain version's own expression; each of
-        # the three allocates its output
-        times = add_times(times, both_ms(
-            lambda: dp_ops.band_min_two_tier(r, lm),
-            lambda: dp_ref.band_min_two_tier(r, lm),
-            lambda: torch.amin(r + lm, 0)))
-        nbytes += 4 * (2 * d + 1) * ns * w
-        ops += 2 * d * ns * w
-    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
-    kernels.append({
-        "name": dp_ops.NAME, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
-        "replaces": "src/repro/kernels/dp_fill/kernel.py:86",
-        **times, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dp_err,
-        "shape": f"one fill: {chain.length} bands of (d, L+1-d, W)"})
 
-    # K5a: the bands of the card chain's offload fill at the offload budget
-    caps_off = dp_kernels.saturation_caps(
-        dp_kernels._views(fused_chains[chain.length]), S500)
-    times, nbytes, ops = {}, 0.0, 0.0
-    for d in range(1, chain.length + 1):
-        ns = chain.length + 1 - d
-        w = dp_kernels.band_width(caps_off, d, S500)
-        r, r3, lmb, lme, lmb3, toff = offload_planes(d, ns, w)
-        ops5 = (r, r3, lmb, lme, lmb3, toff)
-        times = add_times(times, both_ms(
-            lambda: dp_ops.band_min_offload(*ops5),
-            lambda: dp_ref.band_min_offload(*ops5),
-            lambda: (torch.amin(r + lmb, 0), torch.amin(r + lme, 0),
-                     torch.amin(torch.maximum(r3, toff) + lmb3, 0))))
-        nbytes += 4 * (5 * d * ns * w + ns + 3 * ns * w)
-        ops += 7 * d * ns * w
-    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
-    kernels.append({
-        "name": dp_ops.NAME_OFFLOAD, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
-        "replaces": "src/repro/kernels/dp_fill/kernel.py:142",
-        **times, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
-        "shape": f"one offload fill: {chain.length} bands of five "
-                 f"(d, L+1-d, W) planes"})
+    def k5a_bytes(c3, wa, L, d, w):
+        """The bytes K5a's band d must move, each input read once and each
+        output written once: for split j and row r, w columns of Lmb and
+        Lme (and Lmb3 with C3), and R's row once over the columns read,
+        [0, w) and by slice also [wa[r], wa[r] + w); by gather the bare
+        table's row over the columns gathered, and the vectors read."""
+        ns = L + 1 - d
+        cells, planes = d * ns, (2 if c3 is None else 3)
+        n = (planes + 1) * cells * w + planes * ns * w     # + outputs
+        if c3 == "slice":
+            n += d * int(np.minimum(wa[:ns], w).sum()) + 2 * ns  # wa, toff
+        elif c3 == "gather":
+            j, r = np.arange(d)[:, None], np.arange(ns)[None, :]
+            wp, wr = wa[1 + j + r], wa[r]
+
+            def col(c):
+                return np.clip(np.maximum(c - wp, -(1 << 30)) + wr, -1,
+                               S500)
+
+            n += int((col(w - 1) - col(0) + 1).sum())
+            n += (L + 1) + L + ns            # wa, CUM, toff
+        return 4 * n
+
+    # K1 and K5a as the per-band fills call them: one launch per band on
+    # tables kept on the card, into a buffer held for the fill; the library
+    # call is the plain version's own expression on planes stacked before
+    # the timing (each allocates its output).  The card chain's fill is the
+    # row, the full-depth chain's under other_shapes.
+    band_min_rows = {dp_ops.NAME: [], dp_ops.NAME_OFFLOAD: []}
+    for L_ in sorted(fused_chains):
+        for name, kind, dch in (
+                (dp_ops.NAME, "two-tier", two_tier_chains[L_]),
+                (dp_ops.NAME_OFFLOAD, "offload", fused_chains[L_])):
+            tables, vecs, c3, widths = table_operands(dch)
+            bands = table_bands(kind, tables, vecs, c3, L_)
+            wa_np = vecs[0].cpu().numpy().astype(np.int64)
+            times, nbytes, ops = {}, 0.0, 0.0
+            for d, w in enumerate(widths, 1):
+                ns = L_ + 1 - d
+                run = (lambda d=d, w=w: bands.launch(d, w))
+                plain = (lambda d=d, w=w: bands.plain(d, w))
+                if kind == "two-tier":
+                    right, left = dp_ref.band_rows(L_, d, dev)
+                    rs, ls = tables[0][right, :w], tables[1][left, :w]
+                    library = (lambda rs=rs, ls=ls: torch.amin(rs + ls, 0))
+                    nbytes += 4 * (2 * d + 1) * ns * w
+                    ops += 2 * d * ns * w
+                else:
+                    r, r3, lmb, lme, lmb3 = dp_ref.offload_planes(
+                        *tables, *vecs[:2], L=L_, S=S500, d=d, W=w, c3=c3)
+                    toff = vecs[2][:ns, None]
+                    library = (lambda r=r, r3=r3, lmb=lmb, lme=lme,
+                               lmb3=lmb3, toff=toff: (
+                                   torch.amin(r + lmb, 0),
+                                   torch.amin(r + lme, 0),
+                                   torch.amin(torch.maximum(r3, toff)
+                                              + lmb3, 0)))
+                    nbytes += k5a_bytes(c3, wa_np, L_, d, w)
+                    ops += (4 if c3 is None else 7 + (c3 == "gather")) \
+                        * d * ns * w
+                times = add_times(times, {**both_ms(run, plain, library),
+                                          "host_ms": host_ms(run)})
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            band_min_rows[name].append({
+                **times, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": 0.0,
+                "shape": f"one {kind} fill, L={L_}: {L_} bands of "
+                         f"{'two' if kind == 'two-tier' else 'five'} "
+                         f"(d, L+1-d, W <= {max(widths)}) planes read in "
+                         f"place{'' if c3 is None else f', C3 by {c3}'}"})
+            del tables, vecs, bands
+    for name, line in ((dp_ops.NAME, 86), (dp_ops.NAME_OFFLOAD, 142)):
+        main_row, *others = band_min_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dp_band_min.cu",
+            "replaces": f"src/repro/kernels/dp_fill/kernel.py:{line}",
+            **main_row, "other_shapes": others})
+    kernels[0]["max_abs_err"] = dp_err
 
     # K2 and K5b: one whole fill, staged tensors in place, at the main path's
     # chain (its row) and at the full-depth chain (its other shape)
@@ -660,31 +895,82 @@ def main() -> int:
             "replaces": f"src/repro/kernels/dp_fill/kernel.py:{line}",
             **main_row, "other_shapes": others})
 
-    def wall_ms(fn, reps=20):
-        """Median, min and max host-clock ms of ``reps`` calls (after one)."""
-        fn()
-        times = []
-        for _ in range(reps):
-            t_0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t_0) * 1e3)
-        return statistics.median(times), min(times), max(times)
+    time_fills({L_: (two_tier_chains[L_], fused_chains[L_])
+                for L_ in sorted(fused_chains)}, card)
 
-    for (ch, hd) in ((dchain, fused_chains[chain.length]),
-                     (full_chain.discretize(full_budgets[0], S500),
-                      fused_chains[full_chain.length])):
-        for impl in ("banded", "cuda", "cuda_fused"):
-            for kind, fill in (
-                    ("two-tier", lambda: dp_kernels.fill_tables(
-                        ch, S500, impl=impl)),
-                    ("offload", lambda: dp_kernels.fill_tables_offload(
-                        hd, S500, impl=impl))):
-                med, lo, hi = wall_ms(fill)
-                say(f"[time] whole {kind} fill of the L={hd.length} chain "
-                    f"(S={S500}), impl {impl}, host staging included: "
-                    f"{med:.4f} ms (min {lo:.4f}, max {hi:.4f}; host clock, "
-                    f"median of 20) on {card}")
+    # where the per-band cuda fill's host time goes at L = 41: the _Uplink
+    # steps and the launch call timed from outside; the host recursion is
+    # the rest
+    L_ = full_chain.length
+    steps = (("upload", dp_ops._Uplink, "publish"),
+             ("kernel", dp_ops.TableBands, "launch"),
+             ("download", dp_ops._Uplink, "fetch"))
+    originals = [(cls, attr, getattr(cls, attr)) for _, cls, attr in steps]
+    spent = {}
+
+    def timed(key, fn):
+        def call(*args):
+            t_0 = time.perf_counter()
+            result = fn(*args)
+            spent[key] += time.perf_counter() - t_0
+            return result
+        return call
+
+    try:
+        for (key, cls, attr), (_, _, fn) in zip(steps, originals):
+            setattr(cls, attr, timed(key, fn))
+        for kind, fill, dch in (
+                ("two-tier", dp_ops.fill_two_tier, two_tier_chains[L_]),
+                ("offload", dp_ops.fill_offload, fused_chains[L_])):
+            runs = []
+            for _ in range(11):
+                spent.update(upload=0.0, kernel=0.0, download=0.0)
+                t_0 = time.perf_counter()
+                fill(dch, S500, device=dev)
+                one = dict(spent, fill=time.perf_counter() - t_0)
+                one["host recursion"] = one["fill"] - sum(spent.values())
+                runs.append(one)
+            parts = {k: statistics.median(r[k] for r in runs[1:]) * 1e3
+                     for k in runs[0]}
+            say(f"[time] breakdown of the cuda {kind} fill at L={L_} "
+                f"(S={S500}; host clock, median of 10, ms; upload = staging "
+                f"the new rows and queueing their copy, kernel = the launch "
+                f"call, download = queueing the copy back, waiting for the "
+                f"card and unpacking): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                + f" on {card}")
+    finally:
+        for cls, attr, fn in originals:
+            setattr(cls, attr, fn)
+
+    # the host's cost of queueing one band's copies as the cuda fill makes
+    # them at L = 41 (band 1's upload: band 0's L + 1 rows of the offload
+    # fill's four tables; its three minima back), through the library's
+    # cudaMemcpyAsync and through Tensor.copy_(non_blocking=True), in turns
+    ncells = (L_ + 1) * (L_ + 2) // 2
+    link = dp_ops._Uplink([np.zeros((ncells, S500 + 1), np.float32)] * 4,
+                          L_, 3, S500 + 1, dev)
+    rows_up, n_down = L_ + 1, 3 * L_ * (S500 + 1)
+    copies = {
+        "upload, library": lambda: link._copy(
+            link.buf.data_ptr(), link.stage.data_ptr(),
+            rows_up * link.row_bytes),
+        "upload, copy_": lambda: link.buf[:rows_up].copy_(
+            link.stage[:rows_up], non_blocking=True),
+        "download, library": lambda: link._copy(
+            link.down.data_ptr(), link.out.data_ptr(), 4 * n_down),
+        "download, copy_": lambda: link.down[:n_down].copy_(
+            link.out[:n_down], non_blocking=True)}
+    spent = {k: [] for k in copies}
+    for _ in range(2):
+        for k in (*copies, *reversed(copies)):
+            spent[k].append(host_ms(copies[k]) * 1e3)
+    say(f"[time] host cost of one band's copy at L={L_} (µs, host clock "
+        f"behind a sleep kernel, median of 20, four runs each: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                    for k, v in spent.items())
+        + f") on {card}")
+    del link
 
     B, S, H, K, D = BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (randn(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))

@@ -5,9 +5,11 @@ Kernels (CUDA C++ in ``csrc/``; each wrapper runs the plain version of
 :mod:`.ref` on CPU tensors, launches the kernel on CUDA tensors, and counts
 its launches in :mod:`repro_torch.counters`):
 
-- :func:`band_min_two_tier` (K1, ``dp_band_min.cu``) and
-  :func:`band_min_offload` (K5a, same file): one band's split minimum, one
-  launch per band;
+- :class:`TableBands` (K1 and K5a, ``dp_band_min.cu``): one band's split
+  minima read in place from companion tables kept on the card, bound once
+  per fill, one launch per band; :func:`band_min_two_tier` /
+  :func:`band_min_offload` run the same kernel on split planes stacked into
+  ``(d, ns, W)`` tensors (the JAX kernels' contract);
 - :func:`fused_fill_two_tier` (K2) and :func:`fused_fill_offload` (K5b),
   ``dp_fused_fill.cu``: the whole band recursion on the card in one
   cooperative launch per fill, for chains of up to :func:`max_length`
@@ -15,8 +17,8 @@ its launches in :mod:`repro_torch.counters`):
 
 Drivers: :func:`fill_two_tier` / :func:`fill_offload` hand the one copy of
 the recursion in :mod:`repro_torch.core.dp_kernels` a band minimum that
-stacks the band's split planes into ``(d, ns, W)`` tensors on the requested
-device (the dispatch pattern of the JAX package's ``impl="pallas"``);
+keeps the companion tables on the requested device for the whole fill,
+sends up only each band's new rows and launches once per band;
 :func:`fill_two_tier_fused` / :func:`fill_offload_fused` stage the base case,
 offsets, clamped integer vectors and thresholds once, run the fused fill,
 and broadcast the saturated tail on the host afterwards.
@@ -25,6 +27,7 @@ and broadcast the saturated tail on the host afterwards.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -50,7 +53,11 @@ _F32_PAIR = (_F32, _F32)
 
 _TWO_TIER = _build.Binding("dp_band_min", NAME, [_P, _P, _P, _I, _I, _I, _P])
 _OFFLOAD = _build.Binding("dp_band_min", NAME_OFFLOAD,
-                          [_P] * 9 + [_I, _I, _I, _P])
+                          [_P] * 7 + [_I, _I, _I, _P])
+_TABLES = _build.Binding("dp_band_min", "dp_band_min_tables",
+                         [_P, _I, _I, _P])
+_COPY = _build.Binding("dp_band_min", "dp_band_min_copy",
+                       [_P, _P, ctypes.c_int64, _P])
 _BAND_ERROR = _build.Binding("dp_band_min", "dp_band_min_error_string", [_I],
                              ctypes.c_char_p)
 _FUSED = _build.Binding("dp_fused_fill", NAME_FUSED,
@@ -63,18 +70,22 @@ _FUSED_MAX_LENGTH = _build.Binding("dp_fused_fill",
                                    "dp_fused_fill_max_length", [])
 
 
-def _check_operands(what: str, tensors, dtypes) -> int:
-    """One device for all; each of its dtype; contiguous on CUDA.  Returns
-    the device's index, -1 off the card.  One launch is a few microseconds
-    of device work, so this runs once per call and reads little."""
+def _check_operands(what: str, tensors, dtypes, strided: int = 0) -> int:
+    """One device for all; each of its dtype; on CUDA contiguous, or for
+    the first ``strided`` (tables read row by row) of unit column stride.
+    Returns the device's index, -1 off the card.  One launch is a few
+    microseconds of device work, so this runs once per call and reads
+    little."""
     index = tensors[0].get_device()
-    for t, dt in zip(tensors, dtypes):
+    for i, (t, dt) in enumerate(zip(tensors, dtypes)):
         if t.dtype != dt:
             raise TypeError(f"{what} needs {dt} operands, got {t.dtype}")
         if t.get_device() != index:
             raise ValueError(f"{what}: operands must be on one device")
-        if index >= 0 and not t.is_contiguous():
-            raise ValueError(f"{what} needs contiguous operands")
+        if index >= 0 and not (t.stride(-1) == 1 if i < strided
+                               else t.is_contiguous()):
+            raise ValueError(f"{what} needs contiguous operands (tables: "
+                             f"rows of unit column stride)")
     return index
 
 
@@ -119,16 +130,140 @@ def band_min_offload(r: torch.Tensor, r3: torch.Tensor, lmb: torch.Tensor,
     index = _check_operands(NAME_OFFLOAD, planes + (toff,), (_F32,) * 6)
     if index < 0:
         return ref.band_min_offload(r, r3, lmb, lme, lmb3, toff)
-    outs = tuple(r.new_empty((ns, w)) for _ in range(3))
+    out = r.new_empty((3, ns, w))
     if ns * w == 0:
-        return outs
+        return tuple(out)
     status = (_OFFLOAD.fn or _OFFLOAD.load())(
-        *(t.data_ptr() for t in planes + (toff,) + outs), d, ns, w,
+        *(t.data_ptr() for t in planes + (toff, out)), d, ns, w,
         _build.stream(index))
     if status:
         _build.check(status, NAME_OFFLOAD, _BAND_ERROR)
     counters.bump(NAME_OFFLOAD)
-    return outs
+    return tuple(out)
+
+
+class _Band(ctypes.Structure):
+    """The C launcher's ``Band`` (``csrc/dp_band_min.cu``)."""
+    _fields_ = [("r", _P), ("lm", _P * 3), ("r3", _P), ("cb", _P),
+                ("wa", _P), ("cum", _P), ("toff", _P), ("out", _P),
+                ("r_stride", ctypes.c_int64), ("l_stride", ctypes.c_int64),
+                ("cb_stride", ctypes.c_int64)] + [
+                    (k, _I) for k in ("nacc", "rows", "c3", "L", "S", "d",
+                                      "ns", "w", "g")]
+
+
+#: ``c3`` of :class:`TableBands` -> the C launcher's code
+_C3_CODES = {None: -1, "slice": 1, "gather": 2}
+
+
+class TableBands:
+    """K1 or K5a bound to the companion tables of one per-band fill of an
+    ``L``-stage chain (float32, one row per cell, band ``k`` from row
+    ``k (L + 1) - k (k - 1) / 2``; views into a wider buffer too, the kernel
+    taking their row strides): the operands are checked and packed for the
+    C launcher once, then :meth:`launch` computes band ``d`` into the front
+    of the flat float32 buffer ``out``.  On CUDA tensors that is one launch
+    of the Hopper kernel, counted; on any other device the plain version.
+
+    ``c3``: ``"two-tier"`` is K1 on ``(r, lefts[0])``; otherwise K5a on
+    ``r`` and ``lefts = (Lmb, Lme[, Lmb3])`` (one row stride), without a
+    host tier (``c3`` None: two minima), or with C3 (three), whose right
+    plane is read from ``r`` at column ``wa[r] + c`` (``"slice"``, ``wa =
+    min(WA, S + 1)`` int32, ``r`` padded by the widest shift) or gathered
+    from the bare table ``cb`` (``"gather"``, ``S + 2`` wide, ``wa = WA``,
+    and the float32 ``cum``), ``toff`` holding the CUM-shifted offload times
+    (one per row)."""
+
+    def __init__(self, r, lefts, out, *, L: int, S: int = 0, c3="two-tier",
+                 cb=None, wa=None, cum=None, toff=None):
+        if c3 != "two-tier" and c3 not in _C3_CODES:
+            raise ValueError(f"TableBands: c3 must be 'two-tier', None, "
+                             f"'slice' or 'gather', got {c3!r}")
+        self.name = NAME if c3 == "two-tier" else NAME_OFFLOAD
+        self.nacc = {"two-tier": 1, None: 2}.get(c3, 3)
+        lefts = tuple(lefts)[:self.nacc]
+        tables = (r,) + lefts + ((cb,) if c3 == "gather" else ())
+        ncells = (L + 1) * (L + 2) // 2
+        if L < 1 or len(lefts) < self.nacc or any(
+                t.ndim != 2 or t.shape[0] < ncells for t in tables):
+            raise ValueError(f"{self.name} needs L >= 1, {self.nacc} left "
+                             f"tables and tables of at least {ncells} rows")
+        if any(t.stride(0) != lefts[0].stride(0) for t in lefts):
+            raise ValueError(f"{self.name}: the left tables must share one "
+                             f"row stride")
+        if c3 == "gather" and cb.shape[1] != S + 2:
+            raise ValueError(f"{self.name}: cb must be S + 2 = {S + 2} "
+                             f"wide, got {cb.shape[1]}")
+        vectors = {}
+        if self.nacc == 3:
+            vectors = {"toff": (toff, _F32, L),
+                       "wa": (wa, torch.int32, L + 1)}
+            if c3 == "gather":
+                vectors["cum"] = (cum, _F32, L + 1)
+        for what, (v, _, n) in vectors.items():
+            if v.ndim != 1 or v.numel() < n:
+                raise ValueError(f"{self.name}: {what} needs at least {n} "
+                                 f"elements, got {tuple(v.shape)}")
+        self.index = _check_operands(
+            self.name, tables + tuple(v for v, _, _ in vectors.values())
+            + (out,), (_F32,) * len(tables)
+            + tuple(t for _, t, _ in vectors.values()) + (_F32,),
+            strided=len(tables))
+        if out.ndim != 1:
+            raise ValueError(f"{self.name} needs a flat output buffer")
+        self.r, self.lefts, self.out = r, lefts, out
+        self.cb, self.wa, self.cum, self.toff = cb, wa, cum, toff
+        self.L, self.S, self.c3 = L, S, c3
+        self.width = min(t.shape[1] for t in (r,) + lefts)
+        if c3 == "slice":       # row r of R is read from column wa[r] on
+            # (a copy to the host, once per fill, rather than a reduction
+            # kernel on the card: a fill launches nothing but its bands)
+            self.width = min(self.width,
+                             r.shape[1] - int(wa[:L].cpu().max()))
+        self.capacity = out.numel()
+        if self.index >= 0:
+            def ptr(t):
+                return None if t is None else t.data_ptr()
+
+            self.args = _Band(
+                r=ptr(r), lm=(_P * 3)(*(ptr(t) for t in lefts)),
+                cb=ptr(cb if c3 == "gather" else None),
+                wa=ptr(wa if self.nacc == 3 else None),
+                cum=ptr(cum if c3 == "gather" else None),
+                toff=ptr(toff if self.nacc == 3 else None), out=ptr(out),
+                r_stride=r.stride(0), l_stride=lefts[0].stride(0),
+                cb_stride=cb.stride(0) if c3 == "gather" else 0,
+                nacc=self.nacc, c3=_C3_CODES.get(c3, -1), L=L, S=S)
+            self.address = ctypes.addressof(self.args)
+
+    def launch(self, d: int, W: int) -> int:
+        """Band ``d``'s ``(nacc, L + 1 - d, W)`` minima into the front of
+        ``out``; returns their number of elements."""
+        n = self.nacc * (self.L + 1 - d) * W
+        if not (1 <= d <= self.L and 1 <= W <= self.width
+                and n <= self.capacity):
+            raise ValueError(f"{self.name}: band d={d}, W={W} outside the "
+                             f"tables (L={self.L}, width {self.width}) or "
+                             f"the output buffer")
+        if self.index < 0:
+            self.out[:n].view(-1, W).copy_(self.plain(d, W).reshape(-1, W))
+            return n
+        status = (_TABLES.fn or _TABLES.load())(
+            self.address, d, W, _build.stream(self.index))
+        if status:
+            _build.check(status, self.name, _BAND_ERROR)
+        counters.bump(self.name)
+        return n
+
+    def plain(self, d: int, W: int) -> torch.Tensor:
+        """Band ``d``'s minima by the plain version (:mod:`.ref`)."""
+        if self.nacc == 1:
+            return ref.band_min_two_tier_tables(self.r, self.lefts[0],
+                                                L=self.L, d=d, W=W)
+        lmb3 = self.lefts[2] if self.nacc == 3 else None
+        return ref.band_min_offload_tables(
+            self.r, *self.lefts[:2], lmb3, self.cb, self.wa, self.cum,
+            self.toff, L=self.L, S=self.S, d=d, W=W, c3=self.c3)
 
 
 _FUSED_TYPES = (torch.int32,) * 3 + (torch.float32,) * 3 + (torch.int32,) * 2
@@ -210,23 +345,103 @@ def fused_fill_offload(t0b, t0e, off, wa, wb, cum, uf, ub, mn, ma, toff,
 # Per-band drivers (impl="plain" / "cuda")
 # ---------------------------------------------------------------------------
 
+class _Uplink:
+    """A per-band fill's host tables as the device sees them, for the whole
+    fill: one buffer allocated once, each table a column range of its rows
+    (so one copy moves a band's rows of every table), and a result buffer.
+
+    :meth:`band` sends up the rows the host recursion published since the
+    last band (band ``d - 1``'s before band ``d``, :meth:`publish`),
+    launches band ``d`` and brings its minima back (:meth:`fetch`).  On the
+    card the rows go up from a pinned staging buffer and the minima come
+    down into another, both as asynchronous copies on the current stream,
+    with one synchronize a band, so the staging buffers are free again when
+    the next band starts.  On the CPU the buffer is a plain tensor, NaN
+    until its rows are published (a row read too early shows in the
+    result)."""
+
+    def __init__(self, host_tables, L: int, nout: int, width: int,
+                 dev: torch.device):
+        self.host, self.L = host_tables, L
+        self.card = dev.type == "cuda"
+        self.sent = 0
+        cols = np.cumsum([0] + [t.shape[1] for t in host_tables])
+        self.cols = [(int(a), int(b)) for a, b in zip(cols[:-1], cols[1:])]
+        shape = (host_tables[0].shape[0], int(cols[-1]))
+        size = nout * L * width
+        if self.card:
+            self.buf = torch.empty(shape, dtype=_F32, device=dev)
+            self.stage = torch.empty((L + 1, shape[1]), dtype=_F32,
+                                     pin_memory=True)
+            self.stage_np = self.stage.numpy()
+            self.down = torch.empty(size, dtype=_F32, pin_memory=True)
+            self.down_np = self.down.numpy()
+            self.stream = torch.cuda.current_stream(dev)
+            self.row_bytes = 4 * shape[1]
+        else:
+            self.buf = torch.full(shape, math.nan, dtype=_F32)
+        self.tables = [self.buf[:, a:b] for a, b in self.cols]
+        self.out = torch.empty(size, dtype=_F32, device=dev)
+
+    def _copy(self, dst: int, src: int, nbytes: int) -> None:
+        status = (_COPY.fn or _COPY.load())(dst, src, nbytes,
+                                            self.stream.cuda_stream)
+        if status:
+            _build.check(status, "dp_band_min_copy", _BAND_ERROR)
+
+    def publish(self, d: int) -> None:
+        """Send up the rows before band ``d``'s first not sent yet."""
+        L = self.L
+        upto = d * (L + 1) - d * (d - 1) // 2          # band d's first row
+        lo, rows = self.sent, upto - self.sent
+        if self.card:
+            for host, (a, b) in zip(self.host, self.cols):
+                self.stage_np[:rows, a:b] = host[lo:upto]
+            self._copy(self.buf.data_ptr() + lo * self.row_bytes,
+                       self.stage.data_ptr(), rows * self.row_bytes)
+        else:
+            for host, t in zip(self.host, self.tables):
+                t[lo:upto] = torch.from_numpy(host[lo:upto])
+        self.sent = upto
+
+    def fetch(self, n: int, targets, W: int) -> None:
+        """Fill the host arrays ``targets`` (one per minimum, ``W`` wide)
+        with the first ``n`` floats of the result buffer."""
+        if self.card:
+            self._copy(self.down.data_ptr(), self.out.data_ptr(), 4 * n)
+            self.stream.synchronize()
+            got = self.down_np[:n]
+        else:
+            got = self.out[:n].numpy()
+        for dst, src in zip(targets, got.reshape(len(targets), -1, W)):
+            dst[:] = src
+
+    def band(self, bands: TableBands, d: int, W: int, targets) -> None:
+        """Band ``d``'s minima into ``targets``: publish, launch, fetch."""
+        self.publish(d)
+        self.fetch(bands.launch(d, W), targets, W)
+
+
 def fill_two_tier(dchain, S: int, allow_fall: bool = True,
                   v: Optional[dict] = None,
                   device: Union[str, torch.device] = "cpu") -> BandedTable:
-    """Two-tier band fill with the split reduction on ``device``.  Bit-equal
-    to ``impl="banded"`` on f32-exact chains (same adds, same mins)."""
+    """Two-tier band fill with the split reduction on ``device``: the host
+    recursion of :mod:`repro_torch.core.dp_kernels`, whose companion tables
+    ``R`` and ``Lm`` stay on ``device`` for the whole fill, each band's new
+    rows sent up before the band's one launch of K1 (:class:`TableBands`).
+    Bit-equal to ``impl="banded"`` on f32-exact chains (same adds, same
+    mins)."""
     dev = torch.device(device)
+    link = bands = None
 
     def band_min(R, Lm, off, d, ns, W, out):
-        rs = np.empty((d, ns, W), dtype=COST_DTYPE)
-        ls = np.empty((d, ns, W), dtype=COST_DTYPE)
-        for j in range(d):                  # split sp = s + 1 + j
-            base = int(off[d - 1 - j]) + 1 + j
-            rs[j] = R[base:base + ns, :W]
-            ls[j] = Lm[off[j]:off[j] + ns, :W]
-        res = band_min_two_tier(torch.from_numpy(rs).to(dev),
-                                torch.from_numpy(ls).to(dev))
-        out[:] = res.cpu().numpy()
+        nonlocal link, bands
+        if link is None:
+            L = ns + d - 1
+            link = _Uplink((R, Lm), L, 1, R.shape[1], dev)
+            bands = TableBands(link.tables[0], link.tables[1:], link.out,
+                               L=L)
+        link.band(bands, d, W, (out,))
 
     return dp_kernels.fill_two_tier(dchain, S, allow_fall=allow_fall, v=v,
                                     band_min=band_min)
@@ -236,36 +451,44 @@ def fill_offload(dchain, S: int, allow_fall: bool = True,
                  v: Optional[dict] = None,
                  device: Union[str, torch.device] = "cpu"
                  ) -> Tuple[BandedTable, BandedTable]:
-    """Offload band fill with the split reduction on ``device``: the band's
-    planes (the C3 right planes built by slices or by the gather, exactly as
-    the numpy fill builds them) go to :func:`band_min_offload`, or, without a
-    host tier, to :func:`band_min_two_tier` once per input state."""
+    """Offload band fill with the split reduction on ``device``: the
+    companion tables (``R``, ``Lmb``, ``Lme``; with a host tier ``Lmb3``,
+    and the bare table when an activation is wider than the budget and C3
+    gathers from it) stay on ``device`` for the whole fill, and each band is
+    one launch of K5a (:class:`TableBands`), which forms the C3 right planes
+    where it reads them, as ``OffloadSplits.right3`` does."""
     dev = torch.device(device)
+    link = bands = None
 
     def band_min(sp: OffloadSplits, resb, rese, c3):
-        d, shape = sp.d, (sp.d, sp.ns, sp.W)
-        rs, lbs, les = (np.empty(shape, dtype=COST_DTYPE) for _ in range(3))
-        if c3 is not None:
-            r3s, lb3s = (np.empty(shape, dtype=COST_DTYPE) for _ in range(2))
-        for j in range(d):
-            rs[j], lbs[j], les[j] = sp.right(j), sp.left_b(j), sp.left_e(j)
-            if c3 is not None:
-                sp.right3(j, r3s[j])
-                lb3s[j] = sp.left_b3(j)
-
-        def on(a):
-            return torch.from_numpy(a).to(dev)
-
-        if c3 is None:
-            outs = (band_min_two_tier(on(rs), on(lbs)),
-                    band_min_two_tier(on(rs), on(les)))
-            targets = (resb, rese)
-        else:
-            outs = band_min_offload(on(rs), on(r3s), on(lbs), on(les),
-                                    on(lb3s), on(np.ascontiguousarray(sp.toff)))
-            targets = (resb, rese, c3)
-        for dst, res in zip(targets, outs):
-            dst[:] = res.cpu().numpy()
+        nonlocal link, bands
+        ctx = sp.ctx
+        if link is None:
+            mode = None if c3 is None else ("slice" if sp.slice_c3
+                                            else "gather")
+            tables = [sp.R, sp.Lmb, sp.Lme]
+            if mode is not None:
+                tables.append(sp.Lmb3)
+            if mode == "gather":
+                tables.append(sp.flat_b.reshape(-1, ctx.S2))
+            link = _Uplink(tables, ctx.L, 2 if mode is None else 3, ctx.S1,
+                           dev)
+            t = link.tables
+            vectors = {}
+            if mode is not None:
+                # WA as the C3 plane reads it, CUM, and toffP[:L] (band 1's
+                # rows, so every band's)
+                wa = np.minimum(ctx.WA, ctx.S1) if mode == "slice" \
+                    else ctx.WA
+                vectors = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for k, a in (("wa", wa.astype(np.int32)),
+                                        ("cum", ctx.CUM32),
+                                        ("toff", sp.toff[:, 0]))}
+            bands = TableBands(t[0], t[1:4], link.out, L=ctx.L, S=ctx.S,
+                               c3=mode, cb=t[4] if mode == "gather" else None,
+                               **vectors)
+        link.band(bands, sp.d, sp.W,
+                  (resb, rese) if c3 is None else (resb, rese, c3))
 
     return dp_kernels.fill_offload(dchain, S, allow_fall=allow_fall, v=v,
                                    band_min=band_min)

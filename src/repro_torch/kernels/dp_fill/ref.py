@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 _INF = float("inf")
+_INT_CLAMP = 1 << 30
 
 
 def band_min_two_tier(r: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
@@ -28,6 +29,70 @@ def band_min_offload(r: torch.Tensor, r3: torch.Tensor, lmb: torch.Tensor,
     ``max(X, T_off)`` (``toff``: ``(ns, 1)``)."""
     return (torch.amin(r + lmb, dim=0), torch.amin(r + lme, dim=0),
             torch.amin(torch.maximum(r3, toff) + lmb3, dim=0))
+
+
+def band_rows(L: int, d: int,
+              device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(right, left)``: ``(d, ns)`` table rows that split ``j`` of band
+    ``d`` reads for row ``r`` of an ``L``-stage chain, ``off[d-1-j] + 1 + j
+    + r`` and ``off[j] + r``, band ``k`` starting at ``off[k] = k (L + 1) -
+    k (k - 1) / 2`` (the rows ``_numpy_band_min`` and ``OffloadSplits``
+    read)."""
+    j = torch.arange(d, device=device)
+    r = torch.arange(L + 1 - d, device=device)
+
+    def start(k):
+        return k * (L + 1) - k * (k - 1) // 2
+
+    return ((start(d - 1 - j) + 1 + j)[:, None] + r, start(j)[:, None] + r)
+
+
+def band_min_two_tier_tables(r: torch.Tensor, lm: torch.Tensor, *, L: int,
+                             d: int, W: int) -> torch.Tensor:
+    """:func:`band_min_two_tier` of band ``d`` read in place from the
+    companion tables ``r`` and ``lm`` (one row per cell): ``(ns, W)``."""
+    right, left = band_rows(L, d, r.device)
+    return torch.amin(r[right, :W] + lm[left, :W], dim=0)
+
+
+def offload_planes(r, lmb, lme, lmb3, cb, wa, cum, *, L: int, S: int,
+                   d: int, W: int, c3):
+    """Band ``d``'s split planes of the offload fill, stacked ``(d, ns, W)``
+    from its tables: ``(R, X, Lmb, Lme, Lmb3)``, the C3 right plane ``X``
+    read from ``r`` at column ``wa[r] + c`` (``c3 == "slice"``, ``wa =
+    min(WA, S + 1)``) or gathered from the bare table ``cb`` (``"gather"``,
+    ``wa = WA``) as ``OffloadSplits.right3`` forms it; ``X`` and ``Lmb3``
+    are None without a host tier (``c3`` None)."""
+    right, left = band_rows(L, d, r.device)
+    planes = [r[right, :W], None, lmb[left, :W], lme[left, :W], None]
+    if c3 is not None:
+        ns = L + 1 - d
+        cols = torch.arange(W, device=r.device)
+        wa_r = wa[:ns, None].long()
+        if c3 == "slice":
+            x = torch.gather(r[right], 2, (wa_r + cols).expand(d, ns, W))
+        else:
+            p = (1 + torch.arange(d, device=r.device)[:, None]
+                 + torch.arange(ns, device=r.device))      # right input
+            raw = (cols - wa[p].long()[..., None]).clamp(min=-_INT_CLAMP)
+            i = (raw + wa_r).clamp(-1, S) + 1
+            x = torch.gather(cb[right], 2, i) + cum[p][..., None]
+        planes[1], planes[4] = x, lmb3[left, :W]
+    return tuple(planes)
+
+
+def band_min_offload_tables(r, lmb, lme, lmb3, cb, wa, cum, toff, *, L: int,
+                            S: int, d: int, W: int, c3) -> torch.Tensor:
+    """The offload band's split minima read in place from the fill's tables
+    (:func:`offload_planes`): ``(2, ns, W)`` (C1 bare and embedded) without
+    a host tier (``c3`` None), else ``(3, ns, W)`` with C3."""
+    rv, x, lb, le, lb3 = offload_planes(r, lmb, lme, lmb3, cb, wa, cum, L=L,
+                                        S=S, d=d, W=W, c3=c3)
+    if c3 is None:
+        return torch.stack([torch.amin(rv + lb, dim=0),
+                            torch.amin(rv + le, dim=0)])
+    return torch.stack(band_min_offload(rv, x, lb, le, lb3,
+                                        toff[:L + 1 - d, None]))
 
 
 def _shifted_gather(blk: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -79,9 +144,6 @@ def fused_fill_two_tier(t0, off, wa, wb, cum, uf, ub, mn, ma, *, L: int,
         t[lo:lo + ns] = res
         r[lo:lo + ns], lm[lo:lo + ns] = _rebuild(t, lo, ns, wa, cum, cols)
     return t
-
-
-_INT_CLAMP = 1 << 30
 
 
 def fused_fill_offload(t0b, t0e, off, wa, wb, cum, uf, ub, mn, ma, toff,

@@ -301,6 +301,92 @@ def test_dp_wrappers_reject_bad_operands(dev):
                                    allow_fall=True)
 
 
+def _resident_tables(dev, L, mode, S=500, seed=0):
+    """Random companion tables of an L-stage chain on ``dev`` as the
+    per-band offload fill keeps them, and its vectors: (tables, wa, cum,
+    toff); ``mode`` "slice" pads R by the widest shift, "gather" has one
+    activation wider than the budget."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ncells = (L + 1) * (L + 2) // 2
+    WA = torch.randint(1, 40, (L + 1,), generator=g, device=dev)
+    if mode == "gather":
+        WA[L // 2] = 10 * S
+    wa = torch.clamp(WA, max=S + 1) if mode == "slice" else WA
+    wcap = int(wa.max()) if mode == "slice" else 0
+
+    def table(width, lo, hi, p_inf=0.0):
+        t = torch.rand((ncells, width), generator=g, device=dev) * (hi - lo)
+        t += lo
+        t[torch.rand(t.shape, generator=g, device=dev) < p_inf] = math.inf
+        return t
+
+    cb = table(S + 2, 0, 8, 0.3)
+    cb[:, 0] = math.inf
+    tables = (table(S + 1 + wcap, 0, 8, 0.3), table(S + 1, -4, 4),
+              table(S + 1, -4, 4), table(S + 1, -4, 4), cb)
+    # CUM and the offload times in the tables' range, so that both sides
+    # of max(X, toff) win somewhere
+    return (tables, wa.to(torch.int32),
+            torch.rand(L + 2, generator=g, device=dev) * 2,
+            torch.rand(L + 1, generator=g, device=dev) * 10)
+
+
+@pytest.mark.parametrize("L", [9, 41, 64])
+def test_table_band_min_kernels_bit_equal(dev, L):
+    """K1 and K5a on companion tables kept on the card (``TableBands``; no
+    host tier, C3 by slice and by gather) against their plain versions on
+    the same tensors, every band of chains of 9, 41 and 64 stages, d = L
+    with one row, W a multiple of 32 and not; one counted launch a band."""
+    S = 500
+    for mode in ("two-tier", None, "slice", "gather"):
+        tables, wa, cum, toff = _resident_tables(dev, L, mode, S, seed=L)
+        out = torch.empty(3 * L * (S + 1), device=dev)
+        if mode == "two-tier":
+            bands = dp_ops.TableBands(tables[0], tables[1:2], out, L=L)
+        else:
+            bands = dp_ops.TableBands(tables[0], tables[1:4], out, L=L, S=S,
+                                      c3=mode, cb=tables[4], wa=wa, cum=cum,
+                                      toff=toff)
+        for d in range(1, L + 1):
+            W = (S + 1, 77, 256)[d % 3]
+            before = counters.snapshot().get(bands.name, 0)
+            n = bands.launch(d, W)
+            assert counters.snapshot()[bands.name] == before + 1
+            got, want = out[:n], bands.plain(d, W).reshape(-1)
+            assert torch.equal(got, want), (mode, d, W)
+
+
+def test_cuda_fill_is_one_band_kernel_launch_per_band(dev):
+    """A ``cuda`` fill of an L-stage chain runs L device kernels, all of
+    them the band-min kernel (the rest are copies), seen by the profiler,
+    and counts L launches: two-tier, offload with the host tier (C3 by slice
+    and by gather) and without."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(12)
+    L = 12
+    for host, big in ((False, False), (True, False), (True, True)):
+        ch = _int_chain(rng, L, host=host, big_wa=big)
+        m = math.ceil(Chain.make(uf=ch.uf, ub=ch.ub, wa=np.minimum(ch.wa, 4),
+                                 wabar=ch.wabar).store_all_peak() * 0.6)
+        dch, S = ch.discretize(m, int(m)), int(m)
+        for name, fill in ((dp_ops.NAME, dp_ops.fill_two_tier),
+                           (dp_ops.NAME_OFFLOAD, dp_ops.fill_offload)):
+            fill(dch, S, device=dev)
+            torch.cuda.synchronize()
+            before = counters.snapshot().get(name, 0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fill(dch, S, device=dev)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))]
+            assert len(names) == L and all("band_min" in n for n in names), \
+                names
+            assert counters.snapshot()[name] == before + L
+
+
 def test_offload_walker_on_cuda_matches_store_all(dev):
     L = 5
     g = torch.Generator().manual_seed(0)

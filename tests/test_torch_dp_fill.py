@@ -266,3 +266,241 @@ def test_solutions_match_jax(seed):
     got = psolver.solve_min_memory(pch, impl="plain")
     assert got.mem_limit == want.mem_limit
     assert got.schedule.ops == want.schedule.ops
+
+
+def _table_case(L: int, mode, seed: int):
+    """Random companion tables of an ``L``-stage chain (``+inf`` in 30 % of
+    the right-child cells) and the JAX package's fill context of a random
+    integer chain: (ctx, R, Lmb, Lme, Lmb3, Cb, toffP).  ``mode`` "gather"
+    makes one activation wider than the budget; "slice" pads R by the widest
+    activation, as the offload fill does."""
+    rng = np.random.default_rng(seed)
+    n = L + 1
+    wa = rng.integers(1, 6, n).astype(float)
+    S = 40
+    if mode == "gather":
+        wa[L // 2] = 10 * S
+    ch = JChain.make(uf=rng.integers(1, 5, n).astype(float),
+                     ub=rng.integers(1, 5, n).astype(float), wa=wa,
+                     wabar=rng.integers(1, 6, n).astype(float))
+    ctx = jdp._FillCtx(jdp._views(ch.discretize(float(S), S)), L, S)
+    ncells = (L + 1) * (L + 2) // 2
+
+    def table(width, lo, hi, p_inf=0.0):
+        t = rng.uniform(lo, hi, (ncells, width)).astype(np.float32)
+        t[rng.uniform(size=t.shape) < p_inf] = np.inf
+        return t
+
+    R = table(S + 1 + (ctx.wcap if mode == "slice" else 0), 0, 8, 0.3)
+    Cb = table(S + 2, 0, 8, 0.3)
+    Cb[:, 0] = np.inf                           # the sentinel column
+    toffP = rng.uniform(0, 6, L + 1).astype(np.float32)
+    return (ctx, R, table(S + 1, -4, 4), table(S + 1, -4, 4),
+            table(S + 1, -4, 4), Cb, toffP)
+
+
+def _stacked_planes(ctx, R, Lmb, Lme, Lmb3, Cb, d: int, W: int, mode):
+    """Band ``d``'s split planes stacked with numpy as the JAX package's
+    per-band Pallas fill stacks them (``repro.kernels.dp_fill.ops``)."""
+    L, S = ctx.L, ctx.S
+    ns = L + 1 - d
+    off = np.concatenate([[0], np.cumsum([L + 1 - k for k in range(L + 1)])])
+    rs, lbs, les, lb3s, r3s = (np.empty((d, ns, W), np.float32)
+                               for _ in range(5))
+    wacol = ctx.WA[:ns].astype(np.int32)[:, None]
+    for j in range(d):
+        base, lo = int(off[d - 1 - j]) + 1 + j, int(off[j])
+        rs[j] = R[base:base + ns, :W]
+        lbs[j], les[j] = Lmb[lo:lo + ns, :W], Lme[lo:lo + ns, :W]
+        lb3s[j] = Lmb3[lo:lo + ns, :W]
+        if mode == "slice":
+            for w0, ps in ctx.groups:
+                rows = ps[:np.searchsorted(ps, ns)]
+                r3s[j, rows] = R[base + rows, w0:w0 + W]
+        elif mode == "gather":
+            ifi = np.clip(ctx.raw_wa[1 + j:1 + j + ns, :W] + wacol, -1, S)
+            ifi += 1 + ctx.is2[:ns, None]
+            r3s[j] = np.take(Cb.reshape(-1)[base * (S + 2):], ifi)
+            r3s[j] += ctx.CUM32[1 + j:1 + j + ns, None]
+    return rs, r3s, lbs, les, lb3s
+
+
+@pytest.mark.parametrize("mode", ["two-tier", None, "slice", "gather"])
+@pytest.mark.parametrize("L", [4, 11])
+def test_table_band_minima_bit_equal_to_pallas(L, mode):
+    """K1's and K5a's in-place forms (the plain versions, and
+    ``TableBands`` on CPU tensors, which runs them and counts no launch)
+    read split j's rows of the companion tables by the band offsets, and
+    form the C3 right plane by slice or by gather; they equal the JAX Pallas
+    kernels (interpret mode) on the planes numpy stacks from the same tables
+    as the JAX package's per-band fill does."""
+    ctx, R, Lmb, Lme, Lmb3, Cb, toffP = _table_case(L, mode, 40 + L)
+    S = ctx.S
+    c3 = None if mode == "two-tier" else mode
+    tabs = [torch.from_numpy(a) for a in (R, Lmb, Lme, Lmb3, Cb)]
+    wa = np.minimum(ctx.WA, S + 1) if mode == "slice" else ctx.WA
+    vecs = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (wa.astype(np.int32), ctx.CUM32, toffP)]
+    out = torch.empty(3 * L * (S + 1))
+    before = counters.snapshot()
+    for d in sorted({1, 2, L // 2 + 1, L}):
+        W = (S + 1, 17, 5)[d % 3]
+        ns = L + 1 - d
+        rs, r3s, lbs, les, lb3s = _stacked_planes(ctx, R, Lmb, Lme, Lmb3, Cb,
+                                                  d, W, mode)
+        if mode == "two-tier":
+            want = np.asarray(jkernel.band_min_two_tier(rs, lbs,
+                                                        interpret=True))
+            plain = pref.band_min_two_tier_tables(tabs[0], tabs[1], L=L,
+                                                  d=d, W=W)
+            bands = pops.TableBands(tabs[0], tabs[1:2], out, L=L)
+        else:
+            want = jkernel.band_min_offload(
+                rs, r3s, lbs, les, lb3s, toffP[:ns, None], interpret=True)
+            want = np.stack([np.asarray(w) for w in want[:3 if c3 else 2]])
+            plain = pref.band_min_offload_tables(*tabs, *vecs, L=L, S=S, d=d,
+                                                 W=W, c3=c3)
+            bands = pops.TableBands(tabs[0], tabs[1:4], out, L=L, S=S, c3=c3,
+                                    cb=tabs[4], wa=vecs[0], cum=vecs[1],
+                                    toff=vecs[2])
+        n = bands.launch(d, W)
+        assert np.array_equal(plain.numpy(), want), (d, W)
+        assert np.array_equal(out[:n].numpy(), want.reshape(-1)), (d, W)
+    assert counters.snapshot() == before
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("allow_fall", [True, False])
+def test_plain_fills_bit_equal_to_jax_on_long_chains(case, allow_fall):
+    """``impl="plain"``: the per-band drivers (companion tables kept as
+    tensors, each band's rows sent before its one call) against the JAX
+    package's banded fills, on 13-48-stage chains with the host tier on and
+    off; cases 1 and 3 have an activation wider than the budget, so C3
+    gathers from the bare table."""
+    ch, m = _long_chain(case)
+    S = int(m)
+    for jch in (ch, ch.with_host(None)):
+        jd, pd = jch.discretize(m, S), _port_chain(jch).discretize(m, S)
+        want = jdp.fill_two_tier(jd, S, allow_fall=allow_fall)
+        assert np.array_equal(pdp.fill_tables(
+            pd, S, impl="plain", allow_fall=allow_fall).data, want.data)
+        tb, te = jdp.fill_offload(jd, S, allow_fall=allow_fall)
+        gb, ge = pdp.fill_tables_offload(pd, S, impl="plain",
+                                         allow_fall=allow_fall)
+        assert np.array_equal(gb.data, tb.data)
+        assert np.array_equal(ge.data, te.data)
+
+
+def test_uplink_sends_each_band_its_rows_once():
+    """A per-band fill's device tables get each host row once, just before
+    the first band that reads it: before band ``d`` the rows of bands
+    ``0 .. d - 1`` (equal to the host's) and NaN below them; the result
+    lands in the host arrays, one per minimum."""
+    L, S1 = 4, 3
+    n = (L + 1) * (L + 2) // 2
+    host = [np.arange(n * S1, dtype=np.float32).reshape(n, S1) + k
+            for k in (0, 100)]
+    link = pops._Uplink(host, L, 2, S1, torch.device("cpu"))
+    for d in range(1, L + 1):
+        upto = d * (L + 1) - d * (d - 1) // 2
+        link.publish(d)
+        for h, t in zip(host, link.tables):
+            assert np.array_equal(t[:upto].numpy(), h[:upto])
+            assert bool(torch.isnan(t[upto:]).all())
+        ns = L + 1 - d
+        link.out[:2 * ns * 2] = torch.arange(4.0 * ns) + d
+        targets = [np.full((ns, 2), np.inf, np.float32) for _ in range(2)]
+        link.fetch(4 * ns, targets, 2)
+        assert np.array_equal(np.stack(targets).reshape(-1),
+                              np.arange(4.0 * ns, dtype=np.float32) + d)
+    link.publish(L + 1)                         # the last row, band L's
+    assert not bool(torch.isnan(link.buf).any())
+
+
+def test_band_struct_mirrors_the_c_launcher():
+    """``ops._Band`` (ctypes) names the fields of ``Band`` in
+    ``csrc/dp_band_min.cu`` in the same order with the same kinds (pointer,
+    int64, int), so the launcher reads what the wrapper packs."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(pops.__file__).resolve().parents[1] / "csrc"
+           / "dp_band_min.cu").read_text()
+    src = re.sub(r"//[^\n]*", "", src)
+    body = re.search(r"struct Band \{(.*?)\};", src, re.S).group(1)
+    want = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        kind = ("ptr" if "*" in decl else
+                "i64" if decl.startswith("int64_t") else "int")
+        names = decl.split(None, 1)[1] if kind != "ptr" else \
+            decl.split("*", 1)[1]
+        for name in names.split(","):
+            name, _, n = name.strip().partition("[")
+            want.append((name, kind, int(n.rstrip("]")) if n else 1))
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int64: "i64",
+             ctypes.c_int: "int"}
+    got = []
+    for name, t in pops._Band._fields_:
+        n = getattr(t, "_length_", 1)
+        got.append((name, kinds[getattr(t, "_type_", t) if n > 1 else t],
+                    n))
+    assert got == want
+
+
+@pytest.mark.parametrize("bad", ["c3", "short tables", "left strides",
+                                 "cb width", "short vector", "band",
+                                 "width", "output"])
+def test_table_bands_reject_bad_operands(bad):
+    """``TableBands`` checks its operands when it is bound and each band
+    when it is launched; every bad one raises, on the CPU too."""
+    L, S = 5, 8
+    n = (L + 1) * (L + 2) // 2
+    buf = torch.zeros(n, 4 * (S + 1) + S + 2)
+    r, lmb, lme, lmb3 = (buf[:, k * (S + 1):(k + 1) * (S + 1)]
+                         for k in range(4))
+    cb = buf[:, 4 * (S + 1):]
+    kw = dict(L=L, S=S, c3="gather", cb=cb, wa=torch.zeros(L + 1,
+                                                           dtype=torch.int32),
+              cum=torch.zeros(L + 1), toff=torch.zeros(L))
+    out = torch.empty(3 * L * (S + 1))
+    band = (1, S + 1)
+    if bad == "c3":
+        kw["c3"] = "both"
+    elif bad == "short tables":
+        r = r[:-1]
+    elif bad == "left strides":
+        lme = lme.contiguous()
+    elif bad == "cb width":
+        kw["cb"] = cb[:, 1:]
+    elif bad == "short vector":
+        kw["toff"] = torch.zeros(L - 1)
+    elif bad == "band":
+        band = (L + 1, 1)
+    elif bad == "width":
+        band = (1, S + 2)
+    else:
+        out = out[:L * (S + 1)]
+    with pytest.raises(ValueError):
+        pops.TableBands(r, (lmb, lme, lmb3), out, **kw).launch(*band)
+
+
+def test_table_bands_keep_the_slice_inside_the_right_table():
+    """With C3 by slice, row r of R is read from column ``wa[r]`` on, so a
+    band wider than R's width less the widest such shift is refused."""
+    L, S = 3, 6
+    n = (L + 1) * (L + 2) // 2
+    r = torch.zeros(n, S + 1 + 2)               # padded by a shift of 2
+    lefts = [torch.zeros(n, S + 1) for _ in range(3)]
+    wa = torch.tensor([2, 1, 0, 1], dtype=torch.int32)
+    bands = pops.TableBands(r, lefts, torch.empty(3 * L * (S + 1)), L=L, S=S,
+                            c3="slice", wa=wa, toff=torch.zeros(L))
+    assert bands.launch(1, S + 1) == 3 * L * (S + 1)
+    wa[0] = 3
+    bands = pops.TableBands(r, lefts, torch.empty(3 * L * (S + 1)), L=L, S=S,
+                            c3="slice", wa=wa, toff=torch.zeros(L))
+    with pytest.raises(ValueError):
+        bands.launch(1, S + 1)

@@ -5,9 +5,10 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
 
 1. environment: versions, the card, and ``nvidia-smi``'s name and power limit;
 2. build: the five CUDA sources (one ``nvcc`` per source, in parallel);
-3. host link: the median of 20 CUDA-event pinned device-to-host and
-   host-to-device copies of one boundary activation (B·S·d_model bf16); the
-   slower direction prices the host tier of the offload path;
+3. host link: ``core.planner.measure_host_bandwidth``, the median of 20
+   CUDA-event pinned device-to-host and host-to-device copies of one
+   boundary activation's bytes (B·S·d_model bf16); the slower direction
+   prices the host tier of the offload path;
 4. kernel vs plain: each kernel against its plain PyTorch version on the same
    CUDA inputs — the DP kernels bit-equal (K1 and K5a on random stacked
    planes, and on random companion tables kept on the card as the per-band
@@ -69,10 +70,28 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    on the CUDA band-min kernel at the midpoint budget of its own chain, every
    SSD forward on the hand-written kernel; then the rotor plan and
    store-all agree within 1e-2 on one batch;
-10. one JSON line describing every kernel, then the final JSON result line.
+10. measure, plan, run (the paper's loop): the Qwen model of path 6 on
+    real tensors — (a) its chain measured stage by stage
+    (``launch.steps.measure_chain``: forward and backward times by CUDA
+    events, the forward's and backward's transient memory by the
+    allocator's peak), printed beside the analytic chain's times, its sizes
+    equal to the analytic chain's; (b) ``run_training(chain=measured)``
+    trains 3 steps under ``rotor:`` at the measured chain's midpoint budget
+    on the CUDA band-min kernel, with the plan's predicted activation peak
+    beside the measured one (over the forward and backward, and over the
+    whole step), then rotor and store-all agree within 1e-2 on one batch;
+    (c) the trade-off of paper Figs 3–13 (``launch.tradeoff``): store-all,
+    the best sequential segment count, ``revolve:B`` and ``rotor:B`` at
+    0.45, 0.7 and 1.0 × the measured store-all peak, each through
+    ``MemoryPlan.bind(...).value_and_grad``, predicted against measured
+    time and peak, the time MAPE and rotor's gain over sequential; every
+    point's loss and gradient norm equal store-all's within 1e-2.  Then
+    (a) and (c) again for the same model without its per-layer remat (the
+    paper's setting: the planner is the only checkpointing);
+11. one JSON line describing every kernel, then the final JSON result line.
 
-Each path (6, 7, 8, 9) runs with the launch counts set to 0 just before it
-and read just after; a kernel launched on none of them fails the run.
+Each path (6, 7, 8, 9, 10) runs with the launch counts set to 0 just before
+it and read just after; a kernel launched on none of them fails the run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -337,6 +356,7 @@ def main() -> int:
     from repro_torch.configs.shapes import ShapeSpec, input_specs
     from repro_torch.core import dp_kernels
     from repro_torch.core.chain import Chain, HostTransferModel
+    from repro_torch.core.planner import measure_host_bandwidth
     from repro_torch.core.solver import solve_min_memory, solve_optimal
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import _build
@@ -349,14 +369,17 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.launch import train
-    from repro_torch.launch.steps import plan_chain, plan_training
+    from repro_torch.launch.steps import (measure_chain, plan_chain,
+                                          plan_training)
+    from repro_torch.launch.tradeoff import run_tradeoff
     from repro_torch.models.lm import StagedLM
     from repro_torch.offload.executor import execute_offload_schedule
     from repro_torch.offload.solver import (solve_min_device_memory,
                                             solve_optimal_offload)
     from repro_torch.optim.adamw import global_norm
     from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
-    from repro_torch.tree import tensors_of
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+    from repro_torch.tree import tensors_of, tree_bytes
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -388,14 +411,11 @@ def main() -> int:
                               for k, v in OVERRIDES.items()})
     model = StagedLM(cfg)
     specs = input_specs(cfg, ShapeSpec("train", "train", SEQ, BATCH))
-    act = randn(BATCH, SEQ, cfg.d_model, dtype=torch.bfloat16)
-    pinned = torch.empty(act.shape, dtype=act.dtype, pin_memory=True)
-    nbytes_act = act.numel() * act.element_size()
-    d2h_ms = median_ms(lambda: pinned.copy_(act, non_blocking=True))
-    h2d_ms = median_ms(lambda: act.copy_(pinned, non_blocking=True))
-    d2h, h2d = nbytes_act / (d2h_ms * 1e-3), nbytes_act / (h2d_ms * 1e-3)
+    nbytes_act = BATCH * SEQ * cfg.d_model * 2   # one bf16 boundary activation
+    link = measure_host_bandwidth(nbytes_act, repeats=20, device=dev)
+    d2h, h2d = link.bandwidth_d2h, link.bandwidth_h2d
+    d2h_ms, h2d_ms = nbytes_act / d2h * 1e3, nbytes_act / h2d * 1e3
     bw = min(d2h, h2d)
-    del act, pinned
     say(f"[link] pinned copies of {nbytes_act} B (median of 20): device->host "
         f"{d2h_ms:.4f} ms = {d2h:.6e} B/s, host->device {h2d_ms:.4f} ms = "
         f"{h2d:.6e} B/s; the host tier is priced at {bw:.6e} B/s on {card}")
@@ -1250,7 +1270,120 @@ def main() -> int:
     del out, plan
     torch.cuda.empty_cache()
 
-    # -- 10. result lines ---------------------------------------------------------
+    # -- 10. measure, plan, run --------------------------------------------------
+    def show_measured(tag, model, params, analytic):
+        """The chain of ``model`` measured on ``batch``, printed beside the
+        analytic chain's times; its sizes must equal the analytic chain's."""
+        t0 = time.perf_counter()
+        measured = measure_chain(model, params, batch)
+        say(f"[measured] {tag}: chain L={measured.length} measured in "
+            f"{time.perf_counter() - t0:.2f} s (1 warm-up, median of 3) on "
+            f"{card}; analytic times at {peak_flops:.6e} FLOP/s")
+        say("[measured] stage: uf s (analytic), ub s (analytic), wa B, "
+            "wabar B, of B, ob B")
+        for i in range(measured.length + 1):
+            say(f"[measured] {i + 1}: {measured.uf[i]:.6e} "
+                f"({analytic.uf[i]:.6e}), {measured.ub[i]:.6e} "
+                f"({analytic.ub[i]:.6e}), {int(measured.wa[i])}, "
+                f"{int(measured.wabar[i])}, {int(measured.of[i])}, "
+                f"{int(measured.ob[i])} on {card}")
+        if not (np.array_equal(measured.wa, analytic.wa)
+                and np.array_equal(measured.wabar, analytic.wabar)):
+            raise AssertionError(
+                f"measured sizes differ from the analytic chain's: wa "
+                f"{measured.wa} vs {analytic.wa}, wabar {measured.wabar} vs "
+                f"{analytic.wabar}")
+        say("[measured] wa and wabar == the analytic chain's "
+            "(np.array_equal)")
+        return measured
+
+    def tradeoff(tag, model, params, measured):
+        """The trade-off on ``measured``; every point's loss and gradient
+        norm must equal store-all's within 1e-2."""
+        trade = run_tradeoff(
+            model, params, batch, impl="cuda", chain=measured,
+            emit=lambda s: say(f"[tradeoff] {tag}: {s} on {card}"))
+        ref = trade["rows"][0]
+        for r in trade["rows"]:
+            for key in ("loss", "grad_norm"):
+                if not abs(r[key] - ref[key]) <= 1e-2 * abs(ref[key]):
+                    raise AssertionError(
+                        f"{tag}, {r['strategy']} at {r['budget_frac']}: "
+                        f"{key} {r[key]} vs store-all {ref[key]}")
+        say(f"[tradeoff] {tag}: every point's loss and gradient norm == "
+            f"store-all's within 1e-2 ({ref['loss']:.6f}, "
+            f"{ref['grad_norm']:.6f})")
+
+    counters.reset()
+    params = model.init(0, dev)
+    measured = show_measured(f"{ARCH}, per-layer remat (paths 6-8)", model,
+                              params, chain)
+    mlow = solve_min_memory(measured).mem_limit
+    mhigh = measured.store_all_peak()
+    mid = (mlow + mhigh) / 2
+    say(f"[measured] min-memory {mlow:.6e} B, store-all {mhigh:.6e} B "
+        f"(analytic chain: {low:.6e} and {high:.6e}), budget (midpoint) "
+        f"{int(mid)} B on {card}")
+    out = run_training(cfg, TrainLoopConfig(
+        steps=STEPS, global_batch=BATCH, seq_len=SEQ,
+        policy=f"rotor:{int(mid)}", solver_impl="cuda", log_every=1),
+        device=dev, params=params, chain=measured, log_fn=say)
+    plan = out["plan"]
+    say(f"[measured] schedule ops {json.dumps(plan.op_counts())}, predicted "
+        f"{plan.expected_time:.6e} s/step, predicted activation peak "
+        f"{plan.peak_device_mem:.6e} B")
+    for i, rec in enumerate(out["steps"]):
+        fb = rec["fwd_bwd_peak_bytes"]
+        say(f"[measured] step {i}: loss {rec['loss']:.6f}, "
+            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s; "
+            f"activation peak predicted {plan.peak_device_mem:.6e} B, "
+            f"measured {fb} B over the forward and backward (predicted / "
+            f"measured {plan.peak_device_mem / fb:.4f}), "
+            f"{rec['activation_peak_bytes']} B over the whole step, the "
+            f"optimizer's temporaries included (predicted / measured "
+            f"{plan.peak_device_mem / rec['activation_peak_bytes']:.4f}) on "
+            f"{card}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss: {out['losses']}")
+    # the measured figure leaves out every parameter gradient; at the head's
+    # backward those of stages 1..L do not exist yet
+    say(f"[measured] predicted − measured over the forward and backward: "
+        f"{plan.peak_device_mem - out['steps'][-1]['fwd_bwd_peak_bytes']:.0f}"
+        f" B; parameter gradients of stages 1..{measured.length} (all but "
+        f"the head's): {tree_bytes(model.stage_params(params)[:-1])} B on "
+        f"{card}")
+
+    def measured_grads(params):
+        loss = model.loss_fn(params, batch, tree=plan.tree)
+        return loss, torch.autograd.grad(loss, tensors_of(params))
+
+    same_results("rotor on the measured chain", out["params"], measured_grads)
+    del out, plan
+    torch.cuda.empty_cache()
+    tradeoff("per-layer remat", model, params, measured)
+    del params
+    torch.cuda.empty_cache()
+    # the paper's setting: the planner is the only checkpointing, so each
+    # chunk stage keeps its layer's saved tensors (no per-layer remat)
+    nr_cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in OVERRIDES.items()},
+                        scan_layer_remat="none")
+    nr_model = StagedLM(nr_cfg)
+    params = nr_model.init(0, dev)
+    nr_measured = show_measured(
+        f"{ARCH}, no per-layer remat", nr_model, params,
+        plan_chain(nr_model, specs, peak_flops))
+    tradeoff("no per-layer remat", nr_model, params, nr_measured)
+    path_launches["measured"] = counters.snapshot()
+    launches = path_launches["measured"]
+    say(f"[measured] launches: {launches.get(dp_ops.NAME, 0)} dp band-min "
+        f"(training plan and trade-off plans), "
+        f"{launches.get(flash_ops.NAME, 0)} flash attention and "
+        f"{launches.get(rms_ops.NAME, 0)} rms_norm")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 11. result lines ---------------------------------------------------------
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

@@ -28,16 +28,15 @@ def execute_schedule(schedule: Schedule, stages: Sequence[Callable],
         track_live_bytes=track_live_bytes)
 
 
-def reference_grads(stages: Sequence[Callable], params: Sequence[Any], x: Any
+def value_and_grads(fn: Callable, params: Sequence[Any], x: Any
                     ) -> Tuple[Any, List[Any], Any]:
-    """Plain autograd over the composed chain — the correctness oracle.
-    Returns ``(output, per-stage parameter gradients, input gradient)``
-    shaped as :func:`execute_schedule` shapes them."""
+    """``fn(params, x)`` and its gradients for a cotangent of ones:
+    ``(output, per-stage parameter gradients, input gradient)`` shaped as
+    :func:`execute_schedule` shapes them (zeros where a parameter is
+    unused, ``None`` at non-floating input leaves)."""
     inp = _fresh_input(x)
     with torch.enable_grad():
-        out = inp
-        for fn, p in zip(stages, params):
-            out = fn(p, out)
+        out = fn(params, inp)
     ins = [t for t in tensors_of(inp) if t.is_floating_point()]
     ps = [tensors_of(p) for p in params]
     flat = [t for group in ps for t in group]
@@ -51,3 +50,16 @@ def reference_grads(stages: Sequence[Callable], params: Sequence[Any], x: Any
         k += len(group)
     return out.detach(), grads, with_tensors(x, got[:len(ins)],
                                              floating_only=True)
+
+
+def reference_grads(stages: Sequence[Callable], params: Sequence[Any], x: Any
+                    ) -> Tuple[Any, List[Any], Any]:
+    """Plain autograd over the composed chain — the correctness oracle
+    (:func:`value_and_grads` of the plain composition)."""
+
+    def composed(ps, a):
+        for fn, p in zip(stages, ps):
+            a = fn(p, a)
+        return a
+
+    return value_and_grads(composed, params, x)

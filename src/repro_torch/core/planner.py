@@ -1,21 +1,75 @@
-"""Parameter estimation (paper §5.1) — the analytic ``Chain`` of a sequence
-of PyTorch stage functions, without running anything on a device.
+"""Parameter estimation (paper §5.1) — the ``Chain`` of a sequence of
+PyTorch stage functions, two ways:
 
-Activation sizes come from one forward of each stage on ``meta`` tensors;
-the residual set ``ā`` of a stage is what autograd saves during that forward,
-observed with ``torch.autograd.graph.saved_tensors_hooks``.  Times are the
-caller's per-stage FLOP counts over a peak rate the caller supplies (on the
-card, a measured one): the port carries no device constant.
+- **analytic** (:func:`profile_stages_analytic`): nothing runs on a device.
+  Activation sizes come from one forward of each stage on ``meta`` tensors;
+  times are the caller's per-stage FLOP counts over a peak rate the caller
+  supplies (on the card, a measured one): the port carries no device
+  constant.
+- **measured** (:func:`profile_stages_measured`): each stage runs on real
+  tensors, as the paper's tool runs it — forward and backward times and,
+  on CUDA, the transient memory of each.
+
+In both, the residual set ``ā`` of a stage is what autograd saves during
+its forward, observed with ``torch.autograd.graph.saved_tensors_hooks``, so
+the two give the same sizes for the same stages.
+:func:`measure_host_bandwidth` times the device↔host link that prices the
+host tier.
 """
 
 from __future__ import annotations
 
+import statistics
+import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..tree import tensors_of, tree_bytes
 from .chain import Chain, HostTransferModel
+
+
+def measure_host_bandwidth(sample_bytes: int = 1 << 26, repeats: int = 20,
+                           latency: float = 1e-4,
+                           device=None) -> HostTransferModel:
+    """The device↔host copy rate each way (paper §5.1: time the real
+    operation).  On CUDA, a device buffer of ``sample_bytes`` is copied into
+    pinned host memory and back with ``non_blocking=True``, each copy
+    between two CUDA events, and each direction's rate is ``sample_bytes``
+    over the median of ``repeats`` copies (after 3 more); elsewhere the
+    copies are host memcpy on the host clock.  Runs on CUDA unless
+    ``device`` names another device."""
+    dev = resolve_device(device)
+    src = torch.ones(max(int(sample_bytes), 1), dtype=torch.uint8,
+                     device=dev)
+    host = torch.empty(src.shape, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+
+    def median_s(copy) -> float:
+        for _ in range(3):
+            copy()
+        times = []
+        for _ in range(repeats):
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                copy()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) * 1e-3)
+            else:
+                t0 = time.perf_counter()
+                copy()
+                times.append(time.perf_counter() - t0)
+        return max(statistics.median(times), 1e-12)
+
+    nbytes = src.numel()
+    d2h = median_s(lambda: host.copy_(src, non_blocking=True))
+    h2d = median_s(lambda: src.copy_(host, non_blocking=True))
+    return HostTransferModel(bandwidth_d2h=nbytes / d2h,
+                             bandwidth_h2d=nbytes / h2d, latency=latency)
 
 
 def _base(t: torch.Tensor) -> torch.Tensor:
@@ -84,3 +138,97 @@ def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
     return Chain.make(uf=[f / peak_flops for f in flops_fwd],
                       ub=[f / peak_flops for f in flops_bwd],
                       wa=wa, wabar=wabar, host=host)
+
+
+def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
+    """One forward under grad and one backward of a stage on real tensors:
+    ``(forward s, backward s, forward transient B, backward transient B)``.
+
+    Times are CUDA-event pairs on CUDA (the host clock elsewhere).  On CUDA
+    the peak allocator count is reset before each op: the forward's
+    transient is its peak less the memory after it (the memory before it
+    plus what it leaves live: output and saved tensors); the backward's is
+    its peak less the memory before it (``ā``, ``δ`` and the input live) and
+    less the parameter gradients it returns, which the activation budget
+    leaves out.  Off CUDA both are 0."""
+    cuda = dev.type == "cuda"
+    inp = _fresh_input(a)
+    if cuda:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev[0].record()
+    else:
+        t0 = time.perf_counter()
+    with torch.enable_grad():
+        out = fn(p, inp)
+    if cuda:
+        ev[1].record()
+        f_transient = (torch.cuda.max_memory_allocated(dev)
+                       - torch.cuda.memory_allocated(dev))
+    else:
+        t1 = time.perf_counter()
+    outs = [o for o in tensors_of(out)
+            if o.is_floating_point() and o.requires_grad]
+    ins = [t for t in tensors_of(inp) if t.is_floating_point()]
+    ps = tensors_of(p)
+    cotangents = [torch.ones_like(o) for o in outs]
+    if cuda:
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev[2].record()
+    else:
+        t2 = time.perf_counter()
+    grads = torch.autograd.grad(outs, ins + ps, cotangents, allow_unused=True)
+    if not cuda:
+        return t1 - t0, time.perf_counter() - t2, 0, 0
+    ev[3].record()
+    b_transient = (torch.cuda.max_memory_allocated(dev) - before
+                   - tree_bytes([g for g in grads[len(ins):] if g is not None]))
+    ev[3].synchronize()
+    return (ev[0].elapsed_time(ev[1]) * 1e-3, ev[2].elapsed_time(ev[3]) * 1e-3,
+            max(f_transient, 0), max(b_transient, 0))
+
+
+def profile_stages_measured(stages: Sequence[Callable],
+                            params: Sequence[Any], x: Any, repeats: int = 3,
+                            host: Optional[HostTransferModel] = None
+                            ) -> Chain:
+    """Measure the chain on real tensors (the paper's §5.1 measurement
+    phase), on the device ``params`` and ``x`` live on.
+
+    - ``wa``/``wabar``: as :func:`profile_stages_analytic` counts them (the
+      same saved-tensor hook), so the two chains agree on sizes.
+    - ``uf``/``ub``: after one pass that pays the kernel builds and cuBLAS
+      workspaces, the median of ``repeats`` timings of the forward under
+      grad and of the backward alone — CUDA events on CUDA, the host clock
+      elsewhere.  The JAX package times forward+backward and takes ``ub``
+      as the difference, floored at ``uf / 4``, which on a host clock can
+      come out negative; timing the backward by itself needs no floor.
+    - ``of``/``ob``: the transient memory of each stage's forward and
+      backward, from the CUDA allocator's peak counter (see
+      :func:`_stage_pass`; the largest over the repeats).  Off CUDA they
+      are 0, as in the JAX package, whose measured profile has no per-op
+      peak either.
+    """
+    leaves = tensors_of([list(params), x])
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    n = len(stages)
+    uf, ub, of, ob = [], [], [], []
+    wa, wabar = [tree_bytes(x)], []
+    a = x
+    for i, (fn, p) in enumerate(zip(stages, params)):
+        out, res = residual_bytes(fn, p, _fresh_input(a))
+        del out
+        wabar.append(res)
+        _stage_pass(fn, p, a, dev)
+        runs = [_stage_pass(fn, p, a, dev) for _ in range(repeats)]
+        uf.append(statistics.median(r[0] for r in runs))
+        ub.append(statistics.median(r[1] for r in runs))
+        of.append(max(r[2] for r in runs))
+        ob.append(max(r[3] for r in runs))
+        if i < n - 1:
+            with torch.no_grad():
+                a = fn(p, a)
+            wa.append(tree_bytes(a))
+    return Chain.make(uf=uf, ub=ub, wa=wa, wabar=wabar, of=of, ob=ob,
+                      host=host)

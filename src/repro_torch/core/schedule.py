@@ -34,7 +34,7 @@ which Theorem 1's formulas are exact.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from .chain import Chain
 
@@ -110,12 +110,16 @@ def _size(chain: Chain, item: Item) -> float:
 
 def simulate(chain: Chain, schedule: Schedule,
              mem_limit: float | None = None,
-             host_mem_limit: float | None = None) -> SimResult:
+             host_mem_limit: float | None = None,
+             trace: Optional[List[dict]] = None) -> SimResult:
     """Execute ``schedule`` on the cost model; returns validity, makespan and
     peak memory.  With ``mem_limit``, the schedule is invalid if any
     during-op memory exceeds it.  Offload schedules (``Foff``/``Prefetch``)
     need ``chain.host``; the host tier's peak is tracked apart, and
-    ``host_mem_limit`` bounds it as ``mem_limit`` bounds the device."""
+    ``host_mem_limit`` bounds it as ``mem_limit`` bounds the device.
+    ``trace`` (a list) receives one record per executed op, ``{"op", "arg",
+    "t_start", "t_end", "device_mem", "host_mem"}``, memory as it stands
+    after the op (``MemoryPlan.timeline``)."""
     L = chain.length
     live: dict = {("a", 0): True, ("delta", L + 1): True}
     mem = _size(chain, ("a", 0))
@@ -136,11 +140,17 @@ def simulate(chain: Chain, schedule: Schedule,
             return True, ("abar", i)
         return False, None
 
+    def record(kind: str, arg: int, t0: float) -> None:
+        if trace is not None:
+            trace.append({"op": kind, "arg": arg, "t_start": t0, "t_end": t,
+                          "device_mem": mem, "host_mem": host_mem})
+
     def fail(idx: int, msg: str) -> SimResult:
         return SimResult(False, t, peak, f"{msg} at op[{idx}]",
                          host_peak_mem=host_peak)
 
     for idx, (kind, arg) in enumerate(schedule.ops):
+        t_op = t
         if kind in _OFFLOAD_KINDS:
             i = int(arg)  # activation index, 0..L
             if chain.host is None or not chain.host.enabled:
@@ -179,6 +189,7 @@ def simulate(chain: Chain, schedule: Schedule,
                 mem += w
                 host_copies.discard(i)
                 host_mem -= w
+            record(kind, i, t_op)
             continue
         l = int(arg)  # stage index, 1..L+1
         if not (1 <= l <= L + 1):
@@ -225,6 +236,7 @@ def simulate(chain: Chain, schedule: Schedule,
                 mem += _size(chain, out)
         else:
             return fail(idx, f"unknown op kind {kind}")
+        record(kind, l, t_op)
 
     if ("delta", 0) not in live:
         return SimResult(False, t, peak, "schedule did not produce δ^0",

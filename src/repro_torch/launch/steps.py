@@ -1,15 +1,16 @@
-"""Planning for a (model × shape) on one device, and the train steps: the
+"""Planning for a (model × shape) on one device — on the analytic chain or
+on a chain measured on real tensors — and the train steps: the
 nested-checkpoint step of a two-tier plan and the eager step of an offload
 plan."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..core.chain import Chain, HostTransferModel
-from ..core.planner import profile_stages_analytic
+from ..core.planner import profile_stages_analytic, profile_stages_measured
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
@@ -40,6 +41,25 @@ def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
     return profile_stages_analytic(
         model.stage_fns(), model.stage_params(params), batch_specs,
         flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops, host=host)
+
+
+def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
+                  host: Optional[HostTransferModel] = None,
+                  repeats: int = 3) -> Chain:
+    """Measured rotor chain for (model × batch) on the device ``params``
+    and ``batch`` live on (:func:`profile_stages_measured` on the model's
+    stages): measured times and, on CUDA, each stage's transient memory;
+    the sizes equal :func:`plan_chain`'s."""
+    return profile_stages_measured(model.stage_fns(),
+                                   model.stage_params(params), batch,
+                                   repeats=repeats, host=host)
+
+
+def _peak_allocated(leaves) -> Optional[int]:
+    """The CUDA allocator's peak since its last reset (``None`` off CUDA):
+    read on the host, with no synchronisation."""
+    dev = leaves[0].device
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
 
 def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
@@ -82,7 +102,9 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     """``train_step(params, opt_state, batch, step) -> metrics``: loss and
     gradients through the plan's tree, then one AdamW step in place.
     ``grad_accum > 1`` splits the batch along its leading axis into
-    microbatches and accumulates float32 gradients before the step."""
+    microbatches and accumulates float32 gradients before the step.  On
+    CUDA, ``metrics["grads_peak"]`` is the allocator's peak before the
+    optimizer runs."""
 
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
@@ -109,9 +131,10 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
             loss = lsum / grad_accum
             grads = [(s / grad_accum).to(p.dtype)
                      for s, p in zip(gsum, leaves)]
+        grads_peak = _peak_allocated(leaves)
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
-        metrics["loss"] = loss.detach()
+        metrics.update(loss=loss.detach(), grads_peak=grads_peak)
         return metrics
 
     return train_step
@@ -123,8 +146,9 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
     three-tier (host-offload) schedule: gradients come from the eager op
     walker — real copies to host memory and back — then one AdamW step in
     place.  The metrics add the step's ``host_peak_bytes``, the host bytes
-    still parked after it (``host_bytes_after``, 0 for a sound schedule) and
-    ``prefetch_wait_s``."""
+    still parked after it (``host_bytes_after``, 0 for a sound schedule),
+    ``prefetch_wait_s`` and, on CUDA, ``grads_peak`` (as
+    :func:`make_train_step`)."""
     stage_fns = model.stage_fns()
 
     def train_step(params, opt_state, batch, step: int) -> dict:
@@ -133,12 +157,14 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
         loss, stage_grads, _ = execute_offload_schedule(
             schedule, stage_fns, model.stage_params(params), batch,
             host_buffer=hb, stats=stats)
+        grads_peak = _peak_allocated(leaves)
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, tensors_of(stage_grads), opt_state,
                                leaves, lr)
         metrics.update(loss=loss.detach(), host_peak_bytes=hb.peak_bytes,
                        host_bytes_after=hb.bytes_in_use,
-                       prefetch_wait_s=stats["prefetch_wait_s"])
+                       prefetch_wait_s=stats["prefetch_wait_s"],
+                       grads_peak=grads_peak)
         return metrics
 
     return train_step

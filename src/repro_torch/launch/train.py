@@ -39,7 +39,8 @@ def parse(argv=None) -> Tuple[ModelConfig, TrainLoopConfig, str]:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--policy", default=None,
                     help="remat policy: none|full|periodic:K|rotor:BUDGET|"
-                         "optimal_offload:BUDGET:BW (BUDGET: bytes like "
+                         "revolve:BUDGET|optimal_offload:BUDGET:BW (BUDGET: "
+                         "bytes like "
                          "800M, x0.6 of the store-all peak, or auto; BW: the "
                          "measured host link in bytes/s, 0 for two tiers)")
     ap.add_argument("--num-slots", type=int, default=None,

@@ -11,6 +11,10 @@ policy                 plan
                        (bytes, ``x0.6`` of the store-all peak, or ``auto``;
                        an infeasible ``auto`` budget falls back to the
                        min-memory schedule, any other raises)
+``revolve:B``          the paper's revolve comparator within budget ``B``
+                       (the same grammar and fallback): the same DP with
+                       the ``F_all``-first branch off, so only bare
+                       activations are checkpointed
 ``optimal_offload:B:BW``  the optimal three-tier (device / host / recompute)
                        schedule within device budget ``B``, with a host link
                        of ``BW`` bytes/s each way (a measured rate, e.g.
@@ -53,6 +57,7 @@ def resolve_policy(policy: str, chain: Optional[Chain],
                    ) -> MemoryPlan:
     """Resolve a policy string on a profiled chain (structural policies also
     take a bare ``length``)."""
+    num_slots = DEFAULT_NUM_SLOTS if num_slots is None else num_slots
     if policy in ("none", "full") or policy.startswith("periodic:"):
         if chain is not None:
             length = chain.length
@@ -73,15 +78,16 @@ def resolve_policy(policy: str, chain: Optional[Chain],
                 raise ValueError("periodic policy needs segments >= 1")
             tree = periodic_tree(length, k)
         return MemoryPlan.build(policy, chain, tree,
-                                tree_to_schedule(tree, length))
+                                tree_to_schedule(tree, length),
+                                num_slots=num_slots)
     offload = policy.startswith("optimal_offload")
-    if not (offload or policy.startswith("rotor:")):
+    allow_fall = not policy.startswith("revolve:")
+    if not (offload or policy.startswith("rotor:") or not allow_fall):
         raise ValueError(f"unknown remat policy {policy!r}")
     budget_spec, host = (_offload_spec(policy) if offload
                          else (policy.split(":", 1)[1], None))
     if chain is None:
         raise ValueError(f"{policy!r} needs a profiled chain")
-    num_slots = DEFAULT_NUM_SLOTS if num_slots is None else num_slots
     spec = Budget.parse(budget_spec)
     budget = spec.resolve(chain, auto_budget=auto_budget)
     if host is not None:
@@ -89,9 +95,11 @@ def resolve_policy(policy: str, chain: Optional[Chain],
         sol = solve_optimal_offload(chain, budget, num_slots=num_slots,
                                     impl=impl)
     else:
-        sol = solve_optimal(chain, budget, num_slots=num_slots, impl=impl)
+        sol = solve_optimal(chain, budget, num_slots=num_slots,
+                            allow_fall=allow_fall, impl=impl)
     if not sol.feasible and spec.kind == "auto" and not offload:
-        sol = solve_min_memory(chain, num_slots=num_slots, impl=impl)
+        sol = solve_min_memory(chain, num_slots=num_slots,
+                               allow_fall=allow_fall, impl=impl)
         if sol.feasible:
             print(f"[plan] budget {budget / 2**30:.2f} GiB infeasible; "
                   f"min-memory schedule needs "
@@ -103,4 +111,5 @@ def resolve_policy(policy: str, chain: Optional[Chain],
             f"{policy}: no feasible persistent schedule within "
             f"{budget:.3e} bytes for this chain")
     return MemoryPlan.build(policy, chain, sol.tree, sol.schedule, sol,
-                            budget)
+                            budget, num_slots,
+                            "device+host" if host is not None else "device")

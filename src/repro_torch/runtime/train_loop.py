@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..configs.shapes import ShapeSpec, input_specs
+from ..core.chain import Chain
 from ..core.rematerialize import count_checkpoint_scopes
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
@@ -40,23 +41,31 @@ class TrainLoopConfig:
 
 def run_training(cfg, loop: TrainLoopConfig, device=None,
                  params: Optional[Dict[str, Any]] = None,
-                 log_fn: Callable[[str], None] = print) -> Dict[str, Any]:
+                 log_fn: Callable[[str], None] = print,
+                 chain: Optional[Chain] = None) -> Dict[str, Any]:
     """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
     otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
-    seeded initialization.  A plan with host offloads runs on the eager
-    offload step (``grad_accum`` must be 1).  Returns the losses, the plan
-    and chain, the final state, and per-step records ``{"loss", "seconds",
-    "tokens_per_s", "activation_peak_bytes", "host_peak_bytes",
-    "host_bytes_after", "prefetch_wait_s"}`` (the activation peak is
-    ``None`` off CUDA, the host fields ``None`` without offloads).  A loss
-    that is not finite raises ``FloatingPointError``."""
+    seeded initialization; ``chain`` (e.g. a measured one,
+    ``launch.steps.measure_chain``) replaces the analytic chain the plan is
+    solved on.  A plan with host offloads runs on the eager offload step
+    (``grad_accum`` must be 1).  Returns the losses, the plan and chain, the
+    final state, and per-step records ``{"loss", "seconds", "tokens_per_s",
+    "activation_peak_bytes", "fwd_bwd_peak_bytes", "host_peak_bytes",
+    "host_bytes_after", "prefetch_wait_s"}``.  ``activation_peak_bytes`` is
+    the step's allocator peak less parameters, gradients and moments, the
+    optimizer's temporaries included; ``fwd_bwd_peak_bytes`` the peak of
+    the loss and gradients alone above the memory at the step's start, less
+    the parameter gradients — what the plan's predicted activation peak
+    describes.  Both are ``None`` off CUDA, the host fields ``None`` without
+    offloads.  A loss that is not finite raises ``FloatingPointError``."""
     dev = resolve_device(device)
     model = StagedLM(cfg)
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
     plan, chain = plan_training(model, input_specs(cfg, shape), loop.policy,
                                 peak_flops=loop.peak_flops,
                                 num_slots=loop.num_slots,
-                                impl=loop.solver_impl, device=dev)
+                                impl=loop.solver_impl, device=dev,
+                                chain=chain)
     offload = plan is not None and plan.uses_offload
     tree = plan.tree if plan is not None and not offload else None
     if offload:
@@ -84,7 +93,8 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
                            seed=loop.seed)
     # parameters + gradients + the two float32 moments
-    static_bytes = 2 * tree_bytes(params) + tree_bytes(opt_state["mu"]) * 2
+    param_bytes = tree_bytes(params)
+    static_bytes = 2 * param_bytes + tree_bytes(opt_state["mu"]) * 2
     cuda = dev.type == "cuda"
     tokens = loop.global_batch * loop.seq_len
     losses, records = [], []
@@ -94,6 +104,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         metrics = step_fn(params, opt_state, batch, step)
         loss = float(metrics["loss"])  # waits for the step
@@ -107,7 +118,9 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         losses.append(loss)
         rec = {"loss": loss, "seconds": seconds,
                "tokens_per_s": tokens / seconds,
-               "activation_peak_bytes": peak}
+               "activation_peak_bytes": peak,
+               "fwd_bwd_peak_bytes": (metrics["grads_peak"] - before
+                                      - param_bytes if cuda else None)}
         for key in ("host_peak_bytes", "host_bytes_after", "prefetch_wait_s"):
             rec[key] = metrics.get(key)
         records.append(rec)

@@ -38,6 +38,8 @@ from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core import dp_kernels  # noqa: E402
 from repro_torch.core.chain import Chain, HostTransferModel  # noqa: E402
 from repro_torch.core.executor import reference_grads  # noqa: E402
+from repro_torch.core.planner import (measure_host_bandwidth,  # noqa: E402
+                                      profile_stages_measured)
 from repro_torch.core.schedule import Schedule  # noqa: E402
 from repro_torch.core.solver import solve_min_memory  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -55,6 +57,7 @@ from repro_torch.launch.steps import plan_chain  # noqa: E402
 from repro_torch.models.lm import StagedLM  # noqa: E402
 from repro_torch.offload.solver import (solve_min_device_memory,  # noqa: E402
                                         solve_optimal_offload)
+from repro_torch.plan import resolve_policy  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -416,6 +419,84 @@ def test_offload_walker_on_cuda_matches_store_all(dev):
                                          params, x)[1]
     for a, b in zip(grads[:L], store_all[:L]):
         torch.testing.assert_close(a["w"], b["w"], rtol=1e-5, atol=1e-7)
+
+
+def test_host_bandwidth_on_the_card(dev):
+    link = measure_host_bandwidth(1 << 24, repeats=5, device=dev)
+    assert link.bandwidth_d2h > 0 and link.bandwidth_h2d > 0
+
+
+class _Transient(torch.autograd.Function):
+    """Identity-like stage op that allocates a known temporary in its
+    forward (freed before it returns) and in its backward."""
+
+    @staticmethod
+    def forward(ctx, a, fwd_bytes, bwd_bytes):
+        ctx.bwd_bytes = bwd_bytes
+        tmp = torch.empty(fwd_bytes, dtype=torch.uint8, device=a.device)
+        out = a.clone()
+        del tmp
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tmp = torch.empty(ctx.bwd_bytes, dtype=torch.uint8, device=g.device)
+        dx = g.clone()
+        del tmp
+        return dx, None, None
+
+
+def test_measured_transients_recover_known_temporaries(dev):
+    """``of`` is exactly the forward's temporary; ``ob`` the backward's
+    temporary plus the input gradient it allocates (``δ^{l-1}``, which the
+    simulator does not count during a backward).  Sizes under 1 MB come
+    from the allocator's small pool, which rounds to 512 B: the bytes
+    below are multiples of 512, so the counts are exact."""
+    fwd_bytes, bwd_bytes = 512 * 600, 512 * 900
+    x = torch.randn(1 << 16, device=dev)
+    w = torch.ones(1 << 16, device=dev, requires_grad=True)
+    stages = [lambda p, a: _Transient.apply(a * p["w"], fwd_bytes,
+                                            bwd_bytes),
+              lambda p, a: a.sum()]
+    chain = profile_stages_measured(stages, [{"w": w}, {}], x)
+    nbytes = x.numel() * x.element_size()
+    # stage 1's forward also holds the product a·w, an intermediate freed
+    # once the op returns its clone
+    assert chain.of[0] == fwd_bytes + nbytes
+    assert chain.ob[0] >= bwd_bytes
+    assert chain.of[1] == 0               # the loss: its output only
+    assert list(chain.wa) == [nbytes, nbytes]
+    assert np.all(chain.uf > 0) and np.all(chain.ub > 0)
+    # without the product: the temporaries alone
+    stages[0] = lambda p, a: _Transient.apply(a, fwd_bytes, bwd_bytes)
+    chain = profile_stages_measured(stages, [{}, {}], x)
+    assert chain.of[0] == fwd_bytes
+    assert chain.ob[0] == bwd_bytes + nbytes
+
+
+@pytest.mark.parametrize("policy", ["rotor:x0.6", "optimal_offload:x0.4:1.0"])
+def test_bound_plan_on_cuda_matches_reference_grads(dev, policy):
+    L = 6
+    g = torch.Generator().manual_seed(0)
+    params = [{"w": (torch.randn((16, 16), generator=g) * 0.3).to(dev)
+               .requires_grad_(), "b": torch.zeros(16, device=dev)
+               .requires_grad_()} for _ in range(L)] + [{}]
+    stages = [lambda p, a: torch.tanh(a @ p["w"] + p["b"])] * L
+    stages.append(lambda p, a: torch.mean(a ** 2))
+    x = torch.randn((4, 16), generator=g).to(dev)
+    ch = Chain.make(uf=[1.0] * L + [0.0], ub=[2.0] * L + [0.0],
+                    wa=[1.0] * (L + 1), wabar=[2.0] * L + [0.0])
+    plan = resolve_policy(policy, ch, num_slots=64)
+    bound = plan.bind(stages)
+    assert bound.remat_expressible == policy.startswith("rotor")
+    _, want, wdx = reference_grads(stages, params, x)
+    for out, grads, dx in (bound.value_and_grad(params, x),
+                           plan.execute(stages, params, x)):
+        assert out.is_cuda
+        for a, b in zip(grads[:L], want[:L]):
+            torch.testing.assert_close(a["w"], b["w"], rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(a["b"], b["b"], rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(dx, wdx, rtol=1e-5, atol=1e-7)
 
 
 def _bf16_flash_bound(got, q, k, v):

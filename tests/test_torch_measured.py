@@ -1,0 +1,103 @@
+"""The port's measured chain (``core.planner.profile_stages_measured`` via
+``launch.steps.measure_chain``) on the CPU, against the port's analytic
+chain and the JAX package's measured chain, on the same seeded weights and
+batch: ``wa``/``wabar`` equal the analytic chain's (the same saved-tensor
+hook), ``wa`` equals the JAX measured chain's, times are positive and the
+transients ``of``/``ob`` are 0 off CUDA.  Also the host-link probe on the
+host clock, and ``run_training(chain=...)`` planning on the chain it is
+given.  Sizes are compared exactly (byte counts)."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import smoke_config as jsmoke  # noqa: E402
+from repro.core.planner import profile_stages_measured as jmeasured  # noqa: E402
+from repro.data.pipeline import SyntheticLMData as JData  # noqa: E402
+from repro.models.lm import StagedLM as JLM  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import smoke_config as psmoke  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
+from repro_torch.core.chain import HostTransferModel  # noqa: E402
+from repro_torch.core.planner import measure_host_bandwidth  # noqa: E402
+from repro_torch.core.solver import solve_min_memory  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
+from repro_torch.launch.steps import measure_chain, plan_chain  # noqa: E402
+from repro_torch.models.lm import StagedLM as PLM  # noqa: E402
+from repro_torch.runtime.train_loop import TrainLoopConfig, run_training  # noqa: E402
+
+B, S = 2, 16
+QWEN = dict(num_layers=2, layer_kinds=("dense",) * 2, n_chunks=2,
+            use_flash_attention=False, logits_chunk=0)
+
+
+def _measured(arch, **kw):
+    cfg = psmoke(arch, **kw)
+    model = PLM(cfg)
+    params = model.init(0, "cpu")
+    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
+    return model, params, batch, measure_chain(model, params, batch)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen1.5-4b", dict(QWEN)),
+    ("qwen1.5-4b", dict(use_flash_attention=True, scan_layer_remat="full",
+                        logits_chunk=8)),
+    ("mamba2-1.3b", dict(use_ssd_kernel=True)),
+], ids=["qwen", "qwen-flash-remat-xent", "mamba2"])
+def test_measured_chain_sizes_equal_analytic(arch, kw):
+    model, _, _, chain = _measured(arch, **kw)
+    analytic = plan_chain(model, input_specs(
+        model.cfg, ShapeSpec("t", "train", S, B)), 1e12)
+    np.testing.assert_array_equal(chain.wa, analytic.wa)
+    np.testing.assert_array_equal(chain.wabar, analytic.wabar)
+    assert np.all(chain.uf > 0) and np.all(chain.ub > 0)
+    assert not np.any(chain.of) and not np.any(chain.ob)
+    assert chain.length == model.n_stages() - 1
+
+
+def test_measured_wa_equals_jax_measured_chain():
+    jcfg, pcfg = jsmoke("qwen1.5-4b", **QWEN), psmoke("qwen1.5-4b", **QWEN)
+    jm, pm = JLM(jcfg), PLM(pcfg)
+    jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    batch = JData(jcfg, B, S, seed=0).batch_at(0)
+    want = jmeasured(jm.stage_fns(), jm.stage_params(jparams), batch,
+                     repeats=1)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), pcfg,
+                               torch.device("cpu"))
+    got = measure_chain(pm, params, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()}, repeats=1)
+    np.testing.assert_array_equal(got.wa, want.wa)
+    assert not np.any(got.of) and not np.any(want.of)
+
+
+def test_measured_chain_takes_the_host_model():
+    model, params, batch, _ = _measured("qwen1.5-4b", **QWEN)
+    host = HostTransferModel(bandwidth_d2h=1e9)
+    chain = measure_chain(model, params, batch, host=host, repeats=1)
+    assert chain.host is host
+
+
+def test_host_bandwidth_on_the_host_clock():
+    link = measure_host_bandwidth(1 << 16, repeats=3, device="cpu")
+    assert link.bandwidth_d2h > 0 and link.bandwidth_h2d > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            measure_host_bandwidth(1 << 16)
+
+
+def test_run_training_plans_on_the_given_chain():
+    model, _, _, chain = _measured("qwen1.5-4b", **QWEN)
+    budget = int((solve_min_memory(chain).mem_limit
+                  + chain.store_all_peak()) / 2)
+    out = run_training(model.cfg, TrainLoopConfig(
+        steps=1, global_batch=B, seq_len=S, policy=f"rotor:{budget}",
+        solver_impl="plain"), device="cpu", chain=chain,
+        log_fn=lambda *_: None)
+    assert out["chain"] is chain and out["plan"].chain is chain
+    assert out["steps"][0]["fwd_bwd_peak_bytes"] is None
+    assert np.isfinite(out["losses"][0])

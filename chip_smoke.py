@@ -22,20 +22,24 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    at two budgets), flash attention within 2e-2 in bf16 (and within 2 bf16 ulps +
    2^-8 Σp|v|/l + 1e-5 of the float32 plain version on the same inputs, at
    the full shape for three seeds: the kernel rounds each p to bf16 before
-   P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128, RMSNorm within
-   one bf16 ulp and rtol 1e-6 in f32 at d = 2560, 2048, 4096 and a ragged
-   1000 on an offset base, the SSD within-chunk kernel within 2e-4 (rtol
-   and atol) in f32 (scalar kernel) and with bf16 x, B, C (tensor-core
-   kernel, W and the scaled x split into bf16 hi + lo) against the plain
-   version on the same values in f32 — at the Mamba path's full shape, a
-   ragged sequence, heads that share a group, a group whose 12 heads
-   do not fill whole slices of 8, and the Mamba path's own layout (x, B, C
-   as strided views into the mixer's one xBC tensor);
+   P·V) and 1e-4 in f32, at head dims 16, 64, 80 and 128 (the full
+   shapes of the Qwen path, the Zamba2 shared block, 32 heads × 80, and the
+   MoE path, 16 × 128), RMSNorm within one bf16 ulp and rtol 1e-6 in f32
+   at d = 2560, 2048, 4096, 5120 and a ragged 1000 on an offset base, the
+   SSD within-chunk kernel within 2e-4 (rtol and atol) in f32 (scalar
+   kernel) and with bf16 x, B, C (tensor-core kernel, W and the scaled x
+   split into bf16 hi + lo) against the plain version on the same values
+   in f32 — at the Mamba path's full shape, a ragged sequence, heads that
+   share a group, a group whose 12 heads do not fill whole slices of 8,
+   the Zamba2 path's full shape (state 64: the scalar kernel in bf16 too),
+   and the Mamba and Zamba2 paths' own layout (x, B, C as strided views
+   into the mixer's one xBC tensor);
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
    fused DP fills), at the main paths' shapes (K1 and K5a as the per-band
    fill calls them, one launch per band on resident tables, summed over the
-   bands of one fill; all four DP kernels at L = 9 and at L = 41), beside
+   bands of one fill; all four DP kernels at L = 9 and at L = 41; K3, K4
+   and K6 also at the Zamba2 and MoE paths' shapes), beside
    the least time the card could take (bytes or operations), on two
    yardsticks: one call per event pair (``ms``: the host's launch time
    counts where the card waits for it) and as device time (``*device_ms``:
@@ -88,10 +92,25 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     point's loss and gradient norm equal store-all's within 1e-2.  Then
     (a) and (c) again for the same model without its per-layer remat (the
     paper's setting: the planner is the only checkpointing);
-11. one JSON line describing every kernel, then the final JSON result line.
+11. Zamba2 path: ``repro_torch.launch.train.main`` trains Zamba2-2.7B at
+    full width (d_model 2560, 80 SSM heads of 64, state 64, chunks of 256;
+    the shared attention+MLP block at 32 heads × 80 and d_ff 10240; vocab
+    32000), cut to 24 layers (4 periods of 6: 4 chunks, each opening with
+    the shared block, a 6-stage chain), batch 4 × 2048, 3 steps, flash
+    attention and the SSD kernel, under ``rotor:`` at its chain's midpoint
+    budget on the CUDA band-min kernel; it prints which K6 kernel the
+    launcher takes at state 64, must launch K1, K3, K4 and K6, and ends with
+    rotor and store-all agreeing within 1e-2 on one batch;
+12. MoE path: the same for moonshot-v1-16b-a3b at full width (d_model 2048,
+    16 heads × 128, a dense first layer of d_ff 11264, then 64 routed
+    experts top-6 of d_ff 1408 and 2 shared ones, capacity factor 1.25;
+    vocab 163840), cut to 4 layers, one a chunk (dense | moe | moe | moe, a
+    heterogeneous 6-stage chain); it must launch K1, K3 and K4;
+13. one JSON line describing every kernel, then the final JSON result line.
 
-Each path (6, 7, 8, 9, 10) runs with the launch counts set to 0 just before
-it and read just after; a kernel launched on none of them fails the run.
+Each path (6, 7, 8, 9, 10, 11, 12) runs with the launch counts set to 0 just
+before it and read just after; a kernel launched on none of them fails the
+run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -122,6 +141,17 @@ OVERRIDES = {"num_layers": LAYERS, "layer_kinds": ["dense"] * LAYERS,
 MAMBA_ARCH = "mamba2-1.3b"
 MAMBA_OVERRIDES = {"num_layers": LAYERS, "layer_kinds": ["mamba"] * LAYERS,
                    "n_chunks": LAYERS, "use_ssd_kernel": True}
+# Zamba2-2.7B cut to 4 periods of 6 layers: 4 chunks, each opening with the
+# shared attention block, a 6-stage chain
+ZAMBA_ARCH, ZAMBA_LAYERS = "zamba2-2.7b", 24
+ZAMBA_OVERRIDES = {"num_layers": ZAMBA_LAYERS,
+                   "layer_kinds": ["zamba"] * ZAMBA_LAYERS,
+                   "use_flash_attention": True, "use_ssd_kernel": True}
+# moonshot-v1-16b-a3b cut to its dense first layer and 3 MoE layers, one a
+# chunk: dense | moe | moe | moe, a 6-stage chain
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_OVERRIDES = {"num_layers": 4, "layer_kinds": ["dense"] + ["moe"] * 3,
+                 "n_chunks": 4, "use_flash_attention": True}
 
 
 def say(*parts) -> None:
@@ -407,8 +437,15 @@ def main() -> int:
                 say(f"[build] {name}: {line.strip()}")
 
     # -- 3. host link ----------------------------------------------------------
-    cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
-                              for k, v in OVERRIDES.items()})
+    def config_of(arch, overrides, **more):
+        """``get_config`` with the launcher's JSON overrides (lists as
+        tuples, as ``launch.train`` reads them)."""
+        return get_config(arch, **{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in overrides.items()}, **more)
+
+    cfg = config_of(ARCH, OVERRIDES)
+    zcfg = config_of(ZAMBA_ARCH, ZAMBA_OVERRIDES)
+    ecfg = config_of(MOE_ARCH, MOE_OVERRIDES)
     model = StagedLM(cfg)
     specs = input_specs(cfg, ShapeSpec("train", "train", SEQ, BATCH))
     nbytes_act = BATCH * SEQ * cfg.d_model * 2   # one bf16 boundary activation
@@ -658,10 +695,12 @@ def main() -> int:
         return float(err.max())
 
     flash_err = {}
+    # small shapes, then the paths' own: Qwen, the Zamba2 shared block
+    # (32 heads × 80) and the MoE path's attention (16 heads × 128)
+    path_shapes = [(BATCH, SEQ, c.n_heads, c.n_kv_heads, c.head_dim)
+                   for c in (cfg, zcfg, ecfg)]
     for (B, S, H, K, D) in ((2, 200, 8, 2, 16), (1, 300, 4, 1, 64),
-                            (2, 333, 8, 2, 80),
-                            (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim)):
+                            (2, 333, 8, 2, 80), *path_shapes):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             q, k, v = (randn(B, S, h, D, dtype=dtype) for h in (H, K, K))
             err = check_close(f"flash {B, S, H, K, D} {dtype}",
@@ -699,12 +738,13 @@ def main() -> int:
                 f"bf16 ulp + 2^-8 Σp|v|/l + 1e-5)")
             del q, k, v, got, want, gap, lim
 
-    # RMSNorm at the paths' widths (Qwen 2560; Mamba's layer norms 2048 and
-    # its gated norm 4096) and a ragged width on an offset base (the scalar
-    # tail loop)
+    # RMSNorm at the paths' widths (Qwen's and Zamba2's 2560; Mamba's and
+    # the MoE path's 2048; the gated norms of Mamba 4096 and Zamba2 5120)
+    # and a ragged width on an offset base (the scalar tail loop)
     rows = BATCH * SEQ
     rms_err = {}
-    for d, offset in ((cfg.d_model, 0), (2048, 0), (4096, 0), (1000, 1)):
+    for d, offset in ((cfg.d_model, 0), (2048, 0), (4096, 0), (5120, 0),
+                      (1000, 1)):
         for dt in (torch.bfloat16, torch.float32):
             x = randn(rows, d + offset, dtype=dt)[:, offset:]
             s = (1 + 0.1 * randn(d)).to(dt)
@@ -724,13 +764,18 @@ def main() -> int:
                 f"({'1 bf16 ulp' if dt == torch.bfloat16 else 'rtol 1e-6'})")
             del x, s, got, want
 
-    mcfg = get_config(MAMBA_ARCH, **{k: tuple(v) if isinstance(v, list) else v
-                                     for k, v in MAMBA_OVERRIDES.items()})
+    mcfg = config_of(MAMBA_ARCH, MAMBA_OVERRIDES)
     Hs = mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim
     P, N, G, Q = (mcfg.ssm_head_dim, mcfg.ssm_state, mcfg.ssm_groups,
                   mcfg.ssm_chunk)
 
-    def ssd_inputs(B, S, H, G, dtype):
+    zHs = zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_head_dim
+    zN, zG = zcfg.ssm_state, zcfg.ssm_groups
+    if (zcfg.ssm_head_dim, zcfg.ssm_chunk) != (P, Q):
+        raise AssertionError("the Zamba2 path's SSD head dim or chunk is not "
+                             "the Mamba path's")
+
+    def ssd_inputs(B, S, H, G, dtype, N=N):
         """The mixer's ranges: dt = softplus(·) · 0.1, A from -1 to -16."""
         dt = F.softplus(randn(B, S, H)) * 0.1
         A = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device=dev))
@@ -738,7 +783,7 @@ def main() -> int:
                 0.3 * randn(B, S, G, N, dtype=dtype),
                 0.3 * randn(B, S, G, N, dtype=dtype))
 
-    def ssd_kind(dtype, H, G):
+    def ssd_kind(dtype, H, G, N=N):
         slice_ = ssd_ops.head_slice(dtype, P, N, Q, H, G)
         return (f"tensor-core kernel, slices of {slice_} heads" if slice_
                 else "scalar kernel")
@@ -746,16 +791,17 @@ def main() -> int:
     ssd_err = {}
     # the Mamba path's shape, a ragged sequence, heads that share a group,
     # and a group of 12 heads: a slice of 8 and a ragged slice of 4 on the
-    # bf16 tensor-core kernel
-    for (B, S, H, G_) in ((BATCH, SEQ, Hs, G), (2, 1000, 8, G), (1, 512, 8, 4),
-                          (1, 512, 12, 1)):
+    # bf16 tensor-core kernel; then the Zamba2 path's shape, state 64
+    for (B, S, H, G_, N_) in ((BATCH, SEQ, Hs, G, N), (2, 1000, 8, G, N),
+                              (1, 512, 8, 4, N), (1, 512, 12, 1, N),
+                              (BATCH, SEQ, zHs, zG, zN)):
         for dtype in (torch.float32, torch.bfloat16):
-            x, dt, A, Bm, Cm = ssd_inputs(B, S, H, G_, dtype)
+            x, dt, A, Bm, Cm = ssd_inputs(B, S, H, G_, dtype, N_)
             xp, dtp, Bp, Cp = ssd_ref.pad_to_chunks(Q, x, dt, Bm, Cm)
             got = ssd_ops.ssd_chunk_blocks(xp, dtp, A, Bp, Cp, Q)
             want = ssd_ref.chunk_terms(xp.float(), dtp, A, Bp.float(),
                                        Cp.float(), Q)
-            what = f"ssd_chunk {(B, S, H, P, G_, N, Q)} {dtype}"
+            what = f"ssd_chunk {(B, S, H, P, G_, N_, Q)} {dtype}"
             err = max(check_close(f"{what} {part}", a_, b_, 2e-4)
                       for part, a_, b_ in zip(("y_diag", "states"), got,
                                               want))
@@ -766,34 +812,37 @@ def main() -> int:
             if not (y.shape == wy.shape and bool(torch.isfinite(y).all())):
                 raise AssertionError(f"{what}: scan output {tuple(y.shape)}")
             ssd_err[(B, S, H, G_, dtype)] = err
-            say(f"[check] {what} ({ssd_kind(dtype, H, G_)}): kernel vs "
+            say(f"[check] {what} ({ssd_kind(dtype, H, G_, N_)}): kernel vs "
                 f"plain max |err| {err:.3e} "
                 f"(tol 2e-4 rtol+atol, plain in f32 on the same values); "
                 f"whole scan's final state within 2e-4")
             del x, dt, A, Bm, Cm, xp, dtp, Bp, Cp, y, st, wy, wst
-    # the Mamba path's layout: x, B and C are strided views into the mixer's
-    # one (B, S, d_inner + 2·G·N) tensor, split as the mixer splits it
-    d_inner = Hs * P
-    for dtype in (torch.float32, torch.bfloat16):
-        xbc = randn(BATCH, SEQ, d_inner + 2 * G * N, dtype=dtype)
-        xbc[..., d_inner:] *= 0.3
-        x, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
-        x = x.reshape(BATCH, SEQ, Hs, P)
-        Bm, Cm = (t.reshape(BATCH, SEQ, G, N) for t in (Bm, Cm))
-        dt = F.softplus(randn(BATCH, SEQ, Hs)) * 0.1
-        A = -torch.exp(torch.linspace(0.0, math.log(16.0), Hs, device=dev))
-        what = (f"ssd_chunk {(BATCH, SEQ, Hs, P, G, N, Q)} {dtype} as strided "
-                f"views into the mixer's xBC")
-        err = max(check_close(f"{what} {part}", a_, b_, 2e-4)
-                  for part, a_, b_ in zip(
-                      ("y_diag", "states"),
-                      ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
-                      ssd_ref.chunk_terms(x.float(), dt, A, Bm.float(),
-                                          Cm.float(), Q)))
-        say(f"[check] {what} ({ssd_kind(dtype, Hs, G)}, row stride "
-            f"{x.stride(1)}): kernel vs plain max |err| {err:.3e} (tol 2e-4 "
-            f"rtol+atol, plain in f32 on the same values)")
-        del xbc, x, Bm, Cm, dt, A
+    # the Mamba and Zamba2 paths' layout: x, B and C are strided views into
+    # the mixer's one (B, S, d_inner + 2·G·N) tensor, split as the mixer
+    # splits it
+    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN)):
+        d_inner = H_ * P
+        for dtype in (torch.float32, torch.bfloat16):
+            xbc = randn(BATCH, SEQ, d_inner + 2 * G_ * N_, dtype=dtype)
+            xbc[..., d_inner:] *= 0.3
+            x, Bm, Cm = torch.split(xbc, [d_inner, G_ * N_, G_ * N_], dim=-1)
+            x = x.reshape(BATCH, SEQ, H_, P)
+            Bm, Cm = (t.reshape(BATCH, SEQ, G_, N_) for t in (Bm, Cm))
+            dt = F.softplus(randn(BATCH, SEQ, H_)) * 0.1
+            A = -torch.exp(torch.linspace(0.0, math.log(16.0), H_,
+                                          device=dev))
+            what = (f"ssd_chunk {(BATCH, SEQ, H_, P, G_, N_, Q)} {dtype} as "
+                    f"strided views into the mixer's xBC")
+            err = max(check_close(f"{what} {part}", a_, b_, 2e-4)
+                      for part, a_, b_ in zip(
+                          ("y_diag", "states"),
+                          ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
+                          ssd_ref.chunk_terms(x.float(), dt, A, Bm.float(),
+                                              Cm.float(), Q)))
+            say(f"[check] {what} ({ssd_kind(dtype, H_, G_, N_)}, row stride "
+                f"{x.stride(1)}): kernel vs plain max |err| {err:.3e} (tol "
+                f"2e-4 rtol+atol, plain in f32 on the same values)")
+            del xbc, x, Bm, Cm, dt, A
     torch.cuda.empty_cache()
 
     # -- 5. timing at the main path's shapes -------------------------------------
@@ -992,28 +1041,34 @@ def main() -> int:
         + f") on {card}")
     del link
 
-    B, S, H, K, D = BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = (randn(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    flops = 4 * D * (S * (S + 1) // 2) * B * H   # unmasked QK^T and PV
-    b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * K * D), flops,
-                       BF16_TENSOR_FLOPS)
+    # K3 at the paths' shapes: Qwen's (the row of the kernels line), the
+    # Zamba2 shared block's and the MoE path's
+    flash_rows = []
+    for (B, S, H, K, D) in path_shapes:
+        q, k, v = (randn(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flops = 4 * D * (S * (S + 1) // 2) * B * H   # unmasked QK^T and PV
+        b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * K * D),
+                           flops, BF16_TENSOR_FLOPS)
+        flash_rows.append({
+            **both_ms(lambda: flash_ops.attention_fwd(q, k, v),
+                      lambda: flash_ref.attention(q, k, v),
+                      lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": flash_err[(B, S, H, K, D, torch.bfloat16)],
+            "shape": f"bf16 q ({B},{S},{H},{D}) k,v ({B},{S},{K},{D})"})
+        del q, k, v, qt, kt, vt
     kernels.append({
         "name": flash_ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-        **both_ms(lambda: flash_ops.attention_fwd(q, k, v),
-                  lambda: flash_ref.attention(q, k, v),
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": flash_err[(B, S, H, K, D, torch.bfloat16)],
-        "shape": f"bf16 q ({B},{S},{H},{D}) k,v ({B},{S},{K},{D})"})
-    del q, k, v, qt, kt, vt
+        **flash_rows[0], "other_shapes": flash_rows[1:]})
 
-    # K4 at Qwen's width (the row of the kernels line), then at Mamba's
+    # K4 at Qwen's width (the row of the kernels line), then at the other
+    # paths' widths
     rms_rows = []
-    for d in (cfg.d_model, 2048, 4096):
+    for d in (cfg.d_model, 2048, 4096, 5120):
         x = randn(rows, d, dtype=torch.bfloat16)
         s = (1 + 0.1 * randn(d)).to(torch.bfloat16)
         b_ms, b_by = bound(2 * 2 * rows * d + 2 * d, 4 * rows * d, F32_FLOPS)
@@ -1030,28 +1085,35 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
         **rms_rows[0], "other_shapes": rms_rows[1:]})
 
+    # K6 at the Mamba path's shape (the row of the kernels line: the
+    # tensor-core kernel) and at the Zamba2 path's (state 64: the scalar one)
     B, S = BATCH, SEQ
     nc = S // Q
-    x, dt, A, Bm, Cm = ssd_inputs(B, S, Hs, G, torch.bfloat16)
-    nbytes = (2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
-              + 2 * (Bm.numel() + Cm.numel())        # inputs, read once
-              + 4 * x.numel() + 4 * B * nc * Hs * P * N)  # y_diag, states
-    causal = Q * (Q + 1) // 2                    # score entries j <= i
-    b_ms, b_by = bound(nbytes, B * Hs * nc * (2 * causal * (N + P)
-                                              + 2 * Q * P * N),
-                       BF16_TENSOR_FLOPS)
+    ssd_rows = []
+    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN)):
+        x, dt, A, Bm, Cm = ssd_inputs(B, S, H_, G_, torch.bfloat16, N_)
+        nbytes = (2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
+                  + 2 * (Bm.numel() + Cm.numel())        # inputs, read once
+                  + 4 * x.numel() + 4 * B * nc * H_ * P * N_)  # outputs
+        causal = Q * (Q + 1) // 2                    # score entries j <= i
+        b_ms, b_by = bound(nbytes, B * H_ * nc * (2 * causal * (N_ + P)
+                                                  + 2 * Q * P * N_),
+                           BF16_TENSOR_FLOPS)
+        ssd_rows.append({
+            # no PyTorch call computes the SSD within-chunk terms
+            **both_ms(lambda: ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
+                      lambda: ssd_ref.chunk_terms(x, dt, A, Bm, Cm, Q)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": ssd_err[(B, S, H_, G_, torch.bfloat16)],
+            "shape": f"bf16 x ({B},{S},{H_},{P}) B,C ({B},{S},{G_},{N_}), "
+                     f"chunk {Q}, {nbytes} B moved, "
+                     f"{ssd_kind(torch.bfloat16, H_, G_, N_)}"})
+        del x, dt, A, Bm, Cm
     kernels.append({
         "name": ssd_ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:55",
-        # no PyTorch call computes the SSD within-chunk terms
-        **both_ms(lambda: ssd_ops.ssd_chunk_blocks(x, dt, A, Bm, Cm, Q),
-                  lambda: ssd_ref.chunk_terms(x, dt, A, Bm, Cm, Q)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": ssd_err[(B, S, Hs, G, torch.bfloat16)],
-        "shape": f"bf16 x ({B},{S},{Hs},{P}) B,C ({B},{S},{G},{N}), chunk "
-                 f"{Q}, {nbytes} B moved"})
-    del x, dt, A, Bm, Cm
+        **ssd_rows[0], "other_shapes": ssd_rows[1:]})
     for kern in kernels:
         for row in [kern] + kern.get("other_shapes", []):
             say(f"[time] {kern['name']} {row['shape']}: {row['ms']:.4f} ms, "
@@ -1225,50 +1287,65 @@ def main() -> int:
     path_launches["planning"] = counters.snapshot()
 
     # -- 9. Mamba path --------------------------------------------------------------
-    mmodel = StagedLM(mcfg)
-    mchain = plan_chain(mmodel, input_specs(mcfg, ShapeSpec(
-        "train", "train", SEQ, BATCH)), peak_flops)
-    mlow = solve_min_memory(mchain).mem_limit
-    mhigh = mchain.store_all_peak()
-    mbudget = (mlow + mhigh) / 2
-    n_params = sum(t.numel() for t in tensors_of(mmodel.init(device="meta")))
-    say(f"[mamba] {MAMBA_ARCH} cut to {mcfg.num_layers} layers: {n_params} "
-        f"parameters, d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state "
-        f"{N}, chunk {Q}; chain L={mchain.length}: min-memory {mlow:.6e} B, "
-        f"store-all {mhigh:.6e} B, budget (midpoint) {int(mbudget)} B")
-    counters.reset()
-    out = train.main([
-        "--arch", MAMBA_ARCH, "--override", json.dumps(MAMBA_OVERRIDES),
-        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
-        "--steps", str(STEPS), "--policy", f"rotor:{int(mbudget)}",
-        "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
-    path_launches["mamba"] = counters.snapshot()
-    plan = out["plan"]
-    say(f"[mamba] schedule ops {json.dumps(plan.op_counts())}, predicted "
-        f"{plan.expected_time:.6e} s/step, predicted activation peak "
-        f"{plan.peak_device_mem:.6e} B")
-    for i, rec in enumerate(out["steps"]):
-        say(f"[mamba] step {i}: loss {rec['loss']:.6f}, "
-            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
-            f"measured activation peak {rec['activation_peak_bytes']} B "
-            f"on {card}")
-    if not all(math.isfinite(x) for x in out["losses"]):
-        raise AssertionError(f"non-finite loss: {out['losses']}")
-    launches = path_launches["mamba"]
-    if not launches.get(ssd_ops.NAME):
-        raise AssertionError("the Mamba path never launched the SSD kernel")
-    say(f"[mamba] launches: {launches[dp_ops.NAME]} dp band-min per plan, "
-        f"{launches[ssd_ops.NAME] / STEPS:g} ssd_chunk and "
-        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
-    mbatch = SyntheticLMData(mcfg, BATCH, SEQ, seed=0).device_batch(0, dev)
+    def rotor_path(tag, arch, overrides, pcfg, what, kernels_run):
+        """Train ``arch`` with ``overrides`` through ``launch.train`` under
+        ``rotor:`` at its own chain's midpoint budget on the CUDA band-min
+        kernel, counting launches; every kernel named in ``kernels_run`` must
+        have launched; then the rotor plan and store-all agree on one
+        batch.  Returns the path's launch counts."""
+        pmodel = StagedLM(pcfg)
+        pchain = plan_chain(pmodel, input_specs(pcfg, ShapeSpec(
+            "train", "train", SEQ, BATCH)), peak_flops)
+        plow = solve_min_memory(pchain).mem_limit
+        phigh = pchain.store_all_peak()
+        pbudget = (plow + phigh) / 2
+        n_params = sum(t.numel()
+                       for t in tensors_of(pmodel.init(device="meta")))
+        say(f"[{tag}] {arch} cut to {pcfg.num_layers} layers: {n_params} "
+            f"parameters, {what}; chunks {pcfg.chunks}; chain "
+            f"L={pchain.length}: min-memory {plow:.6e} B, store-all "
+            f"{phigh:.6e} B, budget (midpoint) {int(pbudget)} B")
+        counters.reset()
+        out = train.main([
+            "--arch", arch, "--override", json.dumps(overrides),
+            "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+            "--steps", str(STEPS), "--policy", f"rotor:{int(pbudget)}",
+            "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
+        launches = counters.snapshot()
+        plan = out["plan"]
+        say(f"[{tag}] schedule ops {json.dumps(plan.op_counts())}, "
+            f"predicted {plan.expected_time:.6e} s/step, predicted "
+            f"activation peak {plan.peak_device_mem:.6e} B")
+        for i, rec in enumerate(out["steps"]):
+            say(f"[{tag}] step {i}: loss {rec['loss']:.6f}, "
+                f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
+                f"measured activation peak {rec['activation_peak_bytes']} B "
+                f"on {card}")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"non-finite loss: {out['losses']}")
+        for name in (dp_ops.NAME, *kernels_run):
+            if not launches.get(name):
+                raise AssertionError(f"the {tag} path never launched {name}")
+        say(f"[{tag}] launches: {launches[dp_ops.NAME]} dp band-min per "
+            f"plan, " + ", ".join(f"{launches[k] / STEPS:g} {k}"
+                                  for k in kernels_run) + " per step")
+        pbatch = SyntheticLMData(pcfg, BATCH, SEQ, seed=0).device_batch(0,
+                                                                        dev)
 
-    def mamba_grads(params):
-        loss = mmodel.loss_fn(params, mbatch, tree=plan.tree)
-        return loss, torch.autograd.grad(loss, tensors_of(params))
+        def plan_grads(params):
+            loss = pmodel.loss_fn(params, pbatch, tree=plan.tree)
+            return loss, torch.autograd.grad(loss, tensors_of(params))
 
-    same_results("mamba rotor", out["params"], mamba_grads, mmodel, mbatch)
-    del out, plan
-    torch.cuda.empty_cache()
+        same_results(f"{tag} rotor", out["params"], plan_grads, pmodel,
+                     pbatch)
+        del out, plan
+        torch.cuda.empty_cache()
+        return launches
+
+    path_launches["mamba"] = rotor_path(
+        "mamba", MAMBA_ARCH, MAMBA_OVERRIDES, mcfg,
+        f"d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state {N}, chunk "
+        f"{Q}", (ssd_ops.NAME, rms_ops.NAME))
 
     # -- 10. measure, plan, run --------------------------------------------------
     def show_measured(tag, model, params, analytic):
@@ -1365,9 +1442,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the paper's setting: the planner is the only checkpointing, so each
     # chunk stage keeps its layer's saved tensors (no per-layer remat)
-    nr_cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
-                                 for k, v in OVERRIDES.items()},
-                        scan_layer_remat="none")
+    nr_cfg = config_of(ARCH, OVERRIDES, scan_layer_remat="none")
     nr_model = StagedLM(nr_cfg)
     params = nr_model.init(0, dev)
     nr_measured = show_measured(
@@ -1383,7 +1458,29 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # -- 11. result lines ---------------------------------------------------------
+    # -- 11. Zamba2 path ------------------------------------------------------------
+    say(f"[zamba] K6 at state {zN}: the launcher takes the "
+        f"{ssd_kind(torch.bfloat16, zHs, zG, zN)} for bf16 x "
+        f"({BATCH},{SEQ},{zHs},{P}), B/C ({BATCH},{SEQ},{zG},{zN}), chunk "
+        f"{Q} (ssd/ops.py::head_slice)")
+    path_launches["zamba"] = rotor_path(
+        "zamba", ZAMBA_ARCH, ZAMBA_OVERRIDES, zcfg,
+        f"d_model {zcfg.d_model}, {zHs} SSM heads of {P}, state {zN}, chunk "
+        f"{Q}, the shared block at {zcfg.n_heads} heads × {zcfg.head_dim} and "
+        f"d_ff {zcfg.d_ff} every {zcfg.hybrid_period} layers, vocab "
+        f"{zcfg.vocab_size}", (flash_ops.NAME, rms_ops.NAME, ssd_ops.NAME))
+
+    # -- 12. MoE path ---------------------------------------------------------------
+    path_launches["moe"] = rotor_path(
+        "moe", MOE_ARCH, MOE_OVERRIDES, ecfg,
+        f"d_model {ecfg.d_model}, {ecfg.n_heads} heads × {ecfg.head_dim}, "
+        f"dense d_ff {ecfg.d_ff}, {ecfg.num_experts} experts top-"
+        f"{ecfg.moe_top_k} of d_ff {ecfg.moe_d_ff} and "
+        f"{ecfg.num_shared_experts} shared, capacity factor "
+        f"{ecfg.moe_capacity_factor}, vocab {ecfg.vocab_size}",
+        (flash_ops.NAME, rms_ops.NAME))
+
+    # -- 13. result lines ---------------------------------------------------------
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

@@ -1,5 +1,6 @@
-"""Architecture configs (the ported subset of ``repro.configs.archs``) and
-the smoke-reduction helper."""
+"""Architecture configs (the text archs of ``repro.configs.archs`` that the
+port trains: the dense four, the MoE, Mamba2 and the Zamba2 hybrid) and the
+smoke-reduction helper."""
 
 from __future__ import annotations
 
@@ -14,12 +15,49 @@ _COMMON = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                scan_layer_remat="full", logits_chunk=4096)
 
 
+def codeqwen15_7b(**ov) -> ModelConfig:
+    # [dense] qwen1.5-arch [hf:Qwen/CodeQwen1.5-7B; hf] — QKV bias, SwiGLU
+    return ModelConfig(name="codeqwen1.5-7b", num_layers=32, d_model=4096,
+                       n_heads=32, n_kv_heads=32, d_ff=13440,
+                       vocab_size=92416, qkv_bias=True, mlp_kind="swiglu",
+                       rope_theta=1e6, n_chunks=8, **{**_COMMON, **ov})
+
+
 def qwen15_4b(**ov) -> ModelConfig:
     # [dense] QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]
     return ModelConfig(name="qwen1.5-4b", num_layers=40, d_model=2560,
                        n_heads=20, n_kv_heads=20, d_ff=6912,
                        vocab_size=151936, qkv_bias=True, mlp_kind="swiglu",
                        rope_theta=5e6, n_chunks=10, **{**_COMMON, **ov})
+
+
+def starcoder2_7b(**ov) -> ModelConfig:
+    # [dense] GQA, RoPE [arXiv:2402.19173; hf] — GELU MLP, biases
+    return ModelConfig(name="starcoder2-7b", num_layers=32, d_model=4608,
+                       n_heads=36, n_kv_heads=4, d_ff=18432,
+                       vocab_size=49152, qkv_bias=True, mlp_kind="gelu",
+                       rope_theta=1e5, n_chunks=8, **{**_COMMON, **ov})
+
+
+def qwen15_110b(**ov) -> ModelConfig:
+    # [dense] QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]
+    return ModelConfig(name="qwen1.5-110b", num_layers=80, d_model=8192,
+                       n_heads=64, n_kv_heads=8, d_ff=49152,
+                       vocab_size=152064, qkv_bias=True, mlp_kind="swiglu",
+                       rope_theta=1e6, n_chunks=10, **{**_COMMON, **ov})
+
+
+def moonshot_16b_a3b(**ov) -> ModelConfig:
+    # [moe] kimi/moonlight 64e top-6 [hf:moonshotai/Moonlight-16B-A3B; hf]
+    # assignment sheet pins GQA kv=16 (not MLA) — we follow the sheet.
+    return ModelConfig(name="moonshot-v1-16b-a3b", num_layers=48,
+                       d_model=2048, n_heads=16, n_kv_heads=16,
+                       d_ff=11264,  # first (dense) layer FFN
+                       vocab_size=163840,
+                       layer_kinds=("dense",) + ("moe",) * 47,
+                       num_experts=64, moe_top_k=6, moe_d_ff=1408,
+                       num_shared_experts=2, n_chunks=12,
+                       **{**_COMMON, **ov})
 
 
 def mamba2_13b(**ov) -> ModelConfig:
@@ -33,9 +71,25 @@ def mamba2_13b(**ov) -> ModelConfig:
                        **{**_COMMON, **ov})
 
 
+def zamba2_27b(**ov) -> ModelConfig:
+    # [hybrid] Mamba2 + shared attn blocks [arXiv:2411.15242; hf]
+    return ModelConfig(name="zamba2-2.7b", num_layers=54, d_model=2560,
+                       n_heads=32, n_kv_heads=32, d_ff=10240,
+                       vocab_size=32000,
+                       layer_kinds=("zamba",) * 54, hybrid_period=6,
+                       ssm_state=64, ssm_expand=2, ssm_head_dim=64,
+                       ssm_groups=1, ssm_conv=4, ssm_chunk=256,
+                       n_chunks=9, **{**_COMMON, **ov})
+
+
 ARCHS: Dict[str, Callable[..., ModelConfig]] = {
+    "codeqwen1.5-7b": codeqwen15_7b,
     "qwen1.5-4b": qwen15_4b,
+    "starcoder2-7b": starcoder2_7b,
+    "qwen1.5-110b": qwen15_110b,
+    "moonshot-v1-16b-a3b": moonshot_16b_a3b,
     "mamba2-1.3b": mamba2_13b,
+    "zamba2-2.7b": zamba2_27b,
 }
 
 

@@ -10,7 +10,7 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-from ..tree import tensors_of, with_tensors
+from ..tree import tensors_of, tree_map, with_tensors
 from .planner import _fresh_input
 from .schedule import Schedule
 
@@ -33,9 +33,15 @@ def value_and_grads(fn: Callable, params: Sequence[Any], x: Any
     """``fn(params, x)`` and its gradients for a cotangent of ones:
     ``(output, per-stage parameter gradients, input gradient)`` shaped as
     :func:`execute_schedule` shapes them (zeros where a parameter is
-    unused, ``None`` at non-floating input leaves)."""
+    unused, ``None`` at non-floating input leaves).  Each stage runs on
+    aliases of its own (``view_as``), so a tensor that several stages share
+    (Zamba2's shared block) gets each stage's part, as the schedule walker
+    returns it, not the total at every stage."""
     inp = _fresh_input(x)
     with torch.enable_grad():
+        params = [tree_map(lambda t: t.view_as(t)
+                           if isinstance(t, torch.Tensor) else t, p)
+                  for p in params]
         out = fn(params, inp)
     ins = [t for t in tensors_of(inp) if t.is_floating_point()]
     ps = [tensors_of(p) for p in params]

@@ -102,7 +102,10 @@ def residual_bytes(fn: Callable, p: Any, a: Any) -> Tuple[Any, int]:
         b = _base(t)
         if id(b) not in excluded:
             saved[id(b)] = b
-        return t
+        # no backward runs through this graph; a saved output returned as
+        # itself would hold its own grad_fn, a cycle through autograd's
+        # C++ that the garbage collector cannot free
+        return t.detach()
 
     with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
             pack, lambda t: t):
@@ -111,7 +114,9 @@ def residual_bytes(fn: Callable, p: Any, a: Any) -> Tuple[Any, int]:
         b = _base(t)
         if id(b) not in excluded:
             saved.setdefault(id(b), b)
-    return out, tree_bytes(list(saved.values()))
+    nbytes = tree_bytes(list(saved.values()))
+    saved.clear()    # the graph keeps the hook, the hook these tensors
+    return out, nbytes
 
 
 def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],

@@ -159,8 +159,8 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
             host_buffer=hb, stats=stats)
         grads_peak = _peak_allocated(leaves)
         lr = lr_fn(step) if lr_fn is not None else None
-        metrics = adamw_update(opt_cfg, tensors_of(stage_grads), opt_state,
-                               leaves, lr)
+        grads = tensors_of(model.combine_stage_grads(stage_grads))
+        metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         metrics.update(loss=loss.detach(), host_peak_bytes=hb.peak_bytes,
                        host_bytes_after=hb.bytes_in_use,
                        prefetch_wait_s=stats["prefetch_wait_s"],

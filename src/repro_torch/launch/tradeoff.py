@@ -56,8 +56,9 @@ def time_point(plan: MemoryPlan, stages: Sequence[Callable],
                params: Sequence[Any], x: Any, repeats: int = 3) -> dict:
     """``plan.bind(stages).value_and_grad(params, x)`` timed after one
     warm-up call: ``{"seconds" (median of ``repeats``), "peak" (activation bytes, the largest; None off CUDA),
-    "loss", "grad_norm"}`` (the last two of the last call, read outside the
-    timed region)."""
+    "loss", "grads"}`` (the last two of the last call, read outside the
+    timed region; ``grads`` per stage, as ``value_and_grad`` returns
+    them)."""
     bound = plan.bind(stages)
     dev = tensors_of([list(params), x])[0].device
     cuda = dev.type == "cuda"
@@ -84,7 +85,7 @@ def time_point(plan: MemoryPlan, stages: Sequence[Callable],
             times.append(time.perf_counter() - t0)
     return {"seconds": statistics.median(times),
             "peak": max(peaks) if cuda else None, "loss": float(out),
-            "grad_norm": float(global_norm(tensors_of(grads)))}
+            "grads": grads}
 
 
 def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
@@ -104,6 +105,9 @@ def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
 
     def row(strategy: str, frac: float, plan: MemoryPlan) -> dict:
         got = time_point(plan, stages, sp, batch, repeats)
+        # a shared block's per-stage parts are summed before the norm
+        gnorm = float(global_norm(tensors_of(
+            model.combine_stage_grads(got.pop("grads")))))
         seconds, measured_peak = got["seconds"], got["peak"]
         r = dict(strategy=strategy, budget_frac=frac,
                  budget_bytes=plan.budget_bytes,
@@ -111,7 +115,7 @@ def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
                  predicted_peak_bytes=plan.peak_device_mem,
                  measured_s=seconds, measured_peak_bytes=measured_peak,
                  tokens_per_s=tokens / seconds, loss=got["loss"],
-                 grad_norm=got["grad_norm"])
+                 grad_norm=gnorm)
         rows.append(r)
         emit(f"{strategy} at {frac:g} x store-all: predicted "
              f"{r['predicted_s']:.6e} s, peak "

@@ -1,6 +1,7 @@
-"""Analytic per-stage FLOP counts (the dense and Mamba2 part of
-``repro.models.flops``)
-— the rotor planner's ``u_f``/``u_b`` without running anything.
+"""Analytic per-stage FLOP counts (the GQA text-model part of
+``repro.models.flops``: dense, MoE, Mamba2 and Zamba2 layers, the Zamba2
+shared block) — the rotor planner's ``u_f``/``u_b`` without running
+anything.
 
 Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
 at full (non-causal) cost.  Backward ≈ 2× forward, +1× when the per-layer
@@ -24,6 +25,15 @@ def _mlp_flops(cfg, B: int, S: int, d_ff: int) -> float:
     return 2 * B * S * cfg.d_model * d_ff * mult
 
 
+def _moe_flops(cfg, B: int, S: int) -> float:
+    T = B * S
+    router = 2 * T * cfg.d_model * cfg.num_experts
+    routed = 2 * (T * cfg.moe_top_k * cfg.moe_capacity_factor) * 3 \
+        * cfg.d_model * cfg.moe_d_ff
+    shared = 2 * T * 3 * cfg.d_model * (cfg.moe_d_ff * cfg.num_shared_experts)
+    return router + routed + shared
+
+
 def _mamba_flops(cfg, B: int, S: int) -> float:
     d = cfg.d_model
     d_inner = cfg.ssm_expand * d
@@ -40,19 +50,26 @@ def _mamba_flops(cfg, B: int, S: int) -> float:
 
 
 def _layer_flops(cfg, kind: str, B: int, S: int) -> float:
-    if kind == "mamba":
-        return _mamba_flops(cfg, B, S)
-    if kind != "dense" or cfg.attention_kind != "gqa":
+    if cfg.attention_kind != "gqa":
         raise NotImplementedError(
-            f"FLOPs of {kind!r}/{cfg.attention_kind!r} layers are not ported")
-    return _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
+            f"FLOPs of {cfg.attention_kind!r} attention are not ported")
+    if kind == "dense":
+        return _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
+    if kind == "moe":
+        return _attn_flops(cfg, B, S) + _moe_flops(cfg, B, S)
+    return _mamba_flops(cfg, B, S)
 
 
 def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:
-    """(fwd, bwd) FLOPs per rotor stage: [embed] + chunks + [head+loss]."""
+    """(fwd, bwd) FLOPs per rotor stage: [embed] + chunks + [head+loss]; a
+    Zamba2 chunk that starts a period adds its shared block."""
     fwd: List[float] = [2 * B * S * cfg.d_model]  # lookup/scale — negligible
     for kind, start, length in cfg.chunks:
-        fwd.append(length * _layer_flops(cfg, kind, B, S))
+        f = length * _layer_flops(cfg, kind, B, S)
+        if (cfg.hybrid_period and kind == "zamba"
+                and start % cfg.hybrid_period == 0):
+            f += _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
+        fwd.append(f)
     fwd.append(2 * B * S * cfg.d_model * cfg.vocab_size)
     # backward ≈ 2× fwd; +1× when inner per-layer remat replays the forward
     inner = 1.0 if cfg.scan_layer_remat == "full" else 0.0

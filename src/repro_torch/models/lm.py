@@ -1,5 +1,4 @@
-"""Staged decoder LM — the dense and Mamba2 training surface of
-``repro.models.lm``.
+"""Staged decoder LM — the text training surface of ``repro.models.lm``.
 
 The model is a **chain of stages** — [embed] + [layer chunks] + [head+loss]
 — which is exactly the structure the paper's checkpointing DP consumes.
@@ -7,9 +6,18 @@ Parameters are plain nested dicts of tensors with the JAX package's pytree
 layout: each chunk's layer parameters are **stacked** along a leading
 ``(length, ...)`` axis, and the chunk stage loops over it (the JAX package
 scans it).  With ``scan_layer_remat="full"`` each layer runs under its own
-checkpoint.  Layer kinds: ``dense`` (GQA attention + MLP) and ``mamba``
-(the Mamba2 SSD mixer).  MoE, MLA, the Zamba2 hybrid, VLM/audio stages and
-the serving methods are not ported yet.
+checkpoint.  Layer kinds:
+
+- ``dense`` — GQA attention + MLP;
+- ``moe``   — GQA attention + the shared/routed MoE (its Switch aux loss is
+  summed along the chain and added to the loss in the head);
+- ``mamba`` — the Mamba2 SSD mixer;
+- ``zamba`` — a Mamba2 layer; a chunk that starts a ``hybrid_period`` first
+  runs the *shared* attention+MLP block (Zamba2), whose one set of
+  parameters every such chunk stage holds, so its gradient is the sum over
+  the chunks.
+
+MLA, VLM/audio stages and the serving methods are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch.nn.functional as F
 
 from ..core.rematerialize import build_remat_fn, remat
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import tensors_of, tree_map, with_tensors
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlp_mod
@@ -155,26 +163,43 @@ class ModelConfig:
 # per-layer blocks
 # ---------------------------------------------------------------------------
 
+def _attn_block_init(gen: torch.Generator, cfg, dt, device,
+                     ffn: str = "mlp") -> Params:
+    """Pre-norm attention + feed-forward: the dense block (also Zamba2's
+    shared block) and the MoE block (``ffn="moe"``)."""
+    p = {"ln1": rms_norm_init(cfg.d_model, dt, device),
+         "attn": attn.gqa_init(gen, cfg, dt, device),
+         "ln2": rms_norm_init(cfg.d_model, dt, device)}
+    if ffn == "moe":
+        p["moe"] = mlp_mod.moe_init(gen, cfg, dt, device)
+    else:
+        p["mlp"] = mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
+                                    cfg.mlp_kind, cfg.num_layers)
+    return p
+
+
 def _block_init(gen: torch.Generator, cfg, kind: str, device) -> Params:
     dt = cfg.param_dtype
-    if kind == "mamba":
+    if kind in ("mamba", "zamba"):
         return {"ln": rms_norm_init(cfg.d_model, dt, device),
                 "mixer": m2.mamba2_init(gen, cfg, dt, device)}
-    return {"ln1": rms_norm_init(cfg.d_model, dt, device),
-            "attn": attn.gqa_init(gen, cfg, dt, device),
-            "ln2": rms_norm_init(cfg.d_model, dt, device),
-            "mlp": mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
-                                    cfg.mlp_kind, cfg.num_layers)}
+    return _attn_block_init(gen, cfg, dt, device,
+                            "moe" if kind == "moe" else "mlp")
 
 
 def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
-                 positions=None) -> torch.Tensor:
-    if kind == "mamba":
-        return h + m2.mamba2_apply(p["mixer"], cfg, rms_norm(p["ln"], h))
+                 positions=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer: ``(h, aux)`` — aux is the MoE's aux loss, ``None`` for
+    the other kinds."""
+    if kind in ("mamba", "zamba"):
+        return h + m2.mamba2_apply(p["mixer"], cfg, rms_norm(p["ln"], h)), None
     h = h + attn.gqa_apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
                            mask)
+    if kind == "moe":
+        y, aux = mlp_mod.moe_apply(p["moe"], cfg, rms_norm(p["ln2"], h))
+        return h + y, aux
     return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h),
-                                 cfg.mlp_kind)
+                                 cfg.mlp_kind), None
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -184,13 +209,15 @@ def _stack(trees: List[Params]) -> Params:
 
 
 def _check_supported(cfg) -> None:
+    kinds = set(cfg.layer_kinds)
     if (cfg.modality != "text" or cfg.attention_kind != "gqa"
-            or cfg.hybrid_period
-            or any(k not in ("dense", "mamba") for k in cfg.layer_kinds)):
+            or not kinds <= {"dense", "moe", "mamba", "zamba"}
+            or cfg.scan_layer_remat not in ("none", "full")):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA and Mamba2 text models are ported "
-            f"(modality={cfg.modality}, attention={cfg.attention_kind}, "
-            f"kinds={sorted(set(cfg.layer_kinds))})")
+            f"{cfg.name}: only text models with GQA attention and dense, MoE, "
+            f"Mamba2 and Zamba2 layers are ported (modality={cfg.modality}, "
+            f"attention={cfg.attention_kind}, kinds={sorted(kinds)}, "
+            f"scan_layer_remat={cfg.scan_layer_remat})")
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +248,8 @@ class StagedLM:
         params["chunks"] = [
             _stack([_block_init(gen, cfg, kind, dev) for _ in range(length)])
             for kind, start, length in cfg.chunks]
+        if cfg.hybrid_period and "zamba" in cfg.layer_kinds:
+            params["shared_attn"] = _attn_block_init(gen, cfg, dt, dev)
         params["final_norm"] = rms_norm_init(cfg.d_model, dt, dev)
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
         return tree_map(lambda t: t.requires_grad_(), params)
@@ -231,17 +260,28 @@ class StagedLM:
         return len(self.cfg.chunks) + 2
 
     def stage_params(self, params: Params) -> List[Any]:
+        """Per-stage parameters; with Zamba2's shared block every chunk stage
+        holds it beside its own (``{"chunk", "shared"}``)."""
+        shared = params.get("shared_attn")
         sp: List[Any] = [params["embed"]]
-        sp.extend({"chunk": c} for c in params["chunks"])
+        sp.extend({"chunk": c} if shared is None
+                  else {"chunk": c, "shared": shared}
+                  for c in params["chunks"])
         sp.append({"final_norm": params["final_norm"], "head": params["head"]})
         return sp
 
     def combine_stage_grads(self, stage_grads: List[Any]) -> Params:
-        """Inverse of :meth:`stage_params`: a params-shaped gradient tree."""
-        return {"embed": stage_grads[0],
-                "chunks": [g["chunk"] for g in stage_grads[1:-1]],
-                "final_norm": stage_grads[-1]["final_norm"],
-                "head": stage_grads[-1]["head"]}
+        """Inverse of :meth:`stage_params`: a params-shaped gradient tree,
+        the shared block's gradient summed over the chunk stages."""
+        out: Params = {"embed": stage_grads[0],
+                       "chunks": [g["chunk"] for g in stage_grads[1:-1]]}
+        shared = [g["shared"] for g in stage_grads[1:-1] if "shared" in g]
+        if shared:
+            out["shared_attn"] = with_tensors(shared[0], [
+                sum(ts) for ts in zip(*map(tensors_of, shared))])
+        out["final_norm"] = stage_grads[-1]["final_norm"]
+        out["head"] = stage_grads[-1]["head"]
+        return out
 
     def _embed_stage(self, p: Params, batch: Dict[str, torch.Tensor]) -> Dict:
         h = F.embedding(batch["tokens"], p["table"]).to(self.cfg.dtype)
@@ -251,20 +291,25 @@ class StagedLM:
 
     def _chunk_stage(self, chunk_idx: int, p: Params, a: Dict) -> Dict:
         cfg = self.cfg
-        kind, _, length = cfg.chunks[chunk_idx]
-        h = a["h"]
-        fn = functools.partial(_apply_block, cfg=cfg, kind=kind)
-        if kind == "dense":
-            B, S = h.shape[:2]
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=h.device)[None].expand(B, S)
-            fn = functools.partial(fn, mask=attn.MaskSpec(
-                causal=True, window=cfg.sliding_window), positions=positions)
+        kind, start, length = cfg.chunks[chunk_idx]
+        h, aux = a["h"], a["aux"]
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        mask = attn.MaskSpec(causal=True, window=cfg.sliding_window)
+        if "shared" in p and start % cfg.hybrid_period == 0:
+            # Zamba2's shared block is a dense block; not under the
+            # per-layer checkpoint, as in the reference
+            h = _apply_block(p["shared"], h, cfg, "dense", mask, positions)[0]
+        fn = functools.partial(_apply_block, cfg=cfg, kind=kind, mask=mask,
+                               positions=positions)
         for j in range(length):
             lp = tree_map(lambda t: t[j], p["chunk"])
-            h = remat(fn, lp, h) if cfg.scan_layer_remat == "full" else fn(lp, h)
-        return {"h": h, "aux": a["aux"], "labels": a["labels"],
-                "mask": a["mask"]}
+            h, layer_aux = (remat(fn, lp, h) if cfg.scan_layer_remat == "full"
+                            else fn(lp, h))
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return {"h": h, "aux": aux, "labels": a["labels"], "mask": a["mask"]}
 
     def _head_stage(self, p: Params, a: Dict) -> torch.Tensor:
         cfg = self.cfg

@@ -657,7 +657,9 @@ def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
     # Mamba path's shape (8 slices of 8 heads), four groups of 4 heads, 12
     # heads in slices of 8 and 4, groups of 10 heads in slices of 8 and 2
     (4, 2048, 64, 64, 1, 128, 256), (1, 512, 16, 64, 4, 128, 256),
-    (1, 512, 12, 64, 1, 128, 256), (2, 768, 20, 64, 2, 128, 256)])
+    (1, 512, 12, 64, 1, 128, 256), (2, 768, 20, 64, 2, 128, 256),
+    # the Zamba2 path's full shape: state 64, the scalar kernel in bf16 too
+    (4, 2048, 80, 64, 1, 64, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
     x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=S + Q)
@@ -684,6 +686,7 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
     (torch.float32, TC_SHAPE, 64, 1, 0),      # float32: scalar kernel
     (torch.bfloat16, (32, 128, 256), 64, 1, 0),   # another head dim
     (torch.bfloat16, (64, 64, 256), 64, 1, 0),    # another state size
+    (torch.bfloat16, (64, 64, 256), 80, 1, 0),    # Zamba2-2.7B: scalar
     (torch.bfloat16, (64, 128, 128), 64, 1, 0),   # another chunk
 ])
 def test_ssd_head_slice_picks_the_kernel(dev, dtype, shape, heads, groups,
@@ -781,3 +784,84 @@ def test_ssd_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ssd_ops._FWD.load()
     assert "ssd_chunk" not in _build._LIBS
+
+
+def _smoke_step(cfg, params, batch, tree):
+    """Loss, per-leaf gradients and the AdamW step's metrics of one
+    ``make_train_step`` call on ``params`` (updated in place)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import StagedLM as _LM
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import tensors_of
+
+    model = _LM(cfg)
+    leaves = tensors_of(params)
+    loss = model.loss_fn(params, batch, tree=tree)
+    grads = torch.autograd.grad(loss, leaves)
+    metrics = make_train_step(model, AdamWConfig(lr=1e-3), tree)(
+        params, adamw_init(leaves), batch, 0)
+    return loss.item(), [g.cpu() for g in grads], metrics
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "moonshot-v1-16b-a3b"])
+def test_smoke_step_on_the_card_matches_the_cpu(dev, arch):
+    """One rotor-planned train step of the float32 smoke model (flash
+    attention, the SSD kernel, per-layer remat) on the card against the
+    same step on the CPU, where every wrapper takes its plain version: loss
+    rtol 1e-4, gradients and gradient norm rtol 1e-3 / atol 1e-4 (the
+    kernels' float32 tolerances are 1e-4 for K3 and 2e-4 for K6); the card
+    run launches K3 and K4 (and K6 for Zamba2)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import plan_training
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_config(arch, use_flash_attention=True, use_ssd_kernel=True,
+                       scan_layer_remat="full", logits_chunk=8)
+    model = StagedLM(cfg)
+    plan, _ = plan_training(model, input_specs(cfg, ShapeSpec(
+        "t", "train", 32, 2)), "rotor:x0.8", peak_flops=1e12)
+    cpu = model.init(0, "cpu")
+    card = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(),
+                    cpu)
+    data = SyntheticLMData(cfg, 2, 32, seed=0)
+    want = _smoke_step(cfg, cpu, data.device_batch(0, "cpu"), plan.tree)
+    counters.reset()
+    got = _smoke_step(cfg, card, data.device_batch(0, dev), plan.tree)
+    launched = counters.snapshot()
+    kernels = [flash_ops.NAME, rms_ops.NAME] + (
+        [ssd_ops.NAME] if arch.startswith("zamba") else [])
+    assert all(launched.get(k, 0) > 0 for k in kernels), launched
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got[2]["grad_norm"].item(),
+                               want[2]["grad_norm"].item(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "starcoder2-7b",
+                                  "qwen1.5-110b", "moonshot-v1-16b-a3b",
+                                  "zamba2-2.7b"])
+def test_published_chains_plan_alike_on_every_fill(dev, arch):
+    """``chip_smoke.py`` phase 8 for the newer archs: each published-depth
+    chain (batch 4 × 2048, profiled on meta tensors) planned under rotor at
+    its midpoint budget and under the offload policy between its floors
+    (a 1e10 B/s link) gives the same schedule on K1 (``cuda``) and K2/K5b
+    (``cuda_fused``) as on ``banded``; the offload policy on K5a too."""
+    from repro_torch.launch.steps import plan_training
+
+    cfg = get_config(arch, use_flash_attention=True)
+    model = StagedLM(cfg)
+    specs = input_specs(cfg, ShapeSpec("train", "train", 2048, 4))
+    chain = plan_chain(model, specs, 7e14)
+    low = solve_min_memory(chain).mem_limit
+    host = chain.with_host(HostTransferModel(bandwidth_d2h=1e10))
+    low3 = solve_min_device_memory(host).mem_limit
+    for policy in (f"rotor:{int((low + chain.store_all_peak()) / 2)}",
+                   f"optimal_offload:{int((low3 + low) / 2)}:1e10"):
+        want, _ = plan_training(model, specs, policy, impl="banded",
+                                chain=chain)
+        for impl in ("cuda", "cuda_fused"):
+            got, _ = plan_training(model, specs, policy, impl=impl,
+                                   chain=chain)
+            assert got.schedule.ops == want.schedule.ops, (policy, impl)

@@ -101,3 +101,24 @@ def test_run_training_plans_on_the_given_chain():
     assert out["chain"] is chain and out["plan"].chain is chain
     assert out["steps"][0]["fwd_bwd_peak_bytes"] is None
     assert np.isfinite(out["losses"][0])
+
+
+def test_measuring_a_chain_keeps_no_tensor_alive():
+    """``measure_chain`` counts saved tensors through a pack hook; once it
+    returns, nothing of the stages' graphs may outlive it: the parameters
+    and the batch are freed when the caller drops them (the hook's record
+    of saved tensors would otherwise form a cycle with the graph that the
+    garbage collector cannot see, holding every parameter)."""
+    import gc
+    import weakref
+
+    cfg = psmoke("qwen1.5-4b", **QWEN)
+    model = PLM(cfg)
+    params = model.init(0, "cpu")
+    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
+    refs = [weakref.ref(t) for t in (params["embed"]["table"],
+                                     params["head"]["kernel"])]
+    measure_chain(model, params, batch, repeats=1)
+    del params, batch
+    gc.collect()
+    assert all(r() is None for r in refs)

@@ -31,9 +31,10 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    split into bf16 hi + lo) against the plain version on the same values
    in f32 — at the Mamba path's full shape, a ragged sequence, heads that
    share a group, a group whose 12 heads do not fill whole slices of 8,
-   the Zamba2 path's full shape (state 64: the scalar kernel in bf16 too),
-   and the Mamba and Zamba2 paths' own layout (x, B, C as strided views
-   into the mixer's one xBC tensor);
+   the Zamba2 path's full shape (state 64: the tensor-core kernel in bf16
+   too, 80 heads in slices of 8), and the Mamba and Zamba2 paths' own
+   layout (x, B, C as strided views into the mixer's one xBC tensor); every
+   bf16 case must take the tensor-core kernel;
 5. timing: median of 20 CUDA-event runs of each kernel, its plain version and
    the PyTorch library call for the same function (none for the SSD and the
    fused DP fills), at the main paths' shapes (K1 and K5a as the per-band
@@ -68,12 +69,19 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
 8. planning with the other fill: the offload policy on the per-band kernel
    (K5a) and the rotor policy on the fused fill (K2) give the schedules the
    two training runs used;
-9. Mamba path: ``repro_torch.launch.train.main`` trains Mamba2-1.3B at full
-   width (d_model 2048, 64 SSM heads of 64, state 128, chunks of 256), cut
-   to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor plan solved
-   on the CUDA band-min kernel at the midpoint budget of its own chain, every
-   SSD forward on the hand-written kernel; then the rotor plan and
-   store-all agree within 1e-2 on one batch;
+9. Mamba path: Mamba2-1.3B at full width (d_model 2048, 64 SSM heads of
+   64, state 128, chunks of 256), cut to 8 layers, batch 4 × 2048 tokens:
+   its chain measured on real tensors (``launch.steps.measure_chain``,
+   printed stage by stage beside the analytic chain, sizes equal), then
+   ``run_training(chain=measured)`` trains 3 steps under the rotor plan
+   solved on the CUDA band-min kernel at the measured chain's midpoint
+   budget, every SSD forward on the hand-written kernel, its launches
+   counted over those steps alone (the counters reset just before
+   ``run_training``); per step the plan's predicted activation peak over
+   the measured one, over the forward and backward (less the parameter
+   gradients made by then; below 1 fails) and over the whole step, the
+   analytic chain's floors and predicted peak beside them; then the rotor
+   plan and store-all agree within 1e-2 on one batch;
 10. measure, plan, run (the paper's loop): the Qwen model of path 6 on
     real tensors — (a) its chain measured stage by stage
     (``launch.steps.measure_chain``: forward and backward times by CUDA
@@ -82,8 +90,9 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     equal to the analytic chain's; (b) ``run_training(chain=measured)``
     trains 3 steps under ``rotor:`` at the measured chain's midpoint budget
     on the CUDA band-min kernel, with the plan's predicted activation peak
-    beside the measured one (over the forward and backward, and over the
-    whole step), then rotor and store-all agree within 1e-2 on one batch;
+    beside the measured one (over the forward and backward, where below 1
+    fails, and over the whole step), then rotor and store-all agree within
+    1e-2 on one batch;
     (c) the trade-off of paper Figs 3–13 (``launch.tradeoff``): store-all,
     the best sequential segment count, ``revolve:B`` and ``rotor:B`` at
     0.45, 0.7 and 1.0 × the measured store-all peak, each through
@@ -92,16 +101,15 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     point's loss and gradient norm equal store-all's within 1e-2.  Then
     (a) and (c) again for the same model without its per-layer remat (the
     paper's setting: the planner is the only checkpointing);
-11. Zamba2 path: ``repro_torch.launch.train.main`` trains Zamba2-2.7B at
-    full width (d_model 2560, 80 SSM heads of 64, state 64, chunks of 256;
-    the shared attention+MLP block at 32 heads × 80 and d_ff 10240; vocab
-    32000), cut to 24 layers (4 periods of 6: 4 chunks, each opening with
-    the shared block, a 6-stage chain), batch 4 × 2048, 3 steps, flash
-    attention and the SSD kernel, under ``rotor:`` at its chain's midpoint
-    budget on the CUDA band-min kernel; it prints which K6 kernel the
-    launcher takes at state 64, must launch K1, K3, K4 and K6, and ends with
-    rotor and store-all agreeing within 1e-2 on one batch;
-12. MoE path: the same for moonshot-v1-16b-a3b at full width (d_model 2048,
+11. Zamba2 path: as path 9 (measured chain, ``run_training``), Zamba2-2.7B
+    at full width (d_model 2560, 80 SSM heads of 64, state 64, chunks of
+    256; the shared attention+MLP block at 32 heads × 80 and d_ff 10240;
+    vocab 32000), cut to 24 layers (4 periods of 6: 4 chunks, each opening
+    with the shared block, a 6-stage chain), batch 4 × 2048, 3 steps, flash
+    attention and the SSD kernel; the launcher must take the tensor-core
+    K6 kernel at state 64 in slices of 8 heads, and the steps must launch
+    K1, K3, K4 and K6;
+12. MoE path: as path 9, moonshot-v1-16b-a3b at full width (d_model 2048,
     16 heads × 128, a dense first layer of d_ff 11264, then 64 routed
     experts top-6 of d_ff 1408 and 2 shared ones, capacity factor 1.25;
     vocab 163840), cut to 4 layers, one a chunk (dense | moe | moe | moe, a
@@ -409,7 +417,7 @@ def main() -> int:
     from repro_torch.optim.adamw import global_norm
     from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
     from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
-    from repro_torch.tree import tensors_of, tree_bytes
+    from repro_torch.tree import tensors_of
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -785,13 +793,17 @@ def main() -> int:
 
     def ssd_kind(dtype, H, G, N=N):
         slice_ = ssd_ops.head_slice(dtype, P, N, Q, H, G)
+        if dtype == torch.bfloat16 and not slice_:
+            raise AssertionError(f"bf16 at (P, N, Q) = {(P, N, Q)}, {H} "
+                                 f"heads in {G} groups: the scalar kernel")
         return (f"tensor-core kernel, slices of {slice_} heads" if slice_
                 else "scalar kernel")
 
     ssd_err = {}
     # the Mamba path's shape, a ragged sequence, heads that share a group,
     # and a group of 12 heads: a slice of 8 and a ragged slice of 4 on the
-    # bf16 tensor-core kernel; then the Zamba2 path's shape, state 64
+    # bf16 tensor-core kernel; then the Zamba2 path's shape, state 64 (in
+    # bf16 the tensor-core kernel too, 80 heads in slices of 8)
     for (B, S, H, G_, N_) in ((BATCH, SEQ, Hs, G, N), (2, 1000, 8, G, N),
                               (1, 512, 8, 4, N), (1, 512, 12, 1, N),
                               (BATCH, SEQ, zHs, zG, zN)):
@@ -1085,8 +1097,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
         **rms_rows[0], "other_shapes": rms_rows[1:]})
 
-    # K6 at the Mamba path's shape (the row of the kernels line: the
-    # tensor-core kernel) and at the Zamba2 path's (state 64: the scalar one)
+    # K6 at the Mamba path's shape (the row of the kernels line) and at the
+    # Zamba2 path's (state 64), both on the tensor-core kernel
     B, S = BATCH, SEQ
     nc = S // Q
     ssd_rows = []
@@ -1127,8 +1139,10 @@ def main() -> int:
     say("[time] before the redesigns, quoted (not measured in this run): "
         "the earlier versions as this script timed them on an NVIDIA H100 "
         "80GB HBM3, 700.00 W, one call per event pair: flash_attention_fwd "
-        "5.7805 ms, rms_norm 0.0612 ms, ssd_chunk 2.1108 ms, "
-        "dp_band_min_two_tier 0.2258 ms against torch.amin 0.2067 ms")
+        "5.7805 ms, rms_norm 0.0612 ms, ssd_chunk 2.1108 ms (2.2180 ms, "
+        "2.1726 ms device time, at Zamba2's state 64 on the scalar "
+        "kernel), dp_band_min_two_tier 0.2258 ms against torch.amin "
+        "0.2067 ms")
     torch.cuda.empty_cache()
 
     # -- 6. rotor path ------------------------------------------------------------
@@ -1287,68 +1301,7 @@ def main() -> int:
     path_launches["planning"] = counters.snapshot()
 
     # -- 9. Mamba path --------------------------------------------------------------
-    def rotor_path(tag, arch, overrides, pcfg, what, kernels_run):
-        """Train ``arch`` with ``overrides`` through ``launch.train`` under
-        ``rotor:`` at its own chain's midpoint budget on the CUDA band-min
-        kernel, counting launches; every kernel named in ``kernels_run`` must
-        have launched; then the rotor plan and store-all agree on one
-        batch.  Returns the path's launch counts."""
-        pmodel = StagedLM(pcfg)
-        pchain = plan_chain(pmodel, input_specs(pcfg, ShapeSpec(
-            "train", "train", SEQ, BATCH)), peak_flops)
-        plow = solve_min_memory(pchain).mem_limit
-        phigh = pchain.store_all_peak()
-        pbudget = (plow + phigh) / 2
-        n_params = sum(t.numel()
-                       for t in tensors_of(pmodel.init(device="meta")))
-        say(f"[{tag}] {arch} cut to {pcfg.num_layers} layers: {n_params} "
-            f"parameters, {what}; chunks {pcfg.chunks}; chain "
-            f"L={pchain.length}: min-memory {plow:.6e} B, store-all "
-            f"{phigh:.6e} B, budget (midpoint) {int(pbudget)} B")
-        counters.reset()
-        out = train.main([
-            "--arch", arch, "--override", json.dumps(overrides),
-            "--global-batch", str(BATCH), "--seq-len", str(SEQ),
-            "--steps", str(STEPS), "--policy", f"rotor:{int(pbudget)}",
-            "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
-        launches = counters.snapshot()
-        plan = out["plan"]
-        say(f"[{tag}] schedule ops {json.dumps(plan.op_counts())}, "
-            f"predicted {plan.expected_time:.6e} s/step, predicted "
-            f"activation peak {plan.peak_device_mem:.6e} B")
-        for i, rec in enumerate(out["steps"]):
-            say(f"[{tag}] step {i}: loss {rec['loss']:.6f}, "
-                f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
-                f"measured activation peak {rec['activation_peak_bytes']} B "
-                f"on {card}")
-        if not all(math.isfinite(x) for x in out["losses"]):
-            raise AssertionError(f"non-finite loss: {out['losses']}")
-        for name in (dp_ops.NAME, *kernels_run):
-            if not launches.get(name):
-                raise AssertionError(f"the {tag} path never launched {name}")
-        say(f"[{tag}] launches: {launches[dp_ops.NAME]} dp band-min per "
-            f"plan, " + ", ".join(f"{launches[k] / STEPS:g} {k}"
-                                  for k in kernels_run) + " per step")
-        pbatch = SyntheticLMData(pcfg, BATCH, SEQ, seed=0).device_batch(0,
-                                                                        dev)
-
-        def plan_grads(params):
-            loss = pmodel.loss_fn(params, pbatch, tree=plan.tree)
-            return loss, torch.autograd.grad(loss, tensors_of(params))
-
-        same_results(f"{tag} rotor", out["params"], plan_grads, pmodel,
-                     pbatch)
-        del out, plan
-        torch.cuda.empty_cache()
-        return launches
-
-    path_launches["mamba"] = rotor_path(
-        "mamba", MAMBA_ARCH, MAMBA_OVERRIDES, mcfg,
-        f"d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state {N}, chunk "
-        f"{Q}", (ssd_ops.NAME, rms_ops.NAME))
-
-    # -- 10. measure, plan, run --------------------------------------------------
-    def show_measured(tag, model, params, analytic):
+    def show_measured(tag, model, params, analytic, batch=batch):
         """The chain of ``model`` measured on ``batch``, printed beside the
         analytic chain's times; its sizes must equal the analytic chain's."""
         t0 = time.perf_counter()
@@ -1374,6 +1327,102 @@ def main() -> int:
             "(np.array_equal)")
         return measured
 
+    def report_steps(tag, plan, steps):
+        """Per step, the plan's predicted activation peak over the measured
+        one, over the forward and backward and over the whole step; fails
+        if the plan under-predicts the forward and backward.  The measured
+        forward and backward leaves out the parameter gradients formed by
+        each point of it (``core.planner.grad_with_peaks``), as the
+        measured chain's ``ob`` does."""
+        pred = plan.peak_device_mem
+        for i, rec in enumerate(steps):
+            fb, whole = rec["fwd_bwd_peak_bytes"], rec["activation_peak_bytes"]
+            say(f"[{tag}] step {i}: loss {rec['loss']:.6f}, "
+                f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s; "
+                f"activation peak predicted {pred:.6e} B, measured {fb} B "
+                f"over the forward and backward (predicted / measured "
+                f"{pred / fb:.4f}), {whole} B over the whole step, the "
+                f"optimizer's temporaries included (predicted / measured "
+                f"{pred / whole:.4f}) on {card}")
+        if not all(math.isfinite(r["loss"]) for r in steps):
+            raise AssertionError(f"{tag}: non-finite loss")
+        say(f"[{tag}] predicted − measured over the forward and backward: "
+            f"{pred - steps[-1]['fwd_bwd_peak_bytes']:.0f} B on {card}")
+        worst = min(pred / r["fwd_bwd_peak_bytes"] for r in steps)
+        if worst < 1.0:
+            raise AssertionError(
+                f"{tag}: the plan under-predicts the forward and backward's "
+                f"activation peak (predicted / measured {worst:.4f} < 1)")
+
+    def rotor_path(tag, arch, overrides, pcfg, what, kernels_run):
+        """Measure the chain of ``arch`` (with ``overrides``) on real tensors
+        and train it for 3 steps through ``run_training(chain=measured)``
+        under ``rotor:`` at the measured chain's midpoint budget on the CUDA
+        band-min kernel, counting launches; the training steps must launch
+        every kernel named in ``kernels_run``, and the plan must not
+        under-predict their forward and backward's activation peak; then
+        the rotor plan and store-all agree on one batch.  The analytic
+        chain's floors and its plan's predicted peak are printed beside the
+        measured chain's.  Returns the path's launch counts."""
+        pmodel = StagedLM(pcfg)
+        pspecs = input_specs(pcfg, ShapeSpec("train", "train", SEQ, BATCH))
+        pchain = plan_chain(pmodel, pspecs, peak_flops)
+        alow = solve_min_memory(pchain).mem_limit
+        ahigh = pchain.store_all_peak()
+        n_params = sum(t.numel()
+                       for t in tensors_of(pmodel.init(device="meta")))
+        say(f"[{tag}] {arch} cut to {pcfg.num_layers} layers: {n_params} "
+            f"parameters, {what}; chunks {pcfg.chunks}")
+        aplan, _ = plan_training(pmodel, pspecs,
+                                 f"rotor:{int((alow + ahigh) / 2)}",
+                                 impl="banded", chain=pchain)
+        params = pmodel.init(0, dev)
+        pbatch = SyntheticLMData(pcfg, BATCH, SEQ, seed=0).device_batch(0,
+                                                                        dev)
+        measured = show_measured(f"{arch}, {tag} path", pmodel, params,
+                                 pchain, pbatch)
+        plow = solve_min_memory(measured).mem_limit
+        phigh = measured.store_all_peak()
+        pbudget = (plow + phigh) / 2
+        say(f"[{tag}] measured chain L={measured.length}: min-memory "
+            f"{plow:.6e} B, store-all {phigh:.6e} B, budget (midpoint) "
+            f"{int(pbudget)} B; analytic chain: min-memory {alow:.6e} B, "
+            f"store-all {ahigh:.6e} B, its plan's predicted activation peak "
+            f"at its own midpoint {aplan.peak_device_mem:.6e} B on {card}")
+        counters.reset()
+        out = run_training(pcfg, TrainLoopConfig(
+            steps=STEPS, global_batch=BATCH, seq_len=SEQ,
+            policy=f"rotor:{int(pbudget)}", solver_impl="cuda", log_every=1),
+            device=dev, params=params, chain=measured, log_fn=say)
+        run = counters.snapshot()
+        plan = out["plan"]
+        say(f"[{tag}] schedule ops {json.dumps(plan.op_counts())}, "
+            f"predicted {plan.expected_time:.6e} s/step, predicted "
+            f"activation peak {plan.peak_device_mem:.6e} B")
+        report_steps(tag, plan, out["steps"])
+        for name in (dp_ops.NAME, *kernels_run):
+            if not run.get(name):
+                raise AssertionError(f"the {tag} path never launched {name}")
+        say(f"[{tag}] launches: {run[dp_ops.NAME]} dp band-min per plan, "
+            + ", ".join(f"{run[k] / STEPS:g} {k}" for k in kernels_run)
+            + " per step")
+
+        def plan_grads(params):
+            loss = pmodel.loss_fn(params, pbatch, tree=plan.tree)
+            return loss, torch.autograd.grad(loss, tensors_of(params))
+
+        same_results(f"{tag} rotor", out["params"], plan_grads, pmodel,
+                     pbatch)
+        del out, plan, params, measured
+        torch.cuda.empty_cache()
+        return run
+
+    path_launches["mamba"] = rotor_path(
+        "mamba", MAMBA_ARCH, MAMBA_OVERRIDES, mcfg,
+        f"d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state {N}, chunk "
+        f"{Q}", (ssd_ops.NAME, rms_ops.NAME))
+
+    # -- 10. measure, plan, run --------------------------------------------------
     def tradeoff(tag, model, params, measured):
         """The trade-off on ``measured``; every point's loss and gradient
         norm must equal store-all's within 1e-2."""
@@ -1409,26 +1458,7 @@ def main() -> int:
     say(f"[measured] schedule ops {json.dumps(plan.op_counts())}, predicted "
         f"{plan.expected_time:.6e} s/step, predicted activation peak "
         f"{plan.peak_device_mem:.6e} B")
-    for i, rec in enumerate(out["steps"]):
-        fb = rec["fwd_bwd_peak_bytes"]
-        say(f"[measured] step {i}: loss {rec['loss']:.6f}, "
-            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s; "
-            f"activation peak predicted {plan.peak_device_mem:.6e} B, "
-            f"measured {fb} B over the forward and backward (predicted / "
-            f"measured {plan.peak_device_mem / fb:.4f}), "
-            f"{rec['activation_peak_bytes']} B over the whole step, the "
-            f"optimizer's temporaries included (predicted / measured "
-            f"{plan.peak_device_mem / rec['activation_peak_bytes']:.4f}) on "
-            f"{card}")
-    if not all(math.isfinite(x) for x in out["losses"]):
-        raise AssertionError(f"non-finite loss: {out['losses']}")
-    # the measured figure leaves out every parameter gradient; at the head's
-    # backward those of stages 1..L do not exist yet
-    say(f"[measured] predicted − measured over the forward and backward: "
-        f"{plan.peak_device_mem - out['steps'][-1]['fwd_bwd_peak_bytes']:.0f}"
-        f" B; parameter gradients of stages 1..{measured.length} (all but "
-        f"the head's): {tree_bytes(model.stage_params(params)[:-1])} B on "
-        f"{card}")
+    report_steps("measured", plan, out["steps"])
 
     def measured_grads(params):
         loss = model.loss_fn(params, batch, tree=plan.tree)
@@ -1459,10 +1489,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11. Zamba2 path ------------------------------------------------------------
+    zslice = ssd_ops.head_slice(torch.bfloat16, P, zN, Q, zHs, zG)
     say(f"[zamba] K6 at state {zN}: the launcher takes the "
         f"{ssd_kind(torch.bfloat16, zHs, zG, zN)} for bf16 x "
         f"({BATCH},{SEQ},{zHs},{P}), B/C ({BATCH},{SEQ},{zG},{zN}), chunk "
         f"{Q} (ssd/ops.py::head_slice)")
+    if zslice != 8:
+        raise AssertionError(f"K6 at state {zN}: slices of {zslice} heads, "
+                             f"not the tensor-core kernel's 8")
     path_launches["zamba"] = rotor_path(
         "zamba", ZAMBA_ARCH, ZAMBA_OVERRIDES, zcfg,
         f"d_model {zcfg.d_model}, {zHs} SSM heads of {P}, state {zN}, chunk "

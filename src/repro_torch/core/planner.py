@@ -145,6 +145,80 @@ def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
                       wa=wa, wabar=wabar, host=host)
 
 
+def _grad_consumers(outputs: Sequence[torch.Tensor],
+                    params: Sequence[torch.Tensor]) -> Dict[Any, list]:
+    """The nodes of the graph behind ``outputs`` that return a gradient for
+    one of ``params``: ``{node: [(output slot, index into params)]}``."""
+    index = {id(p): i for i, p in enumerate(params)}
+    found = {}
+    seen = {o.grad_fn for o in outputs if o.grad_fn is not None}
+    stack = list(seen)
+    while stack:
+        node = stack.pop()
+        for slot, (nxt, _) in enumerate(node.next_functions):
+            if nxt is None:
+                continue
+            var = getattr(nxt, "variable", None)
+            if var is not None:
+                if id(var) in index:
+                    found.setdefault(node, []).append((slot, index[id(var)]))
+            elif nxt not in seen:
+                seen.add(nxt)
+                stack.append(nxt)
+    return found
+
+
+def grad_with_peaks(outputs: Sequence[torch.Tensor],
+                    inputs: Sequence[torch.Tensor],
+                    grad_outputs: Optional[Sequence[torch.Tensor]] = None,
+                    params: Sequence[torch.Tensor] = (),
+                    allow_unused: bool = False) -> tuple:
+    """``torch.autograd.grad(outputs, inputs, grad_outputs,
+    allow_unused=allow_unused)`` with, on CUDA, two readings of the
+    allocator over the span since its peak counter was last reset:
+    ``(grads, peak, activation_peak)``.  ``peak`` is its peak;
+    ``activation_peak`` the peak of the bytes allocated less the gradients
+    of ``params`` formed by then, which the activation budget leaves out.
+    A parameter's gradient counts as formed once the first node that
+    returns a share of it has returned (later shares are summed into it):
+    the peak of each span between two such nodes is read and the counter
+    reset, so a gradient weighs on the span in which it was made and is
+    left out after it.  A gradient not yet made at the peak is not
+    subtracted.  Off CUDA both readings are ``None``."""
+    dev = outputs[0].device
+    if dev.type != "cuda":
+        return (torch.autograd.grad(outputs, inputs, grad_outputs,
+                                    allow_unused=allow_unused), None, None)
+    sizes = [p.numel() * p.element_size() for p in params]
+    formed, state = set(), {"grads": 0, "peak": 0, "act": 0}
+
+    def close_span():
+        peak = torch.cuda.max_memory_allocated(dev)
+        state["peak"] = max(state["peak"], peak)
+        state["act"] = max(state["act"], peak - state["grads"])
+
+    def hook_for(slots):
+        def hook(grad_inputs, _grad_outputs):
+            close_span()
+            for slot, i in slots:
+                if grad_inputs[slot] is not None and i not in formed:
+                    formed.add(i)
+                    state["grads"] += sizes[i]
+            torch.cuda.reset_peak_memory_stats(dev)
+        return hook
+
+    handles = [node.register_hook(hook_for(slots)) for node, slots
+               in _grad_consumers(outputs, params).items()]
+    try:
+        grads = torch.autograd.grad(outputs, inputs, grad_outputs,
+                                    allow_unused=allow_unused)
+    finally:
+        for h in handles:
+            h.remove()
+    close_span()
+    return grads, state["peak"], state["act"]
+
+
 def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
     """One forward under grad and one backward of a stage on real tensors:
     ``(forward s, backward s, forward transient B, backward transient B)``.
@@ -153,9 +227,9 @@ def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
     the peak allocator count is reset before each op: the forward's
     transient is its peak less the memory after it (the memory before it
     plus what it leaves live: output and saved tensors); the backward's is
-    its peak less the memory before it (``ā``, ``δ`` and the input live) and
-    less the parameter gradients it returns, which the activation budget
-    leaves out.  Off CUDA both are 0."""
+    its peak less the memory before it (``ā``, ``δ`` and the input live),
+    the parameter gradients formed by then left out
+    (:func:`grad_with_peaks`).  Off CUDA both are 0."""
     cuda = dev.type == "cuda"
     inp = _fresh_input(a)
     if cuda:
@@ -183,12 +257,12 @@ def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
         ev[2].record()
     else:
         t2 = time.perf_counter()
-    grads = torch.autograd.grad(outs, ins + ps, cotangents, allow_unused=True)
+    _, _, act_peak = grad_with_peaks(outs, ins + ps, cotangents, ps,
+                                     allow_unused=True)
     if not cuda:
         return t1 - t0, time.perf_counter() - t2, 0, 0
     ev[3].record()
-    b_transient = (torch.cuda.max_memory_allocated(dev) - before
-                   - tree_bytes([g for g in grads[len(ins):] if g is not None]))
+    b_transient = act_peak - before
     ev[3].synchronize()
     return (ev[0].elapsed_time(ev[1]) * 1e-3, ev[2].elapsed_time(ev[3]) * 1e-3,
             max(f_transient, 0), max(b_transient, 0))

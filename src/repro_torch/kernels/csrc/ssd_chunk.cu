@@ -15,18 +15,21 @@
 // S is a multiple of Q (the wrapper pads).
 //
 // Bound: bytes.  At B = 4, S = 2048, H = 64, P = 64, N = 128, Q = 256, G = 1
-// with x, B, C in bf16 the function moves 274,726,912 B per call (x 67.1 MB,
-// dt 2.1 MB, B and C 2.1 MB each, y_diag 134.2 MB and the states 67.1 MB
-// written), 0.082 ms at 3.35 TB/s, against ~35 GFLOP of causal products
-// (0.035 ms at the bf16 tensor-core rate).
+// with x, B, C in bf16 (Mamba2-1.3B) the function moves 274,726,912 B per
+// call (x 67.1 MB, dt 2.1 MB, B and C 2.1 MB each, y_diag 134.2 MB and the
+// states 67.1 MB written), 0.082 ms at 3.35 TB/s, against ~35 GFLOP of
+// causal products (0.035 ms at the bf16 tensor-core rate); at Zamba2-2.7B's
+// H = 80, N = 64 it moves 298,320,192 B (0.0891 ms), the states half as
+// wide per head.
 //
 // Two kernels; ssd_chunk_fwd picks one, as ssd_chunk_head_slice says:
 //
-// - ssd_chunk_mma (namespace tc): bf16 x, B, C at P = 64, N = 128, Q = 256,
-//   the main path, on the tensor cores (mma.sync.m16n8k16, bf16 operands,
-//   float32 accumulators).  A block of 8 warps owns (batch, chunk, group,
-//   a slice of at most 8 of the group's heads, one of two halves of the
-//   chunk's work):
+// - ssd_chunk_mma<N> (namespace tc): bf16 x, B, C at P = 64, Q = 256 and a
+//   state N of 64 or 128 (one template, instantiated for both), the main
+//   path, on the tensor cores (mma.sync.m16n8k16, bf16 operands, float32
+//   accumulators).  A block of 8 warps owns (batch, chunk, group, a slice
+//   of at most 8 of the group's heads, one of two halves of the chunk's
+//   work):
 //     * C . B^T does not depend on the head, so the block computes the
 //       group's causal score tiles once (16 x 16 tiles, K = N) and keeps
 //       them in shared memory as float32, in the accumulator's own register
@@ -40,22 +43,33 @@
 //       into W_hi = bf16(W) and W_lo = bf16(W - W_hi); y += W_hi x + W_lo x.
 //       Products of bf16 values are exact in float32, so the split keeps
 //       W to ~2^-17 relative, far inside the 2e-4 check; one bf16 W alone
-//       (2^-9) would not be;
-//     * warps 4-7 own the state's columns n of this half (64 of 128), one
+//       (2^-9) would not be, at either N;
+//     * warps 4-7 own the state's columns n of this half (N / 2 of N), one
 //       16-row strip of p each: state += (x * s)^T B over the chunk, with
-//       s_j = exp(cs_{Q-1} - cs_j) dt_j folded into x (64 columns, cheaper
-//       than B's 128) and split the same way;
+//       s_j = exp(cs_{Q-1} - cs_j) dt_j folded into x (64 columns, no
+//       wider than B's N) and split the same way;
 //     * x tiles (one head, 256 x 64 bf16) arrive by cp.async into a ring of
 //       two buffers: the next head's tile loads while this head computes.
-//       B and C land once per block.  All tiles are stored with an XOR
-//       swizzle of their 16-byte chunks, so ldmatrix reads are free of bank
-//       conflicts;
-//     * y and the states (201 MB of the 275 MB moved) leave registers as
-//       8-byte stores that fill whole 32-byte sectors.
-//   mma.sync rather than wgmma: the bytes, not the ~35 GFLOP of products,
-//   bound the function, and the warp-level instruction needs no shared-
-//   memory descriptors or warpgroup-wide ordering; each warp forms, masks
-//   and splits its W fragments in registers and feeds them straight in.
+//       B and C land once per block; C (the half's 128 rows, N / 8 chunks
+//       of 16 bytes a row) fits in the second x buffer.  All tiles are
+//       stored with an XOR swizzle of their 16-byte chunks (8 a row at
+//       N = 64 and for x, 16 at N = 128), so ldmatrix reads are free of
+//       bank conflicts;
+//     * y and the states (201 MB of the 275 MB moved at N = 128) leave
+//       registers as 8-byte stores that fill whole 32-byte sectors.
+//   At N = 64 the y warps' work is the same as at N = 128 (it depends on
+//   Q and P only) while the state warps' halves to 32 columns (4 n-tiles):
+//   the state warps idle part of each head.  The column halving is kept
+//   all the same: the halves must split the y rows anyway (one block's
+//   scores for the whole chunk would need twice the shared memory), and
+//   giving state warps y tiles would break the strip pairing that balances
+//   the y warps.  Shared memory is 220 KB a block at N = 128 and 188 KB at
+//   N = 64, so one block runs per SM at both (a second would need 114 KB;
+//   State asserts it).
+//   mma.sync rather than wgmma: the bytes, not the products, bound the
+//   function, and the warp-level instruction needs no shared-memory
+//   descriptors or warpgroup-wide ordering; each warp forms, masks and
+//   splits its W fragments in registers and feeds them straight in.
 // - ssd_chunk_kernel: float32 inputs, and bf16 at other shapes: float32
 //   FMAs on the CUDA cores.  Each block of 256 threads computes the chunk's
 //   cumulative sum (a warp-shuffle scan), then one 64-row tile of y_diag or
@@ -305,24 +319,33 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at (P, N, Q) = (64, 128, 256): mma.sync on the tensor cores.
+// bf16 at (P, Q) = (64, 256), N = 64 or 128: mma.sync on the tensor cores.
 namespace tc {
 
-constexpr int kQ = 256, kP = 64, kN = 128;
+constexpr int kQ = 256, kP = 64;
 constexpr int kThreads = 256;                 // 8 warps; one thread per step
 constexpr int kMaxSlice = 8;                  // heads per block, at most
 constexpr int kTiles = kQ / 16 + 1;           // score tiles of one y warp
-constexpr int kRowB = kN * 2;                 // bytes of a B or C row
 constexpr int kRowX = kP * 2;                 // bytes of an x row
-constexpr int kBBytes = kQ * kRowB;           // B: all Q rows
 constexpr int kXBytes = kQ * kRowX;           // x: one head, all Q rows
 constexpr int kSBytes = 4 * kTiles * 32 * 8 * 4;  // score tiles, float32
 constexpr int kVecBytes = 3 * kMaxSlice * kQ * 4;  // cs, dt, state scale
+
+// What the state size N sets: the B and C rows and the shared memory.
 // B | x ring (2) | scores | vectors; C (8 strips of 16 rows) shares the
-// second x buffer, which is first written after the scores are done
-constexpr int kSmem = kBBytes + 2 * kXBytes + kSBytes + kVecBytes;
-static_assert(8 * 16 * kRowB == kXBytes, "C fills one x buffer");
-static_assert(kSmem <= 232448, "shared memory of one block");
+// second x buffer, which is first written after the scores are done.
+template <int kN>
+struct State {
+  static constexpr int kRowB = kN * 2;        // bytes of a B or C row
+  static constexpr int kChunks = kRowB / 16;  // its 16-byte chunks
+  static constexpr int kBBytes = kQ * kRowB;  // B: all Q rows
+  static constexpr int kSmem = kBBytes + 2 * kXBytes + kSBytes + kVecBytes;
+  static_assert(kN == 64 || kN == 128, "built for N = 64 and 128");
+  static_assert(8 * 16 * kRowB <= kXBytes, "C fits in one x buffer");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+  // Hopper: 228 KB of shared memory an SM, 1 KB of it reserved per block
+  static_assert(2 * (kSmem + 1024) > 233472, "one block per SM");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -409,6 +432,7 @@ __device__ __forceinline__ int strip_lo(int half, int w) {
   return 4 * half + w;
 }
 
+template <int kN>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
               const float* __restrict__ dt, const float* __restrict__ A,
@@ -417,6 +441,9 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
               float* __restrict__ states, int seqlen, int heads, int groups,
               int slice, int n_slices, Layout lx, Layout ldt, Layout lb,
               Layout lc) {
+  constexpr int kRowB = State<kN>::kRowB, kChunks = State<kN>::kChunks;
+  constexpr int kBBytes = State<kN>::kBBytes;
+  constexpr int kNT = kN / 16;  // 8-column n-tiles of a half's state
   extern __shared__ __align__(128) uint8_t tc_smem[];
   uint8_t* s_b = tc_smem;
   uint8_t* s_x = s_b + kBBytes;                 // two buffers
@@ -459,12 +486,12 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
   };
 
   // B (all rows), C (the rows of this half's strips), x of the first head
-  for (int k = tid; k < kQ * (kRowB / 16); k += kThreads) {
-    const int row = k >> 4, ch = k & 15;
+  for (int k = tid; k < kQ * kChunks; k += kThreads) {
+    const int row = k / kChunks, ch = k % kChunks;
     cp_async16(a_b + swz(row, ch, kRowB), bb + row * lb.s + 8 * ch);
   }
-  for (int k = tid; k < 128 * (kRowB / 16); k += kThreads) {
-    const int lr = k >> 4, ch = k & 15;           // local strip lr / 16
+  for (int k = tid; k < 128 * kChunks; k += kThreads) {
+    const int lr = k / kChunks, ch = k % kChunks;  // local strip lr / 16
     const int cl = lr >> 4, lo = strip_lo(half, cl >> 1);
     const int strip = (cl & 1) ? kQ / 16 - 1 - lo : lo;
     cp_async16(a_c + swz(lr, ch, kRowB),
@@ -607,11 +634,11 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
         }
       }
     } else {
-      // the state's rows p = 16 k .. 16 k + 15, columns 64 half .. + 63
+      // the state's rows p = 16 k .. 16 k + 15, columns N / 2 half .. + N / 2
       const int k = warp - 4;
       const float* ssh = sst + hl * kQ;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < kNT; ++n)
         acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll 2
       for (int ks = 0; ks < kQ / 16; ++ks) {
@@ -630,9 +657,10 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
         }
         const int brow = 16 * ks + (mi & 1) * 8 + rr;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
+        for (int m = 0; m < kNT / 2; ++m) {
           uint32_t fb[4];
-          ldsm_x4_t(fb, a_b + swz(brow, 8 * half + 2 * m + (mi >> 1), kRowB));
+          ldsm_x4_t(fb, a_b + swz(brow, (kChunks / 2) * half + 2 * m +
+                                            (mi >> 1), kRowB));
           mma(acc[2 * m], xl, fb[0], fb[1]);
           mma(acc[2 * m], xh, fb[0], fb[1]);
           mma(acc[2 * m + 1], xl, fb[2], fb[3]);
@@ -640,10 +668,10 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
         }
       }
       float* s0 = states + (((int64_t)b * nc + c) * heads + h) * kP * kN +
-                  (16 * k + g) * kN + 64 * half + 2 * q;
+                  (16 * k + g) * kN + (kN / 2) * half + 2 * q;
       float* s1 = s0 + 8 * kN;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kNT; ++n) {
         *reinterpret_cast<float2*>(s0 + 8 * n) =
             make_float2(acc[n][0], acc[n][1]);
         *reinterpret_cast<float2*>(s1 + 8 * n) =
@@ -654,28 +682,38 @@ ssd_chunk_mma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// the shared-memory opt-in of ssd_chunk_mma<kN>, once per device (the
+// first 64 devices)
+template <int kN>
+cudaError_t opt_in() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static uint64_t opted_in = 0;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(opted_in & bit)) {
+    e = cudaFuncSetAttribute(ssd_chunk_mma<kN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             State<kN>::kSmem);
+    if (e != cudaSuccess) return e;
+    opted_in |= bit;
+  }
+  return cudaSuccess;
+}
+
+template <int kN>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* bm, const void* cm, void* y, void* states,
                    int batch, int seqlen, int heads, int groups, int slice,
                    const Layout* layouts, cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in<kN>();
   if (e != cudaSuccess) return e;
-  // the shared-memory opt-in, once per device (the first 64 devices)
-  static uint64_t opted_in = 0;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(opted_in & bit)) {
-    e = cudaFuncSetAttribute(ssd_chunk_mma,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-    if (e != cudaSuccess) return e;
-    opted_in |= bit;
-  }
   const int n_slices = (heads / groups + slice - 1) / slice;
   const int64_t blocks =
       (int64_t)batch * (seqlen / kQ) * groups * n_slices * 2;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  ssd_chunk_mma<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(
+  ssd_chunk_mma<kN><<<static_cast<unsigned>(blocks), kThreads,
+                      State<kN>::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(bm),
       static_cast<const __nv_bfloat16*>(cm), static_cast<float*>(y),
@@ -701,14 +739,14 @@ bool aligned(const void* const* bases, const Layout* layouts) {
 
 }  // namespace
 
-// The kernel a launch takes: bf16 at (P, N, Q) = (64, 128, 256) the
-// tensor-core kernel, with at most kMaxSlice heads of a group a block (the
-// returned slice; the last slice of a group is shorter when it does not
-// divide the group's heads); anything else the scalar kernel (0).
+// The kernel a launch takes: bf16 at (P, Q) = (64, 256) and N = 64 or 128
+// the tensor-core kernel, with at most kMaxSlice heads of a group a block
+// (the returned slice; the last slice of a group is shorter when it does
+// not divide the group's heads); anything else the scalar kernel (0).
 extern "C" int ssd_chunk_head_slice(int is_bf16, int head_dim, int state_dim,
                                     int chunk, int heads, int groups) {
-  if (!is_bf16 || head_dim != tc::kP || state_dim != tc::kN ||
-      chunk != tc::kQ || groups < 1 || heads < groups)
+  if (!is_bf16 || head_dim != tc::kP || (state_dim != 64 && state_dim != 128)
+      || chunk != tc::kQ || groups < 1 || heads < groups)
     return 0;
   return heads / groups < tc::kMaxSlice ? heads / groups : tc::kMaxSlice;
 }
@@ -737,9 +775,12 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
   if (slice > 0) {
     const void* bases[3] = {x, bm, cm};
     if (!tc::aligned(bases, layouts)) return kMisalignedRows;
-    return static_cast<int>(tc::launch(x, dt, A, bm, cm, y, states, batch,
-                                       seqlen, heads, groups, slice, layouts,
-                                       st));
+    return static_cast<int>(
+        state_dim == 64
+            ? tc::launch<64>(x, dt, A, bm, cm, y, states, batch, seqlen,
+                             heads, groups, slice, layouts, st)
+            : tc::launch<128>(x, dt, A, bm, cm, y, states, batch, seqlen,
+                              heads, groups, slice, layouts, st));
   }
   cudaError_t e =
       is_bf16 ? launch<__nv_bfloat16>(x, dt, A, bm, cm, y, states, batch,

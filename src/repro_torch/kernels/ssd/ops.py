@@ -2,10 +2,11 @@
 
 :func:`ssd_chunk_blocks` launches the kernel on CUDA tensors and returns the
 plain :func:`.ref.chunk_terms` on any other device.  The C launcher picks
-the kernel: bf16 x, B, C at Mamba2's (P, N, Q) = (64, 128, 256) take the
-tensor-core kernel, which shares each group's C·Bᵀ among a slice of the
-group's heads; float32, and bf16 at other shapes, take the scalar kernel.
-:func:`head_slice` asks the library which one a call would take.
+the kernel: bf16 x, B, C at (P, Q) = (64, 256) with a state N of 128
+(Mamba2) or 64 (Zamba2) take the tensor-core kernel, which shares each
+group's C·Bᵀ among a slice of the group's heads; float32, and bf16 at other
+shapes, take the scalar kernel.  :func:`head_slice` asks the library which
+one a call would take.
 
 :func:`ssd_chunked` is differentiable: its forward pads time to whole chunks,
 runs the within-chunk terms through :func:`ssd_chunk_blocks` and the short

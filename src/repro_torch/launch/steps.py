@@ -10,7 +10,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..core.chain import Chain, HostTransferModel
-from ..core.planner import profile_stages_analytic, profile_stages_measured
+from ..core.planner import (grad_with_peaks, profile_stages_analytic,
+                            profile_stages_measured)
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
@@ -104,13 +105,17 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     ``grad_accum > 1`` splits the batch along its leading axis into
     microbatches and accumulates float32 gradients before the step.  On
     CUDA, ``metrics["grads_peak"]`` is the allocator's peak before the
-    optimizer runs."""
+    optimizer runs and, with one microbatch, ``metrics["act_peak"]`` that
+    peak less the parameter gradients formed by then
+    (``core.planner.grad_with_peaks``)."""
 
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
+        act_peak = None
         if grad_accum == 1:
             loss = model.loss_fn(params, batch, tree=tree)
-            grads = torch.autograd.grad(loss, leaves)
+            grads, grads_peak, act_peak = grad_with_peaks([loss], leaves,
+                                                          params=leaves)
         else:
             n = batch["tokens"].shape[0]
             if n % grad_accum:
@@ -131,10 +136,11 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
             loss = lsum / grad_accum
             grads = [(s / grad_accum).to(p.dtype)
                      for s, p in zip(gsum, leaves)]
-        grads_peak = _peak_allocated(leaves)
+            grads_peak = _peak_allocated(leaves)
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
-        metrics.update(loss=loss.detach(), grads_peak=grads_peak)
+        metrics.update(loss=loss.detach(), grads_peak=grads_peak,
+                       act_peak=act_peak)
         return metrics
 
     return train_step

@@ -55,9 +55,11 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     the step's allocator peak less parameters, gradients and moments, the
     optimizer's temporaries included; ``fwd_bwd_peak_bytes`` the peak of
     the loss and gradients alone above the memory at the step's start, less
-    the parameter gradients — what the plan's predicted activation peak
-    describes.  Both are ``None`` off CUDA, the host fields ``None`` without
-    offloads.  A loss that is not finite raises ``FloatingPointError``."""
+    the parameter gradients formed by then (every parameter gradient on
+    the offload step and with ``grad_accum`` > 1) — what the plan's
+    predicted activation peak describes.  Both are ``None`` off CUDA, the
+    host fields ``None`` without offloads.  A loss that is not finite
+    raises ``FloatingPointError``."""
     dev = resolve_device(device)
     model = StagedLM(cfg)
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
@@ -111,16 +113,21 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         if cuda:
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated(dev) - static_bytes
-                if cuda else None)
+        # the forward and backward's spans reset the peak counter
+        peak = (max(torch.cuda.max_memory_allocated(dev),
+                    metrics["grads_peak"]) - static_bytes if cuda else None)
         if not math.isfinite(loss):
             raise FloatingPointError(f"step {step}: loss {loss}")
         losses.append(loss)
         rec = {"loss": loss, "seconds": seconds,
                "tokens_per_s": tokens / seconds,
                "activation_peak_bytes": peak,
-               "fwd_bwd_peak_bytes": (metrics["grads_peak"] - before
-                                      - param_bytes if cuda else None)}
+               "fwd_bwd_peak_bytes": None}
+        if cuda:
+            rec["fwd_bwd_peak_bytes"] = (
+                metrics["act_peak"] - before
+                if metrics.get("act_peak") is not None
+                else metrics["grads_peak"] - before - param_bytes)
         for key in ("host_peak_bytes", "host_bytes_after", "prefetch_wait_s"):
             rec[key] = metrics.get(key)
         records.append(rec)

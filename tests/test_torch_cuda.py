@@ -38,7 +38,8 @@ from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core import dp_kernels  # noqa: E402
 from repro_torch.core.chain import Chain, HostTransferModel  # noqa: E402
 from repro_torch.core.executor import reference_grads  # noqa: E402
-from repro_torch.core.planner import (measure_host_bandwidth,  # noqa: E402
+from repro_torch.core.planner import (grad_with_peaks,  # noqa: E402
+                                      measure_host_bandwidth,
                                       profile_stages_measured)
 from repro_torch.core.schedule import Schedule  # noqa: E402
 from repro_torch.core.solver import solve_min_memory  # noqa: E402
@@ -474,6 +475,26 @@ def test_measured_transients_recover_known_temporaries(dev):
     assert chain.ob[0] == bwd_bytes + nbytes
 
 
+def test_grad_with_peaks_subtracts_only_gradients_already_made(dev):
+    """The backward's peak lies in ``_Transient``'s backward.  A parameter
+    gradient made after it (``x · w`` below the temporary) is not
+    subtracted from the activation peak; one made before it (``· w``
+    above) is.  All sizes are multiples of 512 B in the small pool."""
+    tmp_bytes, n = 512 * 1000, 512 * 64       # temporary > a gradient
+    x = torch.randn(n, device=dev, requires_grad=True)
+    w = torch.randn(n, device=dev, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = _Transient.apply(x * w, 0, tmp_bytes).sum()
+    _, peak, act = grad_with_peaks([loss], [w], params=[w])
+    assert act == peak
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = (_Transient.apply(x, 0, tmp_bytes) * w).sum()
+    grads, peak, act = grad_with_peaks([loss], [w, x], params=[w])
+    assert act == peak - n * 4
+    assert torch.equal(grads[0], x.detach())
+
+
 @pytest.mark.parametrize("policy", ["rotor:x0.6", "optimal_offload:x0.4:1.0"])
 def test_bound_plan_on_cuda_matches_reference_grads(dev, policy):
     L = 6
@@ -653,12 +674,12 @@ def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
     (2, 24, 4, 16, 1, 16, 8), (2, 24, 4, 16, 2, 16, 8),
     (1, 160, 4, 8, 1, 32, 64), (1, 160, 4, 8, 2, 32, 64),   # ragged S
     (2, 512, 4, 64, 1, 128, 256), (1, 600, 4, 64, 2, 128, 256),
-    # bf16 takes the tensor-core kernel at (P, N, Q) = (64, 128, 256): the
-    # Mamba path's shape (8 slices of 8 heads), four groups of 4 heads, 12
-    # heads in slices of 8 and 4, groups of 10 heads in slices of 8 and 2
+    # bf16 takes the tensor-core kernel at (P, Q) = (64, 256), N = 128 or
+    # 64: the Mamba path's shape (8 slices of 8 heads), four groups of 4
+    # heads, 12 heads in slices of 8 and 4, groups of 10 heads in slices of
+    # 8 and 2, and the Zamba2 path's full shape (state 64, 10 slices of 8)
     (4, 2048, 64, 64, 1, 128, 256), (1, 512, 16, 64, 4, 128, 256),
     (1, 512, 12, 64, 1, 128, 256), (2, 768, 20, 64, 2, 128, 256),
-    # the Zamba2 path's full shape: state 64, the scalar kernel in bf16 too
     (4, 2048, 80, 64, 1, 64, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
@@ -685,8 +706,9 @@ def test_ssd_kernel_matches_plain(dev, B, S, H, P, G, N, Q, dtype):
     (torch.bfloat16, TC_SHAPE, 8, 4, 2),      # one slice of each group
     (torch.float32, TC_SHAPE, 64, 1, 0),      # float32: scalar kernel
     (torch.bfloat16, (32, 128, 256), 64, 1, 0),   # another head dim
-    (torch.bfloat16, (64, 64, 256), 64, 1, 0),    # another state size
-    (torch.bfloat16, (64, 64, 256), 80, 1, 0),    # Zamba2-2.7B: scalar
+    (torch.bfloat16, (64, 64, 256), 64, 1, 8),    # state 64: slices of 8
+    (torch.bfloat16, (64, 64, 256), 80, 1, 8),    # Zamba2-2.7B: 10 of 8
+    (torch.bfloat16, (64, 32, 256), 64, 1, 0),    # another state size
     (torch.bfloat16, (64, 128, 128), 64, 1, 0),   # another chunk
 ])
 def test_ssd_head_slice_picks_the_kernel(dev, dtype, shape, heads, groups,
@@ -708,8 +730,9 @@ def test_ssd_tensor_core_kernel_rejects_unaligned_rows(dev):
 
 
 def test_ssd_tensor_core_kernel_holds_tensor_core_instructions(dev):
-    """The bf16 kernel of the built library runs its products as HMMA (or
-    HGMMA) instructions, as cuobjdump's SASS shows."""
+    """Both instantiations of the bf16 kernel in the built library (state
+    64 and 128) run their products as HMMA (or HGMMA) instructions, as
+    cuobjdump's SASS shows."""
     from repro_torch.kernels import _build
 
     ssd_ops._FWD.load()
@@ -717,15 +740,19 @@ def test_ssd_tensor_core_kernel_holds_tensor_core_instructions(dev):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path(
         "ssd_chunk"))], capture_output=True, text=True, check=True).stdout
-    body = sass[sass.index("ssd_chunk_mma"):]
-    body = body[:body.find("Function :", 1)] if "Function :" in body[1:] \
-        else body
-    assert "HMMA" in body or "HGMMA" in body
+    bodies = [f for f in sass.split("Function :")[1:]
+              if "ssd_chunk_mma" in f.splitlines()[0]]
+    # the mangled names carry the template argument: ILi64E and ILi128E
+    assert sorted("ILi64E" in f.splitlines()[0] for f in bodies) == [
+        False, True], [f.splitlines()[0] for f in bodies]
+    for body in bodies:
+        assert "HMMA" in body or "HGMMA" in body
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,Q,dtype", [
     (2, 128, 4, 32, 2, 64, 64, torch.float32),          # scalar kernel
-    (2, 512, 8, *TC_SHAPE[:1], 1, *TC_SHAPE[1:], torch.bfloat16)])  # mma
+    (2, 512, 8, *TC_SHAPE[:1], 1, *TC_SHAPE[1:], torch.bfloat16),  # mma
+    (2, 512, 10, 64, 1, 64, 256, torch.bfloat16)])      # mma at state 64
 def test_ssd_kernel_reads_model_layout(dev, B, S, H, P, G, N, Q, dtype):
     """x, B and C as the mixer hands them over: strided views into one
     (B, S, d_inner + 2·G·N) tensor."""
@@ -865,3 +892,35 @@ def test_published_chains_plan_alike_on_every_fill(dev, arch):
             got, _ = plan_training(model, specs, policy, impl=impl,
                                    chain=chain)
             assert got.schedule.ops == want.schedule.ops, (policy, impl)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "moonshot-v1-16b-a3b"])
+def test_rotor_on_the_measured_chain_keeps_its_memory_promise(dev, arch):
+    """``chip_smoke.py`` phases 11 and 12 at a small size: a float32 model
+    of the family (width 256, batch 4 × 512, a vocab of 512, so that the
+    activations outweigh the parameters), its chain measured on the card,
+    rotor planned at the measured chain's midpoint budget; over two
+    training steps the plan's predicted activation peak is at least the
+    measured forward and backward's (``fwd_bwd_peak_bytes``)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import measure_chain
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    cfg = smoke_config(arch, d_model=256, d_ff=512, head_dim=64,
+                       moe_d_ff=128, use_flash_attention=True,
+                       use_ssd_kernel=True, scan_layer_remat="full",
+                       logits_chunk=256, vocab_size=512)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    batch = SyntheticLMData(cfg, 4, 512, seed=0).device_batch(0, dev)
+    chain = measure_chain(model, params, batch)
+    assert np.any(chain.of) and np.any(chain.ob)
+    budget = (solve_min_memory(chain).mem_limit + chain.store_all_peak()) / 2
+    out = run_training(cfg, TrainLoopConfig(
+        steps=2, global_batch=4, seq_len=512, policy=f"rotor:{int(budget)}",
+        solver_impl="cuda"), device=dev, params=params, chain=chain,
+        log_fn=lambda *_: None)
+    pred = out["plan"].peak_device_mem
+    for rec in out["steps"]:
+        assert pred >= rec["fwd_bwd_peak_bytes"] > 0, (pred, rec)

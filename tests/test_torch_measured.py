@@ -23,12 +23,16 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import smoke_config as psmoke  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core.chain import HostTransferModel  # noqa: E402
-from repro_torch.core.planner import measure_host_bandwidth  # noqa: E402
+from repro_torch.core.planner import (_grad_consumers,  # noqa: E402
+                                      grad_with_peaks,
+                                      measure_host_bandwidth)
 from repro_torch.core.solver import solve_min_memory  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
-from repro_torch.launch.steps import measure_chain, plan_chain  # noqa: E402
+from repro_torch.launch.steps import (measure_chain, plan_chain,  # noqa: E402
+                                     plan_training)
 from repro_torch.models.lm import StagedLM as PLM  # noqa: E402
 from repro_torch.runtime.train_loop import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.tree import tensors_of  # noqa: E402
 
 B, S = 2, 16
 QWEN = dict(num_layers=2, layer_kinds=("dense",) * 2, n_chunks=2,
@@ -48,7 +52,11 @@ def _measured(arch, **kw):
     ("qwen1.5-4b", dict(use_flash_attention=True, scan_layer_remat="full",
                         logits_chunk=8)),
     ("mamba2-1.3b", dict(use_ssd_kernel=True)),
-], ids=["qwen", "qwen-flash-remat-xent", "mamba2"])
+    ("zamba2-2.7b", dict(use_flash_attention=True, use_ssd_kernel=True,
+                         scan_layer_remat="full", logits_chunk=8)),
+    ("moonshot-v1-16b-a3b", dict(use_flash_attention=True,
+                                 scan_layer_remat="full", logits_chunk=8)),
+], ids=["qwen", "qwen-flash-remat-xent", "mamba2", "zamba2", "moe"])
 def test_measured_chain_sizes_equal_analytic(arch, kw):
     model, _, _, chain = _measured(arch, **kw)
     analytic = plan_chain(model, input_specs(
@@ -103,22 +111,84 @@ def test_run_training_plans_on_the_given_chain():
     assert np.isfinite(out["losses"][0])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "moonshot-v1-16b-a3b"],
+                         ids=["zamba2", "moe"])
+def test_grad_consumers_reach_every_parameter(arch):
+    """``grad_with_peaks`` hooks the nodes that return a share of a
+    parameter's gradient: under a rotor plan's nested checkpoints they
+    cover every parameter of the step, and Zamba2's shared block has one
+    share per chunk stage."""
+    cfg = psmoke(arch, use_flash_attention=True, use_ssd_kernel=True,
+                 scan_layer_remat="full", logits_chunk=8)
+    model = PLM(cfg)
+    params = model.init(0, "cpu")
+    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
+    plan, _ = plan_training(model, input_specs(
+        cfg, ShapeSpec("t", "train", S, B)), "rotor:x0.7", peak_flops=1e12,
+        impl="plain")
+    leaves = tensors_of(params)
+    loss = model.loss_fn(params, batch, tree=plan.tree)
+    found = _grad_consumers([loss], leaves)
+    shares = [i for slots in found.values() for _, i in slots]
+    assert sorted(set(shares)) == list(range(len(leaves)))
+    if arch == "zamba2-2.7b":
+        for t in tensors_of(params["shared_attn"]):
+            i = next(k for k, p in enumerate(leaves) if p is t)
+            assert shares.count(i) >= len(cfg.chunks)
+
+
+def test_grad_with_peaks_off_cuda_is_autograd_grad():
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(8, 8, generator=g).requires_grad_()
+    x = torch.randn(4, 8, generator=g).requires_grad_()
+    loss = torch.tanh(x @ w).pow(2).sum()
+    grads, peak, act = grad_with_peaks([loss], [w, x], params=[w])
+    want = torch.autograd.grad(torch.tanh(x @ w).pow(2).sum(), [w, x])
+    assert peak is None and act is None
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _frees_after_measuring(cfg, paths):
+    """Whether the embedding table and the parameters at ``paths`` are
+    freed once ``measure_chain`` has run and the caller drops them."""
+    import gc
+    import weakref
+
+    model = PLM(cfg)
+    params = model.init(0, "cpu")
+    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
+    leaves = [params["embed"]["table"]]
+    for path in paths:
+        t = params
+        for k in path:
+            t = t[k]
+        leaves.append(t)
+    refs = [weakref.ref(t) for t in leaves]
+    measure_chain(model, params, batch, repeats=1)
+    del params, batch, leaves, t
+    gc.collect()
+    return all(r() is None for r in refs)
+
+
 def test_measuring_a_chain_keeps_no_tensor_alive():
     """``measure_chain`` counts saved tensors through a pack hook; once it
     returns, nothing of the stages' graphs may outlive it: the parameters
     and the batch are freed when the caller drops them (the hook's record
     of saved tensors would otherwise form a cycle with the graph that the
     garbage collector cannot see, holding every parameter)."""
-    import gc
-    import weakref
+    assert _frees_after_measuring(psmoke("qwen1.5-4b", **QWEN),
+                                  [("head", "kernel")])
 
-    cfg = psmoke("qwen1.5-4b", **QWEN)
-    model = PLM(cfg)
-    params = model.init(0, "cpu")
-    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
-    refs = [weakref.ref(t) for t in (params["embed"]["table"],
-                                     params["head"]["kernel"])]
-    measure_chain(model, params, batch, repeats=1)
-    del params, batch
-    gc.collect()
-    assert all(r() is None for r in refs)
+
+@pytest.mark.parametrize("arch,leaf", [
+    ("zamba2-2.7b", ("shared_attn", "mlp", "wo", "kernel")),
+    ("moonshot-v1-16b-a3b", ("chunks", 1, "moe", "we_down", "kernel")),
+], ids=["zamba2", "moe"])
+def test_measuring_zamba2_and_moe_chains_keeps_no_tensor_alive(arch, leaf):
+    """As for Qwen above, on the two heterogeneous chains: Zamba2's (every
+    chunk stage holds the shared block) and the MoE's (the dispatch buffers
+    are transients of a stage)."""
+    assert _frees_after_measuring(
+        psmoke(arch, use_flash_attention=True, use_ssd_kernel=True,
+               scan_layer_remat="full", logits_chunk=8), [leaf])

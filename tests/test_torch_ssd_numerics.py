@@ -28,7 +28,8 @@ from repro.kernels.ssd import kernel as jkernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as pref  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-P_TC, N_TC, Q_TC = 64, 128, 256   # (P, N, Q) of the tensor-core kernel
+P_TC, Q_TC = 64, 256               # (P, Q) of the tensor-core kernel
+N_TC, N_ZAMBA = 128, 64            # its states: Mamba2's and Zamba2's
 MAX_SLICE = 8                      # its heads of one group per block
 
 
@@ -113,7 +114,9 @@ def _padded(Q, x, dt, A, Bm, Cm):
 # (B, S, H, P, G, N, Q): several heads of one group, four groups, a ragged
 # S (padded to whole chunks), 12 heads in slices of 8 and 4, 10 in slices
 # of 8 and 2, and at the tensor-core kernel's own (P, N, Q): one group,
-# four groups of 2 heads, and a ragged S
+# four groups of 2 heads, and a ragged S; at Zamba2's state 64, one group
+# of 10 heads (slices of 8 and 2, as Zamba2's 80 heads are 10 slices of 8)
+# and a ragged S
 CASES = [
     (2, 64, 6, 16, 1, 32, 16),
     (1, 64, 8, 16, 4, 32, 16),
@@ -123,6 +126,8 @@ CASES = [
     (1, 512, 3, P_TC, 1, N_TC, Q_TC),
     (1, 256, 8, P_TC, 4, N_TC, Q_TC),
     (1, 300, 2, P_TC, 1, N_TC, Q_TC),
+    (1, 256, 10, P_TC, 1, N_ZAMBA, Q_TC),
+    (1, 300, 2, P_TC, 1, N_ZAMBA, Q_TC),
 ]
 
 
@@ -141,11 +146,12 @@ def test_emulation_matches_plain_and_pallas(B, S, H, P, G, N, Q):
     np.testing.assert_allclose(st.numpy(), js, **TOL)
 
 
-def test_single_bf16_weights_miss_the_tolerance():
+@pytest.mark.parametrize("N", [N_ZAMBA, N_TC])
+def test_single_bf16_weights_miss_the_tolerance(N):
     """Without the lo terms (W and the scaled x rounded once to bf16, a
-    relative error of up to 2^-9) the outputs leave 2e-4 at the main
-    path's (P, N, Q); with them they stay well inside it."""
-    x, dt, A, Bm, Cm = _inputs(1, Q_TC, 2, P_TC, 1, N_TC, seed=1)
+    relative error of up to 2^-9) the outputs leave 2e-4 at the paths'
+    (P, N, Q), Zamba2's and Mamba2's; with them they stay well inside it."""
+    x, dt, A, Bm, Cm = _inputs(1, Q_TC, 2, P_TC, 1, N, seed=1)
     want = pref.chunk_terms(x, dt, A, Bm, Cm, Q_TC)
 
     def worst(split):

@@ -54,54 +54,63 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    parent/change comparison); where the per-band fill's time goes at
    L = 41 (host recursion, uploads, launches, downloads); and the host's
    cost of one band's copy through the library and through ``copy_``;
-6. rotor path: ``repro_torch.launch.train.main`` trains Qwen1.5-4B at full
-   width, cut to 8 layers, batch 4 × 2048 tokens, 3 steps, under the rotor
-   plan solved on the CUDA band-min kernel at the midpoint budget between the
-   min-memory and store-all peaks; then loss and global gradient norm under
-   the rotor plan and under store-all agree within 1e-2 on one batch;
-7. offload path: the same model, batch and steps under
-   ``optimal_offload:BUDGET:BW`` solved on the fused fill (K5b), with BW the
-   measured link and BUDGET between the three-tier and the two-tier memory
-   floors; the eager walker copies activations to pinned host memory and
-   back; per step the host buffer must end empty; then the offload schedule
-   and store-all agree within 1e-2 on one batch.  The two-tier plan of the
-   same budget trains 3 steps first, as the yardstick;
-8. planning with the other fill: the offload policy on the per-band kernel
-   (K5a) and the rotor policy on the fused fill (K2) give the schedules the
-   two training runs used;
+6. rotor path: the Qwen1.5-4B model at full width, cut to 8 layers, batch
+   4 × 2048 tokens, its chain measured on real tensors
+   (``launch.steps.measure_chain``: forward and backward times by CUDA
+   events, the forward's and backward's transient memory by the allocator's
+   peak; printed stage by stage beside the analytic chain's times, its sizes
+   equal to the analytic chain's with each tensor at the CUDA allocator's
+   bound) to set the budget, the midpoint between
+   its min-memory and store-all peaks; then ``repro_torch.launch.train.main``
+   trains 3 steps under that rotor budget on the CUDA band-min kernel, the
+   launcher measuring its own chain and planning on it (a chain without
+   transients fails); per step the plan's predicted activation peak over
+   the measured one, over the forward and backward (less the parameter
+   gradients made by then; below 1 fails) and over the whole step; then
+   loss and global gradient norm under the rotor plan and under store-all
+   agree within 1e-2 on one batch;
+7. offload path: ``run_training`` on a measured chain under
+   ``optimal_offload:BUDGET:BW`` solved on the fused fill (K5b), with BW
+   the measured link and BUDGET between the chain's three-tier and
+   two-tier floors (both printed) where the three-tier plan there copies a
+   boundary activation (an ``a^i``, i > 0; the token batch alone is no
+   activation) to the host; else the lowest of 33 budgets from the
+   two-tier floor up to store-all at which it copies one and is predicted
+   no slower than the two-tier plan.  The models tried, in turn, until
+   one copies an activation: path 6's, the same model without per-layer
+   remat, and path 11's Zamba2 (whose chunks' backward, not the head's,
+   sets the floor); none fails the run.  Batch and steps as path 6.  The
+   eager walker copies activations to pinned host memory and back; per
+   step the host buffer must reach the copied activation's bytes and end
+   empty, and the forward+backward ratio (the walker's per-op peaks, less
+   the gradients made by then) must not fall below 1; then the offload
+   schedule and store-all agree within 1e-2 on one batch.  The two-tier
+   plan of the same budget (or of its floor) trains 3 steps first, as the
+   yardstick;
+8. planning with the other fill: on each training run's measured chain,
+   the offload policy on the per-band kernel (K5a) and the rotor policy on
+   the fused fill (K2) give the schedules the two training runs used;
 9. Mamba path: Mamba2-1.3B at full width (d_model 2048, 64 SSM heads of
    64, state 128, chunks of 256), cut to 8 layers, batch 4 × 2048 tokens:
-   its chain measured on real tensors (``launch.steps.measure_chain``,
-   printed stage by stage beside the analytic chain, sizes equal), then
-   ``run_training(chain=measured)`` trains 3 steps under the rotor plan
-   solved on the CUDA band-min kernel at the measured chain's midpoint
-   budget, every SSD forward on the hand-written kernel, its launches
-   counted over those steps alone (the counters reset just before
-   ``run_training``); per step the plan's predicted activation peak over
-   the measured one, over the forward and backward (less the parameter
-   gradients made by then; below 1 fails) and over the whole step, the
+   its chain measured on real tensors (printed stage by stage beside the
+   analytic chain, sizes equal at the allocator's bound), then ``run_training(chain=measured)``
+   trains 3 steps under the rotor plan solved on the CUDA band-min kernel
+   at the measured chain's midpoint budget, every SSD forward on the
+   hand-written kernel, its launches counted over those steps alone (the
+   counters reset just before ``run_training``); per step the plan's
+   predicted activation peak over the measured one, as in path 6, the
    analytic chain's floors and predicted peak beside them; then the rotor
    plan and store-all agree within 1e-2 on one batch;
-10. measure, plan, run (the paper's loop): the Qwen model of path 6 on
-    real tensors — (a) its chain measured stage by stage
-    (``launch.steps.measure_chain``: forward and backward times by CUDA
-    events, the forward's and backward's transient memory by the
-    allocator's peak), printed beside the analytic chain's times, its sizes
-    equal to the analytic chain's; (b) ``run_training(chain=measured)``
-    trains 3 steps under ``rotor:`` at the measured chain's midpoint budget
-    on the CUDA band-min kernel, with the plan's predicted activation peak
-    beside the measured one (over the forward and backward, where below 1
-    fails, and over the whole step), then rotor and store-all agree within
-    1e-2 on one batch;
-    (c) the trade-off of paper Figs 3–13 (``launch.tradeoff``): store-all,
-    the best sequential segment count, ``revolve:B`` and ``rotor:B`` at
-    0.45, 0.7 and 1.0 × the measured store-all peak, each through
-    ``MemoryPlan.bind(...).value_and_grad``, predicted against measured
-    time and peak, the time MAPE and rotor's gain over sequential; every
-    point's loss and gradient norm equal store-all's within 1e-2.  Then
-    (a) and (c) again for the same model without its per-layer remat (the
-    paper's setting: the planner is the only checkpointing);
-11. Zamba2 path: as path 9 (measured chain, ``run_training``), Zamba2-2.7B
+10. the trade-off of paper Figs 3–13 (``launch.tradeoff``) on path 6's
+    measured chain: store-all, the best sequential segment count,
+    ``revolve:B`` and ``rotor:B`` at 0.45, 0.7 and 1.0 × the measured
+    store-all peak, each through ``MemoryPlan.bind(...).value_and_grad``,
+    predicted against measured time and peak, the time MAPE and rotor's
+    gain over sequential; every point's loss and gradient norm equal
+    store-all's within 1e-2.  Then again for the same model without its
+    per-layer remat (the paper's setting: the planner is the only
+    checkpointing), its chain measured and printed as in path 6;
+11. Zamba2 path: as path 9, Zamba2-2.7B
     at full width (d_model 2560, 80 SSM heads of 64, state 64, chunks of
     256; the shared attention+MLP block at 32 heads × 80 and d_ff 10240;
     vocab 32000), cut to 24 layers (4 periods of 6: 4 chunks, each opening
@@ -114,11 +123,27 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     experts top-6 of d_ff 1408 and 2 shared ones, capacity factor 1.25;
     vocab 163840), cut to 4 layers, one a chunk (dense | moe | moe | moe, a
     heterogeneous 6-stage chain); it must launch K1, K3 and K4;
-13. one JSON line describing every kernel, then the final JSON result line.
+13. the paper's own workload: the heterogeneous conv chain
+    (``configs.paper_resnet``, 12 blocks from 224² × 64 down to 14² × 512,
+    batch 64, float32, a synthetic input from the seed), its chain measured
+    and printed stage by stage, then the trade-off of path 10 at 0.35, 0.5,
+    0.65, 0.8 and 1.0 × store-all (the JAX package's budgets) and at two
+    budgets a third and two thirds of the way from the measured two-tier
+    floor to store-all, on the CUDA band-min kernel: predicted
+    and measured time and peak per point, the MAPE and rotor's gain over
+    sequential, measured and predicted; every point's loss and gradient
+    norm equal store-all's within 1e-2, the gain must be read at two
+    budgets below store-all at least, and K1 must launch;
+14. MLA path: as path 9, deepseek-v2-lite-16b at full width (d_model 2048,
+    16 MLA heads with a rank-512 latent, qk 128 + 64, v 128, a dense first
+    layer of d_ff 10944, then 64 routed experts top-6 of d_ff 1408 and 2
+    shared; vocab 102400; the attention is plain PyTorch, as in the JAX
+    package), cut to 4 layers, one a chunk (a 6-stage chain); it must launch
+    K1 and K4;
+15. one JSON line describing every kernel, then the final JSON result line.
 
-Each path (6, 7, 8, 9, 10, 11, 12) runs with the launch counts set to 0 just
-before it and read just after; a kernel launched on none of them fails the
-run.
+Each path (6 to 14) runs with the launch counts set to 0 just before it and
+read just after; a kernel launched on none of them fails the run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -160,6 +185,12 @@ ZAMBA_OVERRIDES = {"num_layers": ZAMBA_LAYERS,
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_OVERRIDES = {"num_layers": 4, "layer_kinds": ["dense"] + ["moe"] * 3,
                  "n_chunks": 4, "use_flash_attention": True}
+# deepseek-v2-lite-16b (MLA) cut alike: dense | moe | moe | moe
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_OVERRIDES = {"num_layers": 4, "layer_kinds": ["dense"] + ["moe"] * 3,
+                 "n_chunks": 4}
+# the paper's conv chain at ImageNet size: 224² × 64 down to 14² × 512
+RESNET = {"num_blocks": 12, "base_ch": 64, "image": 224, "batch": 64}
 
 
 def say(*parts) -> None:
@@ -393,8 +424,11 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec, input_specs
     from repro_torch.core import dp_kernels
+    from repro_torch.core.baselines import best_periodic
     from repro_torch.core.chain import Chain, HostTransferModel
-    from repro_torch.core.planner import measure_host_bandwidth
+    from repro_torch.configs import paper_resnet
+    from repro_torch.core.planner import (measure_host_bandwidth,
+                                          profile_stages_measured)
     from repro_torch.core.solver import solve_min_memory, solve_optimal
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import _build
@@ -409,12 +443,13 @@ def main() -> int:
     from repro_torch.launch import train
     from repro_torch.launch.steps import (measure_chain, plan_chain,
                                           plan_training)
-    from repro_torch.launch.tradeoff import run_tradeoff
+    from repro_torch.launch.tradeoff import run_lm_tradeoff, run_tradeoff
     from repro_torch.models.lm import StagedLM
     from repro_torch.offload.executor import execute_offload_schedule
     from repro_torch.offload.solver import (solve_min_device_memory,
                                             solve_optimal_offload)
     from repro_torch.optim.adamw import global_norm
+    from repro_torch.plan import resolve_policy
     from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
     from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
     from repro_torch.tree import tensors_of
@@ -454,6 +489,7 @@ def main() -> int:
     cfg = config_of(ARCH, OVERRIDES)
     zcfg = config_of(ZAMBA_ARCH, ZAMBA_OVERRIDES)
     ecfg = config_of(MOE_ARCH, MOE_OVERRIDES)
+    dcfg = config_of(MLA_ARCH, MLA_OVERRIDES)
     model = StagedLM(cfg)
     specs = input_specs(cfg, ShapeSpec("train", "train", SEQ, BATCH))
     nbytes_act = BATCH * SEQ * cfg.d_model * 2   # one bf16 boundary activation
@@ -1146,32 +1182,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. rotor path ------------------------------------------------------------
-    say(f"[rotor] chain L={chain.length}: min-memory {low:.6e} B, store-all "
-        f"{high:.6e} B, budget (midpoint) {int(budget)} B")
-    path_launches = {}
-    counters.reset()
-    out = train.main([
-        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
-        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
-        "--steps", str(STEPS), "--policy", f"rotor:{int(budget)}",
-        "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
-    path_launches["rotor"] = counters.snapshot()
-    plan = out["plan"]
-    say(f"[rotor] schedule ops {json.dumps(plan.op_counts())}, predicted "
-        f"{plan.expected_time:.6e} s/step, predicted activation peak "
-        f"{plan.peak_device_mem:.6e} B")
-    for i, rec in enumerate(out["steps"]):
-        say(f"[rotor] step {i}: loss {rec['loss']:.6f}, "
-            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
-            f"measured activation peak {rec['activation_peak_bytes']} B "
-            f"on {card}")
-    if not all(math.isfinite(x) for x in out["losses"]):
-        raise AssertionError(f"non-finite loss: {out['losses']}")
-    launches = path_launches["rotor"]
-    say(f"[rotor] launches: {launches[dp_ops.NAME]} dp band-min per plan, "
-        f"{launches[flash_ops.NAME] / STEPS:g} flash attention and "
-        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
-
     batch = SyntheticLMData(cfg, BATCH, SEQ, seed=0).device_batch(0, dev)
 
     def same_results(tag, params, grads_of, model=model, batch=batch):
@@ -1195,122 +1205,19 @@ def main() -> int:
             f"{res['none'][0]:.6f}, grad norm {res[tag][1]:.6f} / "
             f"{res['none'][1]:.6f} (rel tol 1e-2)")
 
-    def rotor_grads(params):
-        loss = model.loss_fn(params, batch, tree=plan.tree)
-        return loss, torch.autograd.grad(loss, tensors_of(params))
-
-    same_results("rotor", out["params"], rotor_grads)
-    rotor_schedule = plan.schedule.ops
-    del out, plan
-    torch.cuda.empty_cache()
-
-    # -- 7. offload path ----------------------------------------------------------
-    two = solve_optimal(chain, budget_off)
-    plan3 = solve_optimal_offload(hchain, budget_off)
-    at_mid = solve_optimal_offload(hchain, budget)
-    say(f"[offload] floors: three-tier {low3:.6e} B, two-tier {low:.6e} B; "
-        f"budget {int(budget_off)} B (between them); at slice 1's midpoint "
-        f"{int(budget)} B the three-tier plan has "
-        f"{at_mid.schedule.count('Foff')} offloads")
-    if not plan3.feasible or plan3.schedule.count("Foff") < 1:
-        raise AssertionError("the three-tier plan at the offload budget "
-                             "offloads nothing")
-    if two.feasible:
-        # the floors coincide up to the slot rounding: two tiers still fit,
-        # so hold the three-tier plan to being no slower instead
-        say(f"[offload] the floors coincide up to discretization: two-tier "
-            f"is feasible at this budget too (predicted "
-            f"{two.expected_time:.6e} s against three-tier "
-            f"{plan3.expected_time:.6e} s)")
-        if plan3.expected_time > two.expected_time:
-            raise AssertionError("three-tier plan slower than two-tier")
-    else:
-        say("[offload] two-tier is infeasible at this budget")
-    # the two-tier plan at the same budget, for the end-to-end comparison
-    # (a yardstick run: its launches are not counted on any path)
-    out = train.main([
-        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
-        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
-        "--steps", str(STEPS), "--policy", f"rotor:{int(budget_off)}",
-        "--solver-impl", "cuda", "--peak-flops", repr(peak_flops)])
-    for i, rec in enumerate(out["steps"]):
-        say(f"[offload] two-tier yardstick rotor:{int(budget_off)} step "
-            f"{i}: {rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
-            f"measured activation peak {rec['activation_peak_bytes']} B on "
-            f"{card}")
-    say(f"[offload] two-tier yardstick ops "
-        f"{json.dumps(out['plan'].op_counts())}")
-    del out
-    torch.cuda.empty_cache()
-    policy_off = f"optimal_offload:{int(budget_off)}:{bw!r}"
-    counters.reset()
-    out = train.main([
-        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
-        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
-        "--steps", str(STEPS), "--policy", policy_off,
-        "--solver-impl", "cuda_fused", "--peak-flops", repr(peak_flops)])
-    path_launches["offload"] = counters.snapshot()
-    plan = out["plan"]
-    if not plan.uses_offload:
-        raise AssertionError("the offload run's plan has no Foff")
-    say(f"[offload] policy {policy_off}: schedule ops "
-        f"{json.dumps(plan.op_counts())}, predicted "
-        f"{plan.expected_time:.6e} s/step, device peak "
-        f"{plan.peak_device_mem:.6e} B, host peak {plan.peak_host_mem:.6e} "
-        f"B, transfer stall {plan.transfer_stall:.6e} s")
-    for i, rec in enumerate(out["steps"]):
-        say(f"[offload] step {i}: loss {rec['loss']:.6f}, "
-            f"{rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
-            f"measured activation peak {rec['activation_peak_bytes']} B, "
-            f"host buffer peak {rec['host_peak_bytes']} B, prefetch wait "
-            f"{rec['prefetch_wait_s']:.6e} s on {card}")
-        if rec["host_bytes_after"] != 0:
-            raise AssertionError(f"step {i}: {rec['host_bytes_after']} B "
-                                 f"left in the host buffer")
-    if not all(math.isfinite(x) for x in out["losses"]):
-        raise AssertionError(f"non-finite loss: {out['losses']}")
-    launches = path_launches["offload"]
-    say(f"[offload] launches: {launches.get(dp_ops.NAME_FUSED_OFFLOAD, 0)} "
-        f"fused offload fill per plan, "
-        f"{launches[flash_ops.NAME] / STEPS:g} flash attention and "
-        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
-
-    def offload_grads(params):
-        loss, stage_grads, _ = execute_offload_schedule(
-            plan.schedule, model.stage_fns(), model.stage_params(params),
-            batch)
-        return loss, tensors_of(stage_grads)
-
-    same_results("offload", out["params"], offload_grads)
-    offload_schedule = plan.schedule.ops
-    del out, plan
-    torch.cuda.empty_cache()
-
-    # -- 8. planning with the other fill ----------------------------------------
-    counters.reset()
-    for pol, impl, want in ((policy_off, "cuda", offload_schedule),
-                            (f"rotor:{int(budget)}", "cuda_fused",
-                             rotor_schedule)):
-        p, _ = plan_training(model, specs, pol, peak_flops=peak_flops,
-                             impl=impl, device=dev)
-        if p.schedule.ops != want:
-            raise AssertionError(f"{pol} on {impl}: another schedule than "
-                                 f"the training run's")
-        say(f"[plan] {pol} on --solver-impl {impl}: the training run's "
-            f"schedule ({len(want)} ops)")
-    path_launches["planning"] = counters.snapshot()
-
-    # -- 9. Mamba path --------------------------------------------------------------
-    def show_measured(tag, model, params, analytic, batch=batch):
+    def show_measured(tag, model, params, batch=batch):
         """The chain of ``model`` measured on ``batch``, printed beside the
-        analytic chain's times; its sizes must equal the analytic chain's."""
+        analytic chain's times; its sizes must equal the analytic chain's
+        with each tensor at the allocator's bound (``allocator=True``)."""
         t0 = time.perf_counter()
         measured = measure_chain(model, params, batch)
         say(f"[measured] {tag}: chain L={measured.length} measured in "
             f"{time.perf_counter() - t0:.2f} s (1 warm-up, median of 3) on "
             f"{card}; analytic times at {peak_flops:.6e} FLOP/s")
+        analytic = plan_chain(model, input_specs(model.cfg, ShapeSpec(
+            "train", "train", SEQ, BATCH)), peak_flops, allocator=True)
         say("[measured] stage: uf s (analytic), ub s (analytic), wa B, "
-            "wabar B, of B, ob B")
+            "wabar B (each tensor at the allocator's bound), of B, ob B")
         for i in range(measured.length + 1):
             say(f"[measured] {i + 1}: {measured.uf[i]:.6e} "
                 f"({analytic.uf[i]:.6e}), {measured.ub[i]:.6e} "
@@ -1323,8 +1230,8 @@ def main() -> int:
                 f"measured sizes differ from the analytic chain's: wa "
                 f"{measured.wa} vs {analytic.wa}, wabar {measured.wabar} vs "
                 f"{analytic.wabar}")
-        say("[measured] wa and wabar == the analytic chain's "
-            "(np.array_equal)")
+        say("[measured] wa and wabar == the analytic chain's at the "
+            "allocator's bound (np.array_equal)")
         return measured
 
     def report_steps(tag, plan, steps):
@@ -1354,6 +1261,203 @@ def main() -> int:
                 f"{tag}: the plan under-predicts the forward and backward's "
                 f"activation peak (predicted / measured {worst:.4f} < 1)")
 
+    # the chain the launcher plans on: measured on the card for the same
+    # model, seeded weights and first batch (the launcher measures its own)
+    params = model.init(0, dev)
+    measured = show_measured(f"{ARCH}, per-layer remat (paths 6-8, 10)",
+                             model, params)
+    del params
+    torch.cuda.empty_cache()
+    mlow = solve_min_memory(measured).mem_limit
+    mhigh = measured.store_all_peak()
+    mid = (mlow + mhigh) / 2
+    say(f"[rotor] measured chain L={measured.length}: min-memory {mlow:.6e} "
+        f"B, store-all {mhigh:.6e} B, budget (midpoint) {int(mid)} B; the "
+        f"analytic chain's: {low:.6e} and {high:.6e} B on {card}")
+    path_launches = {}
+    counters.reset()
+    out = train.main([
+        "--arch", ARCH, "--override", json.dumps(OVERRIDES),
+        "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+        "--steps", str(STEPS), "--policy", f"rotor:{int(mid)}",
+        "--solver-impl", "cuda"])
+    path_launches["rotor"] = counters.snapshot()
+    plan = out["plan"]
+    if not out["chain"].of.any():
+        raise AssertionError("the launcher planned on a chain without "
+                             "transients: not the measured chain")
+    say(f"[rotor] schedule ops {json.dumps(plan.op_counts())}, predicted "
+        f"{plan.expected_time:.6e} s/step on the launcher's measured chain")
+    report_steps("rotor", plan, out["steps"])
+    launches = path_launches["rotor"]
+    say(f"[rotor] launches over the launcher's measurement and {STEPS} "
+        f"steps: {launches[dp_ops.NAME]} dp band-min (one plan), "
+        f"{launches[flash_ops.NAME]} flash attention, "
+        f"{launches[rms_ops.NAME]} rms_norm")
+
+    def rotor_grads(params):
+        loss = model.loss_fn(params, batch, tree=plan.tree)
+        return loss, torch.autograd.grad(loss, tensors_of(params))
+
+    same_results("rotor", out["params"], rotor_grads)
+    rotor_schedule, rotor_chain = plan.schedule.ops, out["chain"]
+    del out, plan
+    torch.cuda.empty_cache()
+
+    # -- 7. offload path ----------------------------------------------------------
+    def moved(p):
+        """The boundary activations ``a^i`` (i > 0) the plan ``p`` copies to
+        the host: the token batch ``a^0`` alone moves no activation."""
+        return [i for k, i in p.schedule.ops if k == "Foff" and i > 0]
+
+    def offload_budget(ch):
+        """The offload path's budget on the measured chain ``ch``: between
+        its three- and two-tier floors if the three-tier plan there copies
+        an activation; else the lowest of 33 budgets from the two-tier floor
+        to store-all at which it copies one and is predicted no slower than
+        the two-tier plan.  ``None`` if it copies one nowhere."""
+        hch = ch.with_host(host)
+        low2 = solve_min_memory(ch).mem_limit
+        low3 = solve_min_device_memory(hch).mem_limit
+        say(f"[offload] measured chain floors: three-tier {low3:.6e} B, "
+            f"two-tier {low2:.6e} B ({(low2 - low3) / low2:.4%} apart) on "
+            f"{card}")
+        b = int((low3 + low2) / 2)
+        if not solve_optimal(ch, b).feasible:
+            p3 = solve_optimal_offload(hch, b)
+            if p3.feasible and moved(p3):
+                say(f"[offload] between the floors: budget {b} B, where two "
+                    f"tiers do not fit; the plan copies a^{moved(p3)}")
+                return b
+            offs = ([i for k, i in p3.schedule.ops if k == "Foff"]
+                    if p3.feasible else "none: no plan")
+            say(f"[offload] between the floors the three-tier plan copies "
+                f"no activation (its Foff: {offs})")
+        high2 = ch.store_all_peak()
+        for k in range(33):
+            b = int(low2 + k * (high2 - low2) / 32)
+            two, p3 = solve_optimal(ch, b), solve_optimal_offload(hch, b)
+            if (two.feasible and p3.feasible and moved(p3)
+                    and p3.expected_time <= two.expected_time):
+                say(f"[offload] from the two-tier floor up: budget {b} B "
+                    f"({k}/32 of the way to store-all), the three-tier plan "
+                    f"copies a^{moved(p3)} and is predicted "
+                    f"{p3.expected_time:.6e} s against the two-tier "
+                    f"{two.expected_time:.6e} s")
+                return b
+        say("[offload] no budget from the two-tier floor to store-all (33 "
+            "tried) at which the three-tier plan copies an activation")
+        return None
+
+    off_cfg, off_model, off_chain, off_batch, off_specs = (
+        cfg, model, measured, batch, specs)
+    off_budget = offload_budget(measured)
+    for why, ocfg in (
+            ("the same model without per-layer remat, as phase 10's second "
+             "trade-off", config_of(ARCH, OVERRIDES, scan_layer_remat="none")),
+            (f"{ZAMBA_ARCH} as path 11 runs it, whose chunks' backward, not "
+             f"the head's, sets the floor", zcfg)):
+        if off_budget is not None:
+            break
+        say(f"[offload] {off_cfg.name} (scan_layer_remat "
+            f"{off_cfg.scan_layer_remat!r}) copies no activation at any "
+            f"budget: {why}")
+        off_cfg, off_model = ocfg, StagedLM(ocfg)
+        off_specs = input_specs(ocfg, ShapeSpec("train", "train", SEQ, BATCH))
+        off_batch = SyntheticLMData(ocfg, BATCH, SEQ, seed=0).device_batch(
+            0, dev)
+        params = off_model.init(0, dev)
+        off_chain = show_measured(
+            f"{ocfg.name}, scan_layer_remat {ocfg.scan_layer_remat!r} "
+            f"(path 7)", off_model, params, off_batch)
+        del params
+        torch.cuda.empty_cache()
+        off_budget = offload_budget(off_chain)
+    if off_budget is None:
+        raise AssertionError("no model copies a boundary activation to the "
+                             "host at any budget")
+    # the two-tier plan at the same budget, or at its floor where two tiers
+    # do not fit, for the end-to-end comparison (a yardstick run: its
+    # launches are not counted on any path)
+    two_budget = int(off_budget)
+    while not solve_optimal(off_chain, two_budget).feasible:
+        two_budget = math.ceil(two_budget * 1.001)
+    out = run_training(off_cfg, TrainLoopConfig(
+        steps=STEPS, global_batch=BATCH, seq_len=SEQ,
+        policy=f"rotor:{two_budget}", solver_impl="cuda", log_every=1),
+        device=dev, chain=off_chain, log_fn=say)
+    for i, rec in enumerate(out["steps"]):
+        say(f"[offload] two-tier yardstick rotor:{two_budget} step "
+            f"{i}: {rec['tokens_per_s']:.1f} tok/s, {rec['seconds']:.4f} s, "
+            f"measured activation peak {rec['fwd_bwd_peak_bytes']} B over "
+            f"the forward and backward on {card}")
+    say(f"[offload] two-tier yardstick ops "
+        f"{json.dumps(out['plan'].op_counts())}")
+    del out
+    torch.cuda.empty_cache()
+    policy_off = f"optimal_offload:{int(off_budget)}:{bw!r}"
+    counters.reset()
+    out = run_training(off_cfg, TrainLoopConfig(
+        steps=STEPS, global_batch=BATCH, seq_len=SEQ, policy=policy_off,
+        solver_impl="cuda_fused", log_every=1), device=dev, chain=off_chain,
+        log_fn=say)
+    path_launches["offload"] = counters.snapshot()
+    plan = out["plan"]
+    copied = moved(plan)
+    if not copied:
+        raise AssertionError("the offload run's plan copies no activation")
+    need = max(int(off_chain.wa[i]) for i in copied)
+    say(f"[offload] {off_cfg.name}, policy {policy_off}: schedule ops "
+        f"{json.dumps(plan.op_counts())}, copies a^{copied} ({need} B the "
+        f"largest), predicted {plan.expected_time:.6e} s/step, host peak "
+        f"{plan.peak_host_mem:.6e} B, transfer stall "
+        f"{plan.transfer_stall:.6e} s")
+    for i, rec in enumerate(out["steps"]):
+        say(f"[offload] step {i}: host buffer peak {rec['host_peak_bytes']} "
+            f"B, prefetch wait {rec['prefetch_wait_s']:.6e} s on {card}")
+        if rec["host_peak_bytes"] < need:
+            raise AssertionError(f"step {i}: host buffer peak "
+                                 f"{rec['host_peak_bytes']} B, below the "
+                                 f"copied activation's {need} B")
+        if rec["host_bytes_after"] != 0:
+            raise AssertionError(f"step {i}: {rec['host_bytes_after']} B "
+                                 f"left in the host buffer")
+    report_steps("offload", plan, out["steps"])
+    launches = path_launches["offload"]
+    say(f"[offload] launches: {launches.get(dp_ops.NAME_FUSED_OFFLOAD, 0)} "
+        f"fused offload fill per plan, "
+        f"{launches[flash_ops.NAME] / STEPS:g} flash attention and "
+        f"{launches[rms_ops.NAME] / STEPS:g} rms_norm per step")
+
+    def offload_grads(params):
+        loss, stage_grads, _ = execute_offload_schedule(
+            plan.schedule, off_model.stage_fns(),
+            off_model.stage_params(params), off_batch)
+        return loss, tensors_of(off_model.combine_stage_grads(stage_grads))
+
+    same_results("offload", out["params"], offload_grads, off_model,
+                 off_batch)
+    offload_schedule = plan.schedule.ops
+    del out, plan
+    torch.cuda.empty_cache()
+
+    # -- 8. planning with the other fill ----------------------------------------
+    counters.reset()
+    for pol, impl, want, pmodel, pspecs, pchain in (
+            (policy_off, "cuda", offload_schedule, off_model, off_specs,
+             off_chain),
+            (f"rotor:{int(mid)}", "cuda_fused", rotor_schedule, model, specs,
+             rotor_chain)):
+        p, _ = plan_training(pmodel, pspecs, pol, impl=impl, device=dev,
+                             chain=pchain)
+        if p.schedule.ops != want:
+            raise AssertionError(f"{pol} on {impl}: another schedule than "
+                                 f"the training run's")
+        say(f"[plan] {pol} on --solver-impl {impl}, the training run's "
+            f"measured chain: the training run's schedule ({len(want)} ops)")
+    path_launches["planning"] = counters.snapshot()
+
+    # -- 9. Mamba path --------------------------------------------------------------
     def rotor_path(tag, arch, overrides, pcfg, what, kernels_run):
         """Measure the chain of ``arch`` (with ``overrides``) on real tensors
         and train it for 3 steps through ``run_training(chain=measured)``
@@ -1380,7 +1484,7 @@ def main() -> int:
         pbatch = SyntheticLMData(pcfg, BATCH, SEQ, seed=0).device_batch(0,
                                                                         dev)
         measured = show_measured(f"{arch}, {tag} path", pmodel, params,
-                                 pchain, pbatch)
+                                 pbatch)
         plow = solve_min_memory(measured).mem_limit
         phigh = measured.store_all_peak()
         pbudget = (plow + phigh) / 2
@@ -1422,13 +1526,10 @@ def main() -> int:
         f"d_model {mcfg.d_model}, {Hs} SSM heads of {P}, state {N}, chunk "
         f"{Q}", (ssd_ops.NAME, rms_ops.NAME))
 
-    # -- 10. measure, plan, run --------------------------------------------------
-    def tradeoff(tag, model, params, measured):
-        """The trade-off on ``measured``; every point's loss and gradient
-        norm must equal store-all's within 1e-2."""
-        trade = run_tradeoff(
-            model, params, batch, impl="cuda", chain=measured,
-            emit=lambda s: say(f"[tradeoff] {tag}: {s} on {card}"))
+    # -- 10. the trade-off on the measured chain ----------------------------------
+    def check_tradeoff(tag, trade):
+        """Every point's loss and gradient norm must equal store-all's
+        within 1e-2."""
         ref = trade["rows"][0]
         for r in trade["rows"]:
             for key in ("loss", "grad_norm"):
@@ -1440,34 +1541,14 @@ def main() -> int:
             f"store-all's within 1e-2 ({ref['loss']:.6f}, "
             f"{ref['grad_norm']:.6f})")
 
+    def emit_as(tag):
+        return lambda s: say(f"[tradeoff] {tag}: {s} on {card}")
+
     counters.reset()
     params = model.init(0, dev)
-    measured = show_measured(f"{ARCH}, per-layer remat (paths 6-8)", model,
-                              params, chain)
-    mlow = solve_min_memory(measured).mem_limit
-    mhigh = measured.store_all_peak()
-    mid = (mlow + mhigh) / 2
-    say(f"[measured] min-memory {mlow:.6e} B, store-all {mhigh:.6e} B "
-        f"(analytic chain: {low:.6e} and {high:.6e}), budget (midpoint) "
-        f"{int(mid)} B on {card}")
-    out = run_training(cfg, TrainLoopConfig(
-        steps=STEPS, global_batch=BATCH, seq_len=SEQ,
-        policy=f"rotor:{int(mid)}", solver_impl="cuda", log_every=1),
-        device=dev, params=params, chain=measured, log_fn=say)
-    plan = out["plan"]
-    say(f"[measured] schedule ops {json.dumps(plan.op_counts())}, predicted "
-        f"{plan.expected_time:.6e} s/step, predicted activation peak "
-        f"{plan.peak_device_mem:.6e} B")
-    report_steps("measured", plan, out["steps"])
-
-    def measured_grads(params):
-        loss = model.loss_fn(params, batch, tree=plan.tree)
-        return loss, torch.autograd.grad(loss, tensors_of(params))
-
-    same_results("rotor on the measured chain", out["params"], measured_grads)
-    del out, plan
-    torch.cuda.empty_cache()
-    tradeoff("per-layer remat", model, params, measured)
+    check_tradeoff("per-layer remat", run_lm_tradeoff(
+        model, params, batch, impl="cuda", chain=measured,
+        emit=emit_as("per-layer remat")))
     del params
     torch.cuda.empty_cache()
     # the paper's setting: the planner is the only checkpointing, so each
@@ -1475,16 +1556,16 @@ def main() -> int:
     nr_cfg = config_of(ARCH, OVERRIDES, scan_layer_remat="none")
     nr_model = StagedLM(nr_cfg)
     params = nr_model.init(0, dev)
-    nr_measured = show_measured(
-        f"{ARCH}, no per-layer remat", nr_model, params,
-        plan_chain(nr_model, specs, peak_flops))
-    tradeoff("no per-layer remat", nr_model, params, nr_measured)
+    nr_measured = show_measured(f"{ARCH}, no per-layer remat", nr_model,
+                                params)
+    check_tradeoff("no per-layer remat", run_lm_tradeoff(
+        nr_model, params, batch, impl="cuda", chain=nr_measured,
+        emit=emit_as("no per-layer remat")))
     path_launches["measured"] = counters.snapshot()
     launches = path_launches["measured"]
     say(f"[measured] launches: {launches.get(dp_ops.NAME, 0)} dp band-min "
-        f"(training plan and trade-off plans), "
-        f"{launches.get(flash_ops.NAME, 0)} flash attention and "
-        f"{launches.get(rms_ops.NAME, 0)} rms_norm")
+        f"(the trade-off plans), {launches.get(flash_ops.NAME, 0)} flash "
+        f"attention and {launches.get(rms_ops.NAME, 0)} rms_norm")
     del params
     torch.cuda.empty_cache()
 
@@ -1514,7 +1595,91 @@ def main() -> int:
         f"{ecfg.moe_capacity_factor}, vocab {ecfg.vocab_size}",
         (flash_ops.NAME, rms_ops.NAME))
 
-    # -- 13. result lines ---------------------------------------------------------
+    # -- 13. the paper's conv chain ----------------------------------------------
+    counters.reset()
+    cstages, cparams, cx = paper_resnet.resnet_ish_chain(**RESNET, device=dev)
+    t0 = time.perf_counter()
+    cchain = profile_stages_measured(cstages, cparams, cx)
+    say(f"[resnet] the paper's heterogeneous conv chain, {RESNET}: input "
+        f"{tuple(cx.shape)} float32, {cchain.length + 1} stages measured in "
+        f"{time.perf_counter() - t0:.2f} s (1 warm-up, median of 3) on "
+        f"{card}")
+    say("[resnet] stage: uf s, ub s, wa B, wabar B, of B, ob B")
+    for i in range(cchain.length + 1):
+        say(f"[resnet] {i + 1}: {cchain.uf[i]:.6e}, {cchain.ub[i]:.6e}, "
+            f"{int(cchain.wa[i])}, {int(cchain.wabar[i])}, "
+            f"{int(cchain.of[i])}, {int(cchain.ob[i])} on {card}")
+    # the reference's budgets, and two between the measured chain's two-tier
+    # floor and store-all: the measured backward transients of the first
+    # blocks can put the floor above the reference's lower budgets
+    cfloor = solve_min_memory(cchain).mem_limit / cchain.store_all_peak()
+    budgets = sorted({*paper_resnet.BUDGETS,
+                      *(round(cfloor + (1 - cfloor) * k / 3, 4) for k in (1, 2))})
+    say(f"[resnet] two-tier floor {cfloor:.4f} x store-all: budgets "
+        f"{budgets} x store-all")
+    trade = run_tradeoff(cstages, cparams, cx, items=cx.shape[0],
+                         impl="cuda", chain=cchain, budgets=budgets,
+                         emit=emit_as("conv chain"))
+    check_tradeoff("conv chain", trade)
+    path_launches["resnet"] = counters.snapshot()
+    below = sorted(f for f in trade["gain_measured_at"] if f < 1.0)
+    say(f"[resnet] rotor over best sequential, measured below store-all at "
+        f"{below} x store-all; MAPE {trade['mape_percent']:.2f} %; "
+        f"{path_launches['resnet'].get(dp_ops.NAME, 0)} dp band-min launches "
+        f"on {card}")
+    if len(below) < 2:
+        raise AssertionError(f"rotor's gain over sequential read at "
+                             f"{len(below)} budgets below store-all, not 2")
+    if not path_launches["resnet"].get(dp_ops.NAME):
+        raise AssertionError("the conv chain's trade-off never launched "
+                             "dp band-min")
+
+    def op_peaks(plan):
+        """``(predicted device bytes during the op, op, stage)`` for every op
+        of a two-tier plan, from its timeline on its chain, largest first."""
+        ch, mem, got = plan.chain, float(plan.chain.wa[0]), []
+        for r in plan.timeline():
+            k, l = r["op"], r["arg"]
+            if k == "B":
+                got.append((mem + ch.ob[l - 1], k, l))
+            else:
+                new = (ch.wabar[l - 1] if k == "Fall"
+                       else ch.wa[l] if l <= ch.length else 0.0)
+                got.append((mem + new + ch.of[l - 1], k, l))
+            mem = r["device_mem"]
+        return sorted(got, reverse=True)
+
+    # where the simulator puts each plan's peak at the lowest budget with a
+    # gain reading, beside the measured peak (plans on the numpy fill, after
+    # the path's counts were read)
+    f = below[0]
+    k_seq = best_periodic(cchain, f * cchain.store_all_peak())[0]
+    for name, pol in (
+            ("store-all", "none"),
+            (f"sequential(k={k_seq})", f"periodic:{k_seq}"),
+            ("rotor", f"rotor:{int(f * cchain.store_all_peak())}")):
+        got = next(r["measured_peak_bytes"] for r in trade["rows"]
+                   if r["strategy"] == name
+                   and (name == "store-all" or r["budget_frac"] == f))
+        say(f"[resnet] {name}{'' if name == 'store-all' else f' at {f}'}: "
+            f"the simulator's largest op peaks "
+            + ", ".join(f"{k}^{l} {m:.6e} B" for m, k, l
+                        in op_peaks(resolve_policy(pol, cchain))[:3])
+            + f"; measured peak {got} B on {card}")
+    del cstages, cparams, cx, cchain, trade
+    torch.cuda.empty_cache()
+
+    # -- 14. MLA path ----------------------------------------------------------------
+    path_launches["mla"] = rotor_path(
+        "mla", MLA_ARCH, MLA_OVERRIDES, dcfg,
+        f"d_model {dcfg.d_model}, {dcfg.n_heads} MLA heads (latent "
+        f"{dcfg.kv_lora_rank}, qk {dcfg.qk_nope_head_dim}+"
+        f"{dcfg.qk_rope_head_dim}, v {dcfg.v_head_dim}), dense d_ff "
+        f"{dcfg.d_ff}, {dcfg.num_experts} experts top-{dcfg.moe_top_k} of "
+        f"d_ff {dcfg.moe_d_ff} and {dcfg.num_shared_experts} shared, vocab "
+        f"{dcfg.vocab_size}", (rms_ops.NAME,))
+
+    # -- 15. result lines ---------------------------------------------------------
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

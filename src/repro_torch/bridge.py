@@ -4,7 +4,9 @@ The port keeps the JAX ``StagedLM`` pytree layout exactly — the same nested
 dict keys, the chunk list, stacked ``(length, ...)`` chunk leaves and dense
 kernels as ``(in_dim, *out_dims)`` — so a leaf maps to a tensor of the same
 shape with no transpose, and gradients map back leaf by leaf on the same
-tree paths.
+tree paths.  The conv chain (``configs.paper_resnet``) is the exception: its
+kernels are HWIO in the JAX package and OIHW in the port, converted both
+ways by :func:`chain_params_from_numpy` and :func:`chain_grads_to_numpy`.
 """
 
 from __future__ import annotations
@@ -58,3 +60,19 @@ def params_to_numpy(tree: Any) -> Any:
     """Tensors (parameters or gradients) → float32 numpy leaves, same
     structure."""
     return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+def chain_params_from_numpy(params: Any, device) -> Any:
+    """The JAX conv chain's per-stage parameters (HWIO kernels as numpy
+    arrays) → the port's (OIHW float32 tensors on ``device``, requiring
+    grad), stage by stage with the same keys."""
+    return [{k: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(v, np.float32).transpose(3, 2, 0, 1))).to(device)
+        .requires_grad_() for k, v in p.items()} for p in params]
+
+
+def chain_grads_to_numpy(grads: Any) -> Any:
+    """Inverse of :func:`chain_params_from_numpy` for the port's per-stage
+    gradients: OIHW tensors → HWIO float32 numpy arrays."""
+    return [{k: v.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
+             for k, v in g.items()} for g in grads]

@@ -1,6 +1,6 @@
 """Architecture configs (the text archs of ``repro.configs.archs`` that the
-port trains: the dense four, the MoE, Mamba2 and the Zamba2 hybrid) and the
-smoke-reduction helper."""
+port trains: the dense four, the two MoE (one on MLA), Mamba2 and the
+Zamba2 hybrid) and the smoke-reduction helper."""
 
 from __future__ import annotations
 
@@ -60,6 +60,21 @@ def moonshot_16b_a3b(**ov) -> ModelConfig:
                        **{**_COMMON, **ov})
 
 
+def deepseek_v2_lite(**ov) -> ModelConfig:
+    # [moe] MLA kv_lora=512, 64 routed experts top-6 + 2 shared
+    # [arXiv:2405.04434; hf] (160 routed experts is the full V2)
+    return ModelConfig(name="deepseek-v2-lite-16b", num_layers=27,
+                       d_model=2048, n_heads=16, n_kv_heads=16,
+                       d_ff=10944,  # first (dense) layer FFN
+                       vocab_size=102400, attention_kind="mla",
+                       kv_lora_rank=512, qk_nope_head_dim=128,
+                       qk_rope_head_dim=64, v_head_dim=128,
+                       layer_kinds=("dense",) + ("moe",) * 26,
+                       num_experts=64, moe_top_k=6, moe_d_ff=1408,
+                       num_shared_experts=2, n_chunks=10,
+                       **{**_COMMON, **ov})
+
+
 def mamba2_13b(**ov) -> ModelConfig:
     # [ssm] SSD (state-space duality) [arXiv:2405.21060; unverified]
     return ModelConfig(name="mamba2-1.3b", num_layers=48, d_model=2048,
@@ -88,6 +103,7 @@ ARCHS: Dict[str, Callable[..., ModelConfig]] = {
     "starcoder2-7b": starcoder2_7b,
     "qwen1.5-110b": qwen15_110b,
     "moonshot-v1-16b-a3b": moonshot_16b_a3b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite,
     "mamba2-1.3b": mamba2_13b,
     "zamba2-2.7b": zamba2_27b,
 }

@@ -12,7 +12,10 @@ PyTorch stage functions, two ways:
 
 In both, the residual set ``ā`` of a stage is what autograd saves during
 its forward, observed with ``torch.autograd.graph.saved_tensors_hooks``, so
-the two give the same sizes for the same stages.
+the two give the same sizes for the same stages.  On CUDA the measured
+sizes are what the caching allocator may hold for those tensors
+(:func:`allocator_bytes`), which the analytic chain gives with
+``allocator=True``.
 :func:`measure_host_bandwidth` times the device↔host link that prices the
 host tier.
 """
@@ -26,7 +29,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..device import resolve_device
-from ..tree import tensors_of, tree_bytes
+from ..tree import tensors_of
 from .chain import Chain, HostTransferModel
 
 
@@ -76,6 +79,27 @@ def _base(t: torch.Tensor) -> torch.Tensor:
     return t if t._base is None else t._base
 
 
+def allocator_bytes(nbytes: int) -> int:
+    """The most PyTorch's CUDA caching allocator (default settings) may hold
+    for a storage of ``nbytes``: rounded up to 512 B, and above 1 MiB also
+    the up to 1 MiB that a free block it serves the request from keeps
+    unsplit.  The simulator counts each live tensor at this size, so that a
+    plan's predicted peak bounds the allocator's."""
+    rounded = -(-int(nbytes) // 512) * 512
+    return rounded + (1 << 20) if rounded > (1 << 20) else rounded
+
+
+def _sized(nbytes: Sequence[int], allocator: bool) -> int:
+    return sum(allocator_bytes(n) if allocator else n for n in nbytes)
+
+
+def _tree_size(tree: Any, allocator: bool) -> int:
+    """``tree_bytes``, each tensor at :func:`allocator_bytes` with
+    ``allocator``."""
+    return _sized([t.numel() * t.element_size() for t in tensors_of(tree)],
+                  allocator)
+
+
 def _fresh_input(tree: Any) -> Any:
     """A copy of an activation whose floating tensors are new leaves that
     require grad (so autograd saves what the input gradient needs)."""
@@ -88,13 +112,15 @@ def _fresh_input(tree: Any) -> Any:
     return tree
 
 
-def residual_bytes(fn: Callable, p: Any, a: Any) -> Tuple[Any, int]:
+def residual_bytes(fn: Callable, p: Any, a: Any,
+                   allocator: bool = False) -> Tuple[Any, int]:
     """``(fn(p, a), ω_ā)`` for one stage: the bytes of every storage autograd
     saves while running the stage, each counted once, leaving out the
     stage's own parameters and its input ``a^{l-1}`` (the paper removes
     model memory from the activation budget, and ``ā^l`` excludes
     ``a^{l-1}``).  Output tensors that were not saved are added, since
-    ``ā^l`` includes ``a^l``."""
+    ``ā^l`` includes ``a^l``.  With ``allocator``, each storage counts at
+    :func:`allocator_bytes`."""
     excluded = {id(_base(t)) for t in tensors_of(p) + tensors_of(a)}
     saved: Dict[int, torch.Tensor] = {}
 
@@ -114,7 +140,8 @@ def residual_bytes(fn: Callable, p: Any, a: Any) -> Tuple[Any, int]:
         b = _base(t)
         if id(b) not in excluded:
             saved.setdefault(id(b), b)
-    nbytes = tree_bytes(list(saved.values()))
+    nbytes = _sized([t.numel() * t.element_size() for t in saved.values()],
+                    allocator)
     saved.clear()    # the graph keeps the hook, the hook these tensors
     return out, nbytes
 
@@ -123,22 +150,24 @@ def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
                             x: Any, *, flops_fwd: Sequence[float],
                             flops_bwd: Sequence[float],
                             peak_flops: float,
-                            host: Optional[HostTransferModel] = None
-                            ) -> Chain:
+                            host: Optional[HostTransferModel] = None,
+                            allocator: bool = False) -> Chain:
     """Build the chain cost model from a forward on ``meta`` tensors:
     ``params`` and ``x`` should live on the meta device (parameters with
     ``requires_grad``).  ``uf``/``ub`` are ``flops / peak_flops`` seconds;
-    ``host`` prices the host tier (a measured link, or ``None``)."""
+    ``host`` prices the host tier (a measured link, or ``None``); with
+    ``allocator`` each tensor counts at :func:`allocator_bytes`, as the
+    measured chain counts it on CUDA."""
     if peak_flops <= 0:
         raise ValueError("peak_flops must be positive")
     n = len(stages)
-    wa, wabar = [tree_bytes(x)], []
+    wa, wabar = [_tree_size(x, allocator)], []
     a = x
     for i, (fn, p) in enumerate(zip(stages, params)):
-        out, res = residual_bytes(fn, p, _fresh_input(a))
+        out, res = residual_bytes(fn, p, _fresh_input(a), allocator)
         wabar.append(res)
         if i < n - 1:
-            wa.append(tree_bytes(out))
+            wa.append(_tree_size(out, allocator))
         a = out
     return Chain.make(uf=[f / peak_flops for f in flops_fwd],
                       ub=[f / peak_flops for f in flops_bwd],
@@ -276,7 +305,10 @@ def profile_stages_measured(stages: Sequence[Callable],
     phase), on the device ``params`` and ``x`` live on.
 
     - ``wa``/``wabar``: as :func:`profile_stages_analytic` counts them (the
-      same saved-tensor hook), so the two chains agree on sizes.
+      same saved-tensor hook), so the two chains agree on sizes; on CUDA
+      each tensor at :func:`allocator_bytes` (the analytic chain's
+      ``allocator=True``): the allocator's rounding of the tensors a plan
+      keeps is memory the card holds.
     - ``uf``/``ub``: after one pass that pays the kernel builds and cuBLAS
       workspaces, the median of ``repeats`` timings of the forward under
       grad and of the backward alone — CUDA events on CUDA, the host clock
@@ -292,11 +324,12 @@ def profile_stages_measured(stages: Sequence[Callable],
     leaves = tensors_of([list(params), x])
     dev = leaves[0].device if leaves else torch.device("cpu")
     n = len(stages)
+    alloc = dev.type == "cuda"
     uf, ub, of, ob = [], [], [], []
-    wa, wabar = [tree_bytes(x)], []
+    wa, wabar = [_tree_size(x, alloc)], []
     a = x
     for i, (fn, p) in enumerate(zip(stages, params)):
-        out, res = residual_bytes(fn, p, _fresh_input(a))
+        out, res = residual_bytes(fn, p, _fresh_input(a), alloc)
         del out
         wabar.append(res)
         _stage_pass(fn, p, a, dev)
@@ -308,6 +341,6 @@ def profile_stages_measured(stages: Sequence[Callable],
         if i < n - 1:
             with torch.no_grad():
                 a = fn(p, a)
-            wa.append(tree_bytes(a))
+            wa.append(_tree_size(a, alloc))
     return Chain.make(uf=uf, ub=ub, wa=wa, wabar=wabar, of=of, ob=ob,
                       host=host)

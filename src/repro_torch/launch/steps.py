@@ -32,16 +32,20 @@ def activation_budget_bytes(param_bytes: int, device: torch.device,
 
 def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                peak_flops: float,
-               host: Optional[HostTransferModel] = None) -> Chain:
+               host: Optional[HostTransferModel] = None,
+               allocator: bool = False) -> Chain:
     """Analytic rotor chain for (model × shape): activation and residual
-    sizes from a forward on ``meta`` tensors, times from analytic FLOPs over
-    ``peak_flops``, the host tier priced by ``host`` (a measured link)."""
+    sizes from a forward on ``meta`` tensors (each tensor at the CUDA
+    allocator's bound with ``allocator``, as :func:`measure_chain` counts
+    on CUDA), times from analytic FLOPs over ``peak_flops``, the host tier
+    priced by ``host`` (a measured link)."""
     B, S = batch_specs["tokens"].shape
     fwd, bwd = stage_flops(model.cfg, B, S)
     params = model.init(device="meta")
     return profile_stages_analytic(
         model.stage_fns(), model.stage_params(params), batch_specs,
-        flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops, host=host)
+        flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops, host=host,
+        allocator=allocator)
 
 
 def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
@@ -50,17 +54,17 @@ def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
     """Measured rotor chain for (model × batch) on the device ``params``
     and ``batch`` live on (:func:`profile_stages_measured` on the model's
     stages): measured times and, on CUDA, each stage's transient memory;
-    the sizes equal :func:`plan_chain`'s."""
+    the sizes equal :func:`plan_chain`'s (with ``allocator=True`` on
+    CUDA)."""
     return profile_stages_measured(model.stage_fns(),
                                    model.stage_params(params), batch,
                                    repeats=repeats, host=host)
 
 
-def _peak_allocated(leaves) -> Optional[int]:
-    """The CUDA allocator's peak since its last reset (``None`` off CUDA):
-    read on the host, with no synchronisation."""
+def _allocated(leaves) -> Optional[int]:
+    """The CUDA allocator's bytes in use now (``None`` off CUDA)."""
     dev = leaves[0].device
-    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
 
 
 def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
@@ -83,7 +87,7 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
     if chain is None:
         if peak_flops is None:
             raise ValueError(f"policy {policy!r} needs peak_flops to price "
-                             f"the stages")
+                             f"the analytic chain's stages, or a chain")
         chain = plan_chain(model, batch_specs, peak_flops, host=host)
 
     def auto_budget() -> float:
@@ -105,17 +109,36 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     ``grad_accum > 1`` splits the batch along its leading axis into
     microbatches and accumulates float32 gradients before the step.  On
     CUDA, ``metrics["grads_peak"]`` is the allocator's peak before the
-    optimizer runs and, with one microbatch, ``metrics["act_peak"]`` that
-    peak less the parameter gradients formed by then
-    (``core.planner.grad_with_peaks``)."""
+    optimizer runs and ``metrics["fwd_bwd_peak"]`` the largest, over the
+    microbatches, of each one's peak less the memory at its start and less
+    the parameter gradients it has made by then
+    (``core.planner.grad_with_peaks``; the running float32 sums are part
+    of the memory at its start); both ``None`` off CUDA.  The caller
+    resets the peak counter before the step."""
 
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
-        act_peak = None
+        dev = leaves[0].device
+        cuda = dev.type == "cuda"
+        peaks = {"all": 0, "fwd_bwd": 0}
+
+        def loss_and_grads(micro):
+            if cuda:
+                # the peak since the last reading (the gradient sums'
+                # temporaries), then this microbatch's own
+                peaks["all"] = max(peaks["all"],
+                                   torch.cuda.max_memory_allocated(dev))
+                start = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            loss = model.loss_fn(params, micro, tree=tree)
+            grads, peak, act = grad_with_peaks([loss], leaves, params=leaves)
+            if cuda:
+                peaks["all"] = max(peaks["all"], peak)
+                peaks["fwd_bwd"] = max(peaks["fwd_bwd"], act - start)
+            return loss, grads
+
         if grad_accum == 1:
-            loss = model.loss_fn(params, batch, tree=tree)
-            grads, grads_peak, act_peak = grad_with_peaks([loss], leaves,
-                                                          params=leaves)
+            loss, grads = loss_and_grads(batch)
         else:
             n = batch["tokens"].shape[0]
             if n % grad_accum:
@@ -124,23 +147,27 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
             mb = n // grad_accum
             lsum, gsum = 0.0, None
             for i in range(grad_accum):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                l = model.loss_fn(params, micro, tree=tree)
-                g = torch.autograd.grad(l, leaves)
+                l, g = loss_and_grads(
+                    {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
                 if gsum is None:
                     gsum = [x.float() for x in g]
                 else:
                     for s, x in zip(gsum, g):
                         s.add_(x.float())
                 lsum = lsum + l.detach()
+                del l, g
             loss = lsum / grad_accum
             grads = [(s / grad_accum).to(p.dtype)
                      for s, p in zip(gsum, leaves)]
-            grads_peak = _peak_allocated(leaves)
+        grads_peak = fwd_bwd = None
+        if cuda:
+            grads_peak = max(peaks["all"],
+                             torch.cuda.max_memory_allocated(dev))
+            fwd_bwd = peaks["fwd_bwd"]
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         metrics.update(loss=loss.detach(), grads_peak=grads_peak,
-                       act_peak=act_peak)
+                       fwd_bwd_peak=fwd_bwd)
         return metrics
 
     return train_step
@@ -153,24 +180,26 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
     walker — real copies to host memory and back — then one AdamW step in
     place.  The metrics add the step's ``host_peak_bytes``, the host bytes
     still parked after it (``host_bytes_after``, 0 for a sound schedule),
-    ``prefetch_wait_s`` and, on CUDA, ``grads_peak`` (as
-    :func:`make_train_step`)."""
+    ``prefetch_wait_s`` and, on CUDA, ``grads_peak`` and ``fwd_bwd_peak``
+    (as :func:`make_train_step`, from the walker's per-op peaks)."""
     stage_fns = model.stage_fns()
 
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
+        start = _allocated(leaves)
         hb, stats = HostBuffer(), {}
         loss, stage_grads, _ = execute_offload_schedule(
             schedule, stage_fns, model.stage_params(params), batch,
             host_buffer=hb, stats=stats)
-        grads_peak = _peak_allocated(leaves)
         lr = lr_fn(step) if lr_fn is not None else None
         grads = tensors_of(model.combine_stage_grads(stage_grads))
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         metrics.update(loss=loss.detach(), host_peak_bytes=hb.peak_bytes,
                        host_bytes_after=hb.bytes_in_use,
                        prefetch_wait_s=stats["prefetch_wait_s"],
-                       grads_peak=grads_peak)
+                       grads_peak=stats.get("peak_bytes"),
+                       fwd_bwd_peak=(None if start is None
+                                     else stats["act_peak_bytes"] - start))
         return metrics
 
     return train_step

@@ -1,10 +1,12 @@
 """The paper's trade-off (Figs 3–13) and its cost-model check (§5.3) on one
 device: ``python -m repro_torch.launch.tradeoff --arch <id> [...]``.
 
-For one :class:`StagedLM`, batch and device, the chain is measured once
-(:func:`~repro_torch.launch.steps.measure_chain`).  Then, at budgets of
-``0.45``, ``0.7`` and ``1.0`` times the measured store-all peak, four
-strategies are planned on that chain and run through
+For one chain of stages — a :class:`StagedLM` at a batch, or the paper's
+heterogeneous conv chain (``--arch paper-resnet``,
+:mod:`repro_torch.configs.paper_resnet`) — the chain is measured once
+(:func:`~repro_torch.core.planner.profile_stages_measured`).  Then, at
+budgets of ``0.45``, ``0.7`` and ``1.0`` times the measured store-all peak
+(for the conv chain the JAX package's list, ``paper_resnet.BUDGETS``), four strategies are planned on that chain and run through
 ``MemoryPlan.bind(...).value_and_grad``:
 
 - store-all (autograd's default; once, at its own peak);
@@ -13,17 +15,27 @@ strategies are planned on that chain and run through
 - ``revolve:B`` and ``rotor:B`` on the chosen DP fill.
 
 Each point is timed with CUDA events (the host clock off CUDA): one warm-up
-call, then the median of ``repeats``; its activation peak is the
-allocator's peak less the memory before the call and less the parameter
-gradients it returns (on CUDA only).  Each row prints the predicted time and
-peak (the simulator on the measured chain) beside the measured ones and the
-tokens per second; an infeasible point is printed as skipped.  Two summary
-lines follow: the mean absolute percentage error of the predicted against
-the measured times (paper §5.3: 7.8 %), and rotor's gain over the best
-sequential point at equal memory, from measured times at each budget and,
-as the JAX package's benchmark computes it, from predicted times with rotor
-planned at each sequential point's own predicted peak (paper §5.4: mean
-+17.2 %).
+call, then the median of ``repeats``.  Its activation peak (on CUDA only)
+comes from one more untimed call between them: the allocator's peak less
+the memory before the call and less the parameter gradients made by then
+(``core.planner.grad_with_peaks`` over the bound forward; the offload
+walker's own figure for a plan with host copies).  Each row prints the
+predicted time and peak (the simulator on the measured chain) beside the
+measured ones and the items (tokens, images) per second; an infeasible
+point is printed as skipped.  Two summary lines follow: the mean absolute
+percentage error of the predicted against the measured times (paper §5.3:
+7.8 %), and rotor's gain over the best sequential point at equal memory,
+from measured times at each budget and, as the JAX package's benchmark
+computes it, from predicted times with rotor planned at each sequential
+point's own predicted peak (paper §5.4: mean +17.2 %).
+
+    # the conv chain on the CPU, then at the paper's size on the card
+    python -m repro_torch.launch.tradeoff --arch paper-resnet --device cpu \\
+        --override '{"num_blocks": 6, "base_ch": 8, "image": 16}' \\
+        --global-batch 2 --solver-impl plain
+    python -m repro_torch.launch.tradeoff --arch paper-resnet \\
+        --override '{"num_blocks": 12, "base_ch": 64, "image": 224}' \\
+        --global-batch 64 --solver-impl cuda
 """
 
 from __future__ import annotations
@@ -37,39 +49,66 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..configs import get_config, smoke_config
+from ..configs import get_config, paper_resnet, smoke_config
 from ..core.baselines import best_periodic
 from ..core.chain import Chain
+from ..core.planner import (_fresh_input, grad_with_peaks,
+                            profile_stages_measured)
 from ..core.solver import solve_min_memory
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
 from ..models.lm import StagedLM
+from ..offload.executor import execute_offload_schedule
 from ..optim.adamw import global_norm
 from ..plan import InfeasiblePlanError, MemoryPlan, resolve_policy
-from ..tree import tensors_of, tree_bytes
-from .steps import measure_chain
+from ..tree import tensors_of
 
 BUDGETS = (0.45, 0.7, 1.0)
+
+
+def _activation_peak(plan: MemoryPlan, bound, stages: Sequence[Callable],
+                     params: Sequence[Any], x: Any,
+                     dev: torch.device) -> int:
+    """One untimed call's activation peak on CUDA: the allocator's peak less
+    the memory before the call and the parameter gradients made by then."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if bound.remat_expressible:
+        inp = _fresh_input(x)
+        with torch.enable_grad():
+            out = bound.forward(params, inp)
+        # a tensor several stages hold (a shared block) is one input
+        flat = list({id(t): t for t in tensors_of(list(params))}.values())
+        ins = [t for t in tensors_of(inp) if t.is_floating_point()]
+        _, _, act = grad_with_peaks([out], ins + flat, [torch.ones_like(out)],
+                                    params=flat, allow_unused=True)
+    else:
+        stats: dict = {}
+        execute_offload_schedule(plan.schedule, stages, params, x,
+                                 stats=stats)
+        act = stats["act_peak_bytes"]
+    return act - before
 
 
 def time_point(plan: MemoryPlan, stages: Sequence[Callable],
                params: Sequence[Any], x: Any, repeats: int = 3) -> dict:
     """``plan.bind(stages).value_and_grad(params, x)`` timed after one
-    warm-up call: ``{"seconds" (median of ``repeats``), "peak" (activation bytes, the largest; None off CUDA),
-    "loss", "grads"}`` (the last two of the last call, read outside the
-    timed region; ``grads`` per stage, as ``value_and_grad`` returns
-    them)."""
+    warm-up call: ``{"seconds" (median of ``repeats``), "peak" (activation
+    bytes of one more untimed call; None off CUDA), "loss", "grads"}`` (the
+    last two of the last call, read outside the timed region; ``grads`` per
+    stage, as ``value_and_grad`` returns them)."""
     bound = plan.bind(stages)
     dev = tensors_of([list(params), x])[0].device
     cuda = dev.type == "cuda"
     bound.value_and_grad(params, x)
-    times, peaks, out, grads = [], [], None, None
+    peak = (_activation_peak(plan, bound, stages, params, x, dev) if cuda
+            else None)
+    times, out, grads = [], None, None
     for _ in range(repeats):
         out = grads = None       # the previous call's results are freed
         if cuda:
             torch.cuda.synchronize(dev)
-            before = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -77,51 +116,51 @@ def time_point(plan: MemoryPlan, stages: Sequence[Callable],
         out, grads, _ = bound.value_and_grad(params, x)
         if cuda:
             end.record()
-            peaks.append(torch.cuda.max_memory_allocated(dev) - before
-                         - tree_bytes(grads))
             end.synchronize()
             times.append(start.elapsed_time(end) * 1e-3)
         else:
             times.append(time.perf_counter() - t0)
-    return {"seconds": statistics.median(times),
-            "peak": max(peaks) if cuda else None, "loss": float(out),
-            "grads": grads}
+    return {"seconds": statistics.median(times), "peak": peak,
+            "loss": float(out), "grads": grads}
 
 
-def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
-                 impl: Optional[str] = None, chain: Optional[Chain] = None,
-                 repeats: int = 3,
+def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
+                 *, items: int, impl: Optional[str] = None,
+                 chain: Optional[Chain] = None, repeats: int = 3,
+                 budgets: Sequence[float] = BUDGETS,
+                 combine_grads: Optional[Callable[[List[Any]], Any]] = None,
                  emit: Callable[[str], None] = print) -> Dict[str, Any]:
-    """Plan and run the four strategies at :data:`BUDGETS` × the store-all
-    peak of ``chain`` (measured here when not given); returns the chain,
-    the rows, the MAPE and both gains (``nan`` where no point allows
-    one)."""
+    """Plan and run the four strategies at ``budgets`` × the store-all peak
+    of ``chain`` (measured here on ``stages``, ``params`` and ``x`` when
+    not given); ``items`` (tokens, images) are processed per call, and
+    ``combine_grads`` turns the per-stage gradients into the tree whose
+    norm is reported (e.g. a shared block's parts summed).  Returns the
+    chain, the rows, the MAPE, both gains (``nan`` where no point allows
+    one) and the measured gain at each budget where both ran."""
     if chain is None:
-        chain = measure_chain(model, params, batch, repeats=repeats)
-    stages, sp = model.stage_fns(), model.stage_params(params)
-    tokens = batch["tokens"].numel()
+        chain = profile_stages_measured(stages, params, x, repeats=repeats)
     peak = chain.store_all_peak()
     rows: List[dict] = []
 
     def row(strategy: str, frac: float, plan: MemoryPlan) -> dict:
-        got = time_point(plan, stages, sp, batch, repeats)
-        # a shared block's per-stage parts are summed before the norm
+        got = time_point(plan, stages, params, x, repeats)
+        grads = got.pop("grads")
         gnorm = float(global_norm(tensors_of(
-            model.combine_stage_grads(got.pop("grads")))))
+            combine_grads(grads) if combine_grads is not None else grads)))
         seconds, measured_peak = got["seconds"], got["peak"]
         r = dict(strategy=strategy, budget_frac=frac,
                  budget_bytes=plan.budget_bytes,
                  predicted_s=plan.expected_time,
                  predicted_peak_bytes=plan.peak_device_mem,
                  measured_s=seconds, measured_peak_bytes=measured_peak,
-                 tokens_per_s=tokens / seconds, loss=got["loss"],
+                 items_per_s=items / seconds, loss=got["loss"],
                  grad_norm=gnorm)
         rows.append(r)
         emit(f"{strategy} at {frac:g} x store-all: predicted "
              f"{r['predicted_s']:.6e} s, peak "
              f"{r['predicted_peak_bytes']:.6e} B; measured "
              f"{seconds:.6e} s, peak {measured_peak} B; "
-             f"{r['tokens_per_s']:.1f} tok/s")
+             f"{r['items_per_s']:.1f} items/s")
         return r
 
     def plan_or_skip(policy: str, frac: float) -> Optional[MemoryPlan]:
@@ -135,10 +174,10 @@ def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
     floor = solve_min_memory(chain, impl=impl).mem_limit
     emit(f"chain L={chain.length}, store-all peak {peak:.6e} B, two-tier "
          f"min-memory {floor:.6e} B ({floor / peak:.4f} x store-all), "
-         f"budgets {list(BUDGETS)} x store-all, fill {impl or 'banded'}")
+         f"budgets {list(budgets)} x store-all, fill {impl or 'banded'}")
     row("store-all", 1.0, resolve_policy("none", chain))
     at: Dict[tuple, dict] = {}
-    for frac in BUDGETS:
+    for frac in budgets:
         budget = frac * peak
         got = best_periodic(chain, budget)
         if got is None:
@@ -156,9 +195,9 @@ def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
     mape = 100 * statistics.fmean(
         abs(r["predicted_s"] - r["measured_s"]) / r["measured_s"]
         for r in rows)
-    measured = [at["sequential", f]["measured_s"] / at["rotor", f]["measured_s"]
-                - 1 for f in BUDGETS
-                if ("sequential", f) in at and ("rotor", f) in at]
+    gain_at = {f: at["sequential", f]["measured_s"]
+               / at["rotor", f]["measured_s"] - 1 for f in budgets
+               if ("sequential", f) in at and ("rotor", f) in at}
     # the JAX package's headline: rotor planned at each sequential point's
     # predicted peak, with one slot per live value of slack for the DP's
     # ceil-discretization (§5.2)
@@ -174,24 +213,41 @@ def run_tradeoff(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
         except InfeasiblePlanError:
             continue
         predicted.append(r["predicted_s"] / plan.expected_time - 1)
+    measured = list(gain_at.values())
     gain_m = statistics.fmean(measured) if measured else math.nan
     gain_p = statistics.fmean(predicted) if predicted else math.nan
     emit(f"time prediction MAPE {mape:.2f} % over {len(rows)} points "
          f"(paper §5.3: 7.8 %)")
     emit(f"rotor over best sequential at equal memory: measured "
-         f"{100 * gain_m:+.2f} % over {len(measured)} budgets, predicted "
-         f"{100 * gain_p:+.2f} % over {len(predicted)} points (paper §5.4: "
-         f"mean +17.2 %)")
+         f"{100 * gain_m:+.2f} % over {len(measured)} budgets ("
+         + ", ".join(f"{f:g}: {100 * g:+.2f} %" for f, g in gain_at.items())
+         + f"), predicted {100 * gain_p:+.2f} % over {len(predicted)} points "
+         f"(paper §5.4: mean +17.2 %)")
     return {"chain": chain, "rows": rows, "mape_percent": mape,
-            "gain_measured": gain_m, "gain_predicted": gain_p}
+            "gain_measured": gain_m, "gain_predicted": gain_p,
+            "gain_measured_at": gain_at}
+
+
+def run_lm_tradeoff(model: StagedLM, params: Any,
+                    batch: Dict[str, torch.Tensor], **kwargs
+                    ) -> Dict[str, Any]:
+    """:func:`run_tradeoff` on a :class:`StagedLM`'s stages at ``batch``:
+    items are tokens, and the norm sums a shared block's per-stage parts."""
+    return run_tradeoff(model.stage_fns(), model.stage_params(params), batch,
+                        items=batch["tokens"].numel(),
+                        combine_grads=model.combine_stage_grads, **kwargs)
 
 
 def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="an LM arch id, or paper-resnet (the paper's "
+                         "heterogeneous conv chain)")
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced same-family config (CPU-sized)")
-    ap.add_argument("--override", default=None, help="JSON config overrides")
+                    help="reduced same-family LM config (CPU-sized)")
+    ap.add_argument("--override", default=None,
+                    help="JSON config overrides (paper-resnet: num_blocks, "
+                         "base_ch, image)")
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--solver-impl", default=None,
@@ -203,19 +259,27 @@ def main(argv=None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     ov = {k: tuple(v) if isinstance(v, list) else v
           for k, v in json.loads(args.override or "{}").items()}
+    dev = resolve_device(args.device)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else str(dev))
+    kw = dict(impl=args.solver_impl,
+              emit=lambda s: print(f"[tradeoff] {s}", flush=True))
+    if args.arch == paper_resnet.ARCH:
+        stages, params, x = paper_resnet.config(
+            batch=args.global_batch, seed=args.seed, device=dev, **ov)
+        print(f"[tradeoff] {args.arch} {len(stages) - 1} blocks, input "
+              f"{tuple(x.shape)} on {where}", flush=True)
+        return run_tradeoff(stages, params, x, items=x.shape[0],
+                            budgets=paper_resnet.BUDGETS, **kw)
     cfg = (smoke_config(args.arch, **ov) if args.smoke
            else get_config(args.arch, **ov))
-    dev = resolve_device(args.device)
     model = StagedLM(cfg)
     params = model.init(args.seed, dev)
     batch = SyntheticLMData(cfg, args.global_batch, args.seq_len,
                             seed=args.seed).device_batch(0, dev)
-    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-             else str(dev))
     print(f"[tradeoff] {cfg.name} {cfg.num_layers} layers, batch "
           f"{args.global_batch} x {args.seq_len} on {where}", flush=True)
-    return run_tradeoff(model, params, batch, impl=args.solver_impl,
-                        emit=lambda s: print(f"[tradeoff] {s}", flush=True))
+    return run_lm_tradeoff(model, params, batch, **kw)
 
 
 if __name__ == "__main__":

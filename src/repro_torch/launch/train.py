@@ -1,15 +1,24 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Runs on one CUDA device unless ``--device cpu`` is given.  Example (the
-full-width Qwen1.5-4B cut to 8 layers, under a rotor plan solved on the CUDA
-band-min kernel)::
+Runs on one CUDA device unless ``--device cpu`` is given.  On CUDA the plan
+is solved on the chain measured on the model's weights and the first batch
+(the paper's §5.1 measurement); on the CPU on the analytic chain, whose
+stage times are FLOPs over ``--peak-flops``.  Example (the full-width
+Qwen1.5-4B cut to 8 layers, under a rotor plan solved on the CUDA band-min
+kernel)::
 
     python -m repro_torch.launch.train --arch qwen1.5-4b \\
         --override '{"num_layers": 8, "layer_kinds": ["dense", "dense",
                      "dense", "dense", "dense", "dense", "dense", "dense"],
                      "n_chunks": 8, "use_flash_attention": true}' \\
         --global-batch 4 --seq-len 2048 --steps 3 \\
-        --policy rotor:x0.5 --solver-impl cuda --peak-flops 7e14
+        --policy rotor:x0.5 --solver-impl cuda
+
+and on the CPU at the smoke width::
+
+    python -m repro_torch.launch.train --arch qwen1.5-4b --smoke \\
+        --device cpu --global-batch 2 --seq-len 32 --steps 3 \\
+        --policy rotor:x0.7 --peak-flops 1e12
 
 ``--policy optimal_offload:BUDGET:BW`` plans three tiers (device, host,
 recompute) with a host link of ``BW`` bytes/s (measure it on the card) and
@@ -51,8 +60,9 @@ def parse(argv=None) -> Tuple[ModelConfig, TrainLoopConfig, str]:
                          "CUDA band-min kernels (one launch per band), or "
                          "the whole fill on the card (default: banded)")
     ap.add_argument("--peak-flops", type=float, default=None,
-                    help="FLOP/s that price the chain's stages (needed by "
-                         "every policy but none)")
+                    help="FLOP/s that price the analytic chain's stages: "
+                         "needed off CUDA by every policy but none (on CUDA "
+                         "the plan is solved on the measured chain)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--override", default=None, help="JSON config overrides")
     args = ap.parse_args(argv)

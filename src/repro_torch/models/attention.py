@@ -1,10 +1,10 @@
-"""GQA/MQA attention (+RoPE, optional QKV bias) — the GQA training path of
-``repro.models.attention``.
+"""Attention: GQA/MQA (+RoPE, optional QKV bias) and DeepSeek-style MLA —
+the training paths of ``repro.models.attention``.
 
 Masking is spec-driven; the causal flash path (:mod:`..kernels.flash_attention`)
-is taken exactly where the JAX package takes it, and otherwise the scores are
-computed directly for sequences up to ``DIRECT_ATTEND_MAX``.  The q-block
-chunked path for longer sequences is not ported yet.
+is taken exactly where the JAX package takes it (GQA only), and otherwise the
+scores are computed directly for sequences up to ``DIRECT_ATTEND_MAX``.  The
+q-block chunked path for longer sequences is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.flash_attention import ops as flash_ops
-from .common import apply_rope, dense_apply, dense_init
+from .common import apply_rope, dense_apply, dense_init, rms_norm
 
 Params = Dict[str, Any]
 
@@ -106,3 +106,69 @@ def gqa_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     out = _attend(q, k, v, spec, use_flash=cfg.use_flash_attention
                   and spec.causal and not spec.prefix_len and not spec.window)
     return dense_apply(p["wo"], out.reshape(B, S, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+# The -Lite variant: no query compression; K/V compressed to a rank-
+# ``kv_lora_rank`` latent plus one rotary key shared by the heads.  A stage
+# saves the latent and the shared key instead of per-head K/V, so its ā
+# differs sharply from a GQA stage's.
+
+def mla_init(gen: torch.Generator, cfg, dtype, device) -> Params:
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init(gen, d, (H, dn + dr), dtype, device),
+        "wkv_a": dense_init(gen, d, r + dr, dtype, device),
+        "kv_norm": {"scale": torch.ones((r,), dtype=dtype, device=device)},
+        "wk_b": dense_init(gen, r, (H, dn), dtype, device),
+        "wv_b": dense_init(gen, r, (H, dv), dtype, device),
+        "wo": dense_init(gen, H * dv, d, dtype, device, scale=1.0 / math.sqrt(
+            H * dv * max(cfg.num_layers, 1))),
+    }
+
+
+def _mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q = dense_apply(p["wq"], x)                              # (B,S,H,dn+dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = dense_apply(p["wkv_a"], x)                          # (B,S,r+dr)
+    c_kv = rms_norm(p["kv_norm"], kv[..., :r])
+    k_rope = apply_rope(kv[:, :, None, r:], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope          # k_rope: (B,S,1,dr)
+
+
+def _mla_block(p: Params, cfg, q_nope, q_rope, c_kv, k_rope, q0: int,
+               spec: MaskSpec) -> torch.Tensor:
+    """Latent-space attention (the up-projection of K absorbed into the
+    query, that of V applied to the latent context); float32 scores."""
+    bq, S = q_nope.shape[1], c_kv.shape[1]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                         p["wk_b"]["kernel"].to(q_nope.dtype))
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv.float())
+              + torch.einsum("bqhd,bsod->bhqs", q_rope.float(),
+                             k_rope.float()))
+    logits = logits / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_pos = q0 + torch.arange(bq, device=c_kv.device)[:, None]
+    k_pos = torch.arange(S, device=c_kv.device)[None, :]
+    logits = torch.where(spec.block(q_pos, k_pos), logits,
+                         torch.full((), NEG, device=c_kv.device))
+    probs = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)        # latent context
+    return torch.einsum("bqhr,rhd->bqhd", ctx,
+                        p["wv_b"]["kernel"].to(ctx.dtype))
+
+
+def mla_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+              spec: MaskSpec) -> torch.Tensor:
+    B, Sq, _ = x.shape
+    if Sq > DIRECT_ATTEND_MAX:
+        raise NotImplementedError(
+            f"the q-block chunked MLA path (Sq > {DIRECT_ATTEND_MAX}) is not "
+            f"ported")
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    out = _mla_block(p, cfg, q_nope, q_rope, c_kv, k_rope, 0, spec)
+    return dense_apply(p["wo"], out.reshape(B, Sq, -1))

@@ -1,7 +1,7 @@
-"""Analytic per-stage FLOP counts (the GQA text-model part of
-``repro.models.flops``: dense, MoE, Mamba2 and Zamba2 layers, the Zamba2
-shared block) — the rotor planner's ``u_f``/``u_b`` without running
-anything.
+"""Analytic per-stage FLOP counts (the text-model part of
+``repro.models.flops``: dense and MoE layers on GQA or MLA attention,
+Mamba2 and Zamba2 layers, the Zamba2 shared block) — the rotor planner's
+``u_f``/``u_b`` without running anything.
 
 Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
 at full (non-causal) cost.  Backward ≈ 2× forward, +1× when the per-layer
@@ -14,6 +14,14 @@ from typing import List, Tuple
 
 
 def _attn_flops(cfg, B: int, S: int) -> float:
+    if cfg.attention_kind == "mla":
+        d, H = cfg.d_model, cfg.n_heads
+        dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+        proj = 2 * B * S * d * (H * (dn + dr) + r + dr + H * dv)
+        absorb = 2 * B * S * H * dn * r + 2 * B * S * H * r * dv
+        attn = 2 * B * S * S * H * (r + dr) + 2 * B * S * S * H * r
+        return proj + absorb + attn
     d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     proj = 2 * B * S * d * (H * Dh + 2 * K * Dh) + 2 * B * S * H * Dh * d
     attn = 2 * B * S * S * H * Dh * 2
@@ -50,9 +58,6 @@ def _mamba_flops(cfg, B: int, S: int) -> float:
 
 
 def _layer_flops(cfg, kind: str, B: int, S: int) -> float:
-    if cfg.attention_kind != "gqa":
-        raise NotImplementedError(
-            f"FLOPs of {cfg.attention_kind!r} attention are not ported")
     if kind == "dense":
         return _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
     if kind == "moe":

@@ -8,16 +8,16 @@ layout: each chunk's layer parameters are **stacked** along a leading
 scans it).  With ``scan_layer_remat="full"`` each layer runs under its own
 checkpoint.  Layer kinds:
 
-- ``dense`` — GQA attention + MLP;
-- ``moe``   — GQA attention + the shared/routed MoE (its Switch aux loss is
+- ``dense`` — attention (GQA, or MLA with ``attention_kind="mla"``) + MLP;
+- ``moe``   — attention + the shared/routed MoE (its Switch aux loss is
   summed along the chain and added to the loss in the head);
 - ``mamba`` — the Mamba2 SSD mixer;
 - ``zamba`` — a Mamba2 layer; a chunk that starts a ``hybrid_period`` first
-  runs the *shared* attention+MLP block (Zamba2), whose one set of
-  parameters every such chunk stage holds, so its gradient is the sum over
-  the chunks.
+  runs the *shared* attention+MLP block (Zamba2, always GQA), whose one
+  set of parameters every such chunk stage holds, so its gradient is the
+  sum over the chunks.
 
-MLA, VLM/audio stages and the serving methods are not ported yet.
+VLM/audio stages and the serving methods are not ported yet.
 """
 
 from __future__ import annotations
@@ -164,11 +164,13 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 def _attn_block_init(gen: torch.Generator, cfg, dt, device,
-                     ffn: str = "mlp") -> Params:
+                     ffn: str = "mlp", mla: bool = False) -> Params:
     """Pre-norm attention + feed-forward: the dense block (also Zamba2's
-    shared block) and the MoE block (``ffn="moe"``)."""
+    shared block) and the MoE block (``ffn="moe"``), with MLA attention
+    where ``mla``."""
+    a_init = attn.mla_init if mla else attn.gqa_init
     p = {"ln1": rms_norm_init(cfg.d_model, dt, device),
-         "attn": attn.gqa_init(gen, cfg, dt, device),
+         "attn": a_init(gen, cfg, dt, device),
          "ln2": rms_norm_init(cfg.d_model, dt, device)}
     if ffn == "moe":
         p["moe"] = mlp_mod.moe_init(gen, cfg, dt, device)
@@ -184,7 +186,8 @@ def _block_init(gen: torch.Generator, cfg, kind: str, device) -> Params:
         return {"ln": rms_norm_init(cfg.d_model, dt, device),
                 "mixer": m2.mamba2_init(gen, cfg, dt, device)}
     return _attn_block_init(gen, cfg, dt, device,
-                            "moe" if kind == "moe" else "mlp")
+                            "moe" if kind == "moe" else "mlp",
+                            mla=cfg.attention_kind == "mla")
 
 
 def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
@@ -193,8 +196,8 @@ def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
     the other kinds."""
     if kind in ("mamba", "zamba"):
         return h + m2.mamba2_apply(p["mixer"], cfg, rms_norm(p["ln"], h)), None
-    h = h + attn.gqa_apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
-                           mask)
+    a_apply = attn.mla_apply if cfg.attention_kind == "mla" else attn.gqa_apply
+    h = h + a_apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions, mask)
     if kind == "moe":
         y, aux = mlp_mod.moe_apply(p["moe"], cfg, rms_norm(p["ln2"], h))
         return h + y, aux
@@ -210,12 +213,15 @@ def _stack(trees: List[Params]) -> Params:
 
 def _check_supported(cfg) -> None:
     kinds = set(cfg.layer_kinds)
-    if (cfg.modality != "text" or cfg.attention_kind != "gqa"
-            or not kinds <= {"dense", "moe", "mamba", "zamba"}
+    allowed = ({"dense", "moe", "mamba", "zamba"}
+               if cfg.attention_kind == "gqa" else {"dense", "moe"})
+    if (cfg.modality != "text" or cfg.attention_kind not in ("gqa", "mla")
+            or not kinds <= allowed
             or cfg.scan_layer_remat not in ("none", "full")):
         raise NotImplementedError(
-            f"{cfg.name}: only text models with GQA attention and dense, MoE, "
-            f"Mamba2 and Zamba2 layers are ported (modality={cfg.modality}, "
+            f"{cfg.name}: only text models with dense, MoE, Mamba2 and "
+            f"Zamba2 layers on GQA attention, or dense and MoE layers on MLA, "
+            f"are ported (modality={cfg.modality}, "
             f"attention={cfg.attention_kind}, kinds={sorted(kinds)}, "
             f"scan_layer_remat={cfg.scan_layer_remat})")
 

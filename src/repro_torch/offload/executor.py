@@ -19,6 +19,13 @@
 
 The host copies live in a :class:`~repro_torch.offload.host_buffer.HostBuffer`;
 pass one in to bound host memory or read its byte-exact peak.
+
+On CUDA, asked for ``stats``, the walker also reads the allocator's peak
+over each op's span and resets the counter after it.  A parameter gradient
+counts from the end of the autograd node that makes it
+(``core.planner.grad_with_peaks`` runs each ``B``), so the activation peak
+it reports leaves out only the gradients already made, as the measured
+chain's ``ob`` does.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..core.planner import _fresh_input
+from ..core.planner import _fresh_input, grad_with_peaks
 from ..core.schedule import BWD, F_ALL, F_CK, F_NONE, F_OFF, PREFETCH, Schedule
 from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from .host_buffer import HostBuffer
@@ -45,6 +52,13 @@ def _unique_bytes(tensors) -> int:
         st = t.untyped_storage()
         seen[st.data_ptr()] = st.nbytes()
     return sum(seen.values())
+
+
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, asynchronously (a function,
+    so that no loop variable keeps a tensor alive after the copy)."""
+    for d, t in zip(tensors_of(dst), tensors_of(src)):
+        d.copy_(t, non_blocking=True)
 
 
 def execute_offload_schedule(
@@ -64,7 +78,11 @@ def execute_offload_schedule(
     the walker's device-side saved set (activations, ``ā`` outputs and
     autograd residuals, pending gradients; parameters excluded).  ``stats``,
     if given, receives ``prefetch_wait_s`` (seconds the compute stream
-    waited on prefetches) and ``prefetches``."""
+    waited on prefetches) and ``prefetches``; on CUDA also ``peak_bytes``,
+    the allocator's largest peak over the ops' spans, and
+    ``act_peak_bytes``, the largest of each span's peak less the parameter
+    gradients made by then (both absolute: the memory before the call
+    included), for which the peak counter is reset at every op."""
     L = schedule.length
     hb = host_buffer if host_buffer is not None else HostBuffer()
     first = tensors_of(x)[0]
@@ -82,6 +100,12 @@ def execute_offload_schedule(
     peak_live = 0
     param_ids = {t.untyped_storage().data_ptr()
                  for t in tensors_of(list(params))}
+    # the allocator's peaks: the largest, and the largest less the parameter
+    # gradients made by then
+    peaks = {"peak": 0, "act": 0, "grads": 0}
+    track_peaks = cuda and stats is not None
+    if track_peaks:
+        torch.cuda.reset_peak_memory_stats(first.device)
 
     def get_act(i: int):
         if i in acts:
@@ -115,6 +139,7 @@ def execute_offload_schedule(
                                 if isinstance(t, torch.Tensor) else t,
                                 acts[i])
             hb.put(i, host, nbytes=tree_bytes(host))
+            del host
         elif kind == PREFETCH:
             i = int(l)
             if i in acts:
@@ -132,18 +157,19 @@ def execute_offload_schedule(
                 side.wait_stream(compute)
                 side.wait_event(landed.pop(i))
                 with torch.cuda.stream(side):
-                    for d_, h in zip(tensors_of(dst), tensors_of(host)):
-                        d_.copy_(h, non_blocking=True)
+                    _copy_into(dst, host)
                 done = torch.cuda.Event()
                 done.record(side)
                 compute.wait_event(done)
                 t1.record(compute)
                 waits.append((t0, t1))
                 acts[i] = dst
+                del dst
             else:
                 t0 = time.perf_counter()
                 acts[i] = host
                 waits.append(time.perf_counter() - t0)
+            del host
         elif kind in (F_NONE, F_CK, F_ALL):
             a_in = get_act(l - 1)
             if kind == F_ALL:
@@ -162,9 +188,14 @@ def execute_offload_schedule(
                     out = stages[l - 1](params[l - 1], a_in)
                 acts[l] = out
             if l == L + 1:
-                final_out = out
+                # the value only: the loss's graph would keep its
+                # AccumulateGrad nodes, so the head's input, alive
+                final_out = tree_map(lambda t: t.detach()
+                                     if isinstance(t, torch.Tensor) else t,
+                                     out)
             if kind == F_NONE:
                 acts.pop(l - 1, None)
+            del a_in, out
         elif kind == BWD:
             out, inp, _ = saved.pop(l)
             outs = _float_leaves(out)
@@ -176,8 +207,12 @@ def execute_offload_schedule(
             pairs = [(o, g) for o, g in zip(outs, delta) if o.requires_grad]
             ins = _float_leaves(inp)
             ps = tensors_of(params[l - 1])
-            got = torch.autograd.grad([o for o, _ in pairs], ins + ps,
-                                      [g for _, g in pairs], allow_unused=True)
+            args = ([o for o, _ in pairs], ins + ps, [g for _, g in pairs])
+            if track_peaks:
+                got, peak, act = grad_with_peaks(*args, params=ps,
+                                                 allow_unused=True)
+            else:
+                got = torch.autograd.grad(*args, allow_unused=True)
             got = [torch.zeros_like(t) if g is None else g
                    for t, g in zip(ins + ps, got)]
             dps = got[len(ins):]
@@ -186,8 +221,19 @@ def execute_offload_schedule(
             grads[l - 1] = with_tensors(params[l - 1], dps)
             deltas[l - 1] = got[:len(ins)]
             acts.pop(l - 1, None)          # B^l consumes a^{l-1}
+            # B^l's output holds its graph, whose AccumulateGrad nodes hold
+            # the input leaves: drop it and δ^l before the next op
+            del out, inp, outs, delta, pairs, ins, args, got
         else:
             raise ValueError(f"offload executor cannot run op kind {kind}")
+        if track_peaks:
+            if kind != BWD:
+                peak = act = torch.cuda.max_memory_allocated(first.device)
+            peaks["peak"] = max(peaks["peak"], peak)
+            peaks["act"] = max(peaks["act"], act - peaks["grads"])
+            if kind == BWD:       # stage l-1's gradients exist from here
+                peaks["grads"] += tree_bytes(dps)
+            torch.cuda.reset_peak_memory_stats(first.device)
         if track_live_bytes:
             live = tensors_of([acts, deltas]) + [
                 t for o, i_, r in saved.values()
@@ -204,6 +250,9 @@ def execute_offload_schedule(
             waits = [a.elapsed_time(b) / 1e3 for a, b in waits]
         stats["prefetch_wait_s"] = float(sum(waits))
         stats["prefetches"] = len(waits)
+        if track_peaks:
+            stats["peak_bytes"] = peaks["peak"]
+            stats["act_peak_bytes"] = peaks["act"]
     dx = with_tensors(x, deltas[0], floating_only=True)
     if track_live_bytes:
         return final_out, grads, dx, peak_live

@@ -16,7 +16,8 @@ from ..core.chain import Chain
 from ..core.rematerialize import count_checkpoint_scopes
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
-from ..launch.steps import make_offload_step, make_train_step, plan_training
+from ..launch.steps import (make_offload_step, make_train_step,
+                            measure_chain, plan_training)
 from ..models.lm import StagedLM
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
@@ -45,25 +46,38 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                  chain: Optional[Chain] = None) -> Dict[str, Any]:
     """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
     otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
-    seeded initialization; ``chain`` (e.g. a measured one,
-    ``launch.steps.measure_chain``) replaces the analytic chain the plan is
-    solved on.  A plan with host offloads runs on the eager offload step
-    (``grad_accum`` must be 1).  Returns the losses, the plan and chain, the
-    final state, and per-step records ``{"loss", "seconds", "tokens_per_s",
-    "activation_peak_bytes", "fwd_bwd_peak_bytes", "host_peak_bytes",
-    "host_bytes_after", "prefetch_wait_s"}``.  ``activation_peak_bytes`` is
-    the step's allocator peak less parameters, gradients and moments, the
-    optimizer's temporaries included; ``fwd_bwd_peak_bytes`` the peak of
-    the loss and gradients alone above the memory at the step's start, less
-    the parameter gradients formed by then (every parameter gradient on
-    the offload step and with ``grad_accum`` > 1) — what the plan's
-    predicted activation peak describes.  Both are ``None`` off CUDA, the
-    host fields ``None`` without offloads.  A loss that is not finite
-    raises ``FloatingPointError``."""
+    seeded initialization.  The plan is solved on ``chain`` if one is given
+    (e.g. a calibrated one); otherwise, on CUDA, on the chain measured on
+    these parameters and the first batch (``launch.steps.measure_chain``,
+    the paper's §5.1 measurement), and elsewhere on the analytic chain
+    priced at ``loop.peak_flops``.  A plan with host offloads runs on the
+    eager offload step (``grad_accum`` must be 1).  Returns the losses, the
+    plan and chain, the final state, and per-step records ``{"loss",
+    "seconds", "tokens_per_s", "activation_peak_bytes",
+    "fwd_bwd_peak_bytes", "host_peak_bytes", "host_bytes_after",
+    "prefetch_wait_s"}``.  ``activation_peak_bytes`` is the step's
+    allocator peak less parameters, gradients and moments, the optimizer's
+    temporaries included; ``fwd_bwd_peak_bytes`` the peak of the loss and
+    gradients alone above the memory at the step's start (at each
+    microbatch's start with ``grad_accum`` > 1), less the parameter
+    gradients made by then — what the plan's predicted activation peak
+    describes.  Both are ``None`` off CUDA, the host fields ``None``
+    without offloads.  A loss that is not finite raises
+    ``FloatingPointError``."""
     dev = resolve_device(device)
     model = StagedLM(cfg)
+    if params is None:
+        params = model.init(loop.seed, dev)
+    data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
+                           seed=loop.seed)
+    policy = loop.policy if loop.policy is not None else cfg.remat_policy
+    if chain is None and dev.type == "cuda" and policy != "none":
+        t0 = time.perf_counter()
+        chain = measure_chain(model, params, data.device_batch(0, dev))
+        log_fn(f"[plan] chain of {chain.length + 1} stages measured on "
+               f"{dev} in {time.perf_counter() - t0:.2f}s")
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
-    plan, chain = plan_training(model, input_specs(cfg, shape), loop.policy,
+    plan, chain = plan_training(model, input_specs(cfg, shape), policy,
                                 peak_flops=loop.peak_flops,
                                 num_slots=loop.num_slots,
                                 impl=loop.solver_impl, device=dev,
@@ -81,8 +95,6 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     elif plan is not None:
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
                f"over {model.n_stages()} stages\n{plan.summary()}")
-    if params is None:
-        params = model.init(loop.seed, dev)
     leaves = tensors_of(params)
     opt_state = adamw_init(leaves)
     opt_cfg = AdamWConfig(lr=loop.lr)
@@ -92,8 +104,6 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     else:
         step_fn = make_train_step(model, opt_cfg, tree, lr_fn,
                                   grad_accum=loop.grad_accum)
-    data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
-                           seed=loop.seed)
     # parameters + gradients + the two float32 moments
     param_bytes = tree_bytes(params)
     static_bytes = 2 * param_bytes + tree_bytes(opt_state["mu"]) * 2
@@ -106,7 +116,6 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         metrics = step_fn(params, opt_state, batch, step)
         loss = float(metrics["loss"])  # waits for the step
@@ -122,12 +131,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         rec = {"loss": loss, "seconds": seconds,
                "tokens_per_s": tokens / seconds,
                "activation_peak_bytes": peak,
-               "fwd_bwd_peak_bytes": None}
-        if cuda:
-            rec["fwd_bwd_peak_bytes"] = (
-                metrics["act_peak"] - before
-                if metrics.get("act_peak") is not None
-                else metrics["grads_peak"] - before - param_bytes)
+               "fwd_bwd_peak_bytes": metrics["fwd_bwd_peak"]}
         for key in ("host_peak_bytes", "host_bytes_after", "prefetch_wait_s"):
             rec[key] = metrics.get(key)
         records.append(rec)

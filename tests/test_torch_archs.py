@@ -1,13 +1,14 @@
-"""The port's five newer arch configs — codeqwen1.5-7b, starcoder2-7b,
-qwen1.5-110b (dense), moonshot-v1-16b-a3b (MoE) and zamba2-2.7b (Mamba2 +
-shared attention) — against the JAX package's: every config field (dtypes
+"""The port's six newer arch configs — codeqwen1.5-7b, starcoder2-7b,
+qwen1.5-110b (dense), moonshot-v1-16b-a3b (MoE), zamba2-2.7b (Mamba2 +
+shared attention) and deepseek-v2-lite-16b (MoE on MLA) — against the JAX
+package's: every config field (dtypes
 mapped by name), the chunking and stage count of the published-depth chain
 (the port's profiled on ``meta`` tensors), the planner's analytic FLOPs per
 stage (published and smoke size), and for the dense three the smoke
 model's loss and gradients with weights bridged through numpy (float32 on
 the CPU; loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5, as
 ``tests/test_torch_model.py``).  The archs the port does not train yet
-(MLA, the VLM and audio stubs) still raise."""
+(the VLM and audio stubs) still raise."""
 
 import dataclasses
 
@@ -36,7 +37,8 @@ from repro_torch.models.lm import StagedLM as PLM  # noqa: E402
 from repro_torch.tree import tensors_of, tree_map  # noqa: E402
 
 DENSE = ("codeqwen1.5-7b", "starcoder2-7b", "qwen1.5-110b")
-NEW = DENSE + ("moonshot-v1-16b-a3b", "zamba2-2.7b")
+NEW = DENSE + ("moonshot-v1-16b-a3b", "zamba2-2.7b",
+               "deepseek-v2-lite-16b")
 B, S = 2, 16
 
 
@@ -73,7 +75,7 @@ def test_arch_matches_jax(arch):
         pcfg, ShapeSpec("t", "train", 64, 1)), 1e15)
     assert chain.length + 1 == JLM(jcfg).n_stages() == len(jcfg.chunks) + 2
     if arch not in DENSE:
-        return       # test_torch_moe.py and test_torch_zamba.py hold these
+        return       # test_torch_{moe,zamba,mla}.py hold these
     jcfg, pcfg = jsmoke(arch), psmoke(arch)
     jparams = jax.jit(JLM(jcfg).init)(jax.random.PRNGKey(0))
     batch = SyntheticLMData(jcfg, B, S, seed=0).batch_at(0)
@@ -96,8 +98,7 @@ def test_arch_matches_jax(arch):
                                    atol=1e-5, err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "paligemma-3b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
 def test_unported_archs_still_raise(arch):
     with pytest.raises(NotImplementedError):
         PLM(_port_config(jget(arch)))

@@ -205,8 +205,8 @@ def test_tradeoff_launcher_on_the_cpu():
     1e-5, float32), its predictions are the simulator's on the measured
     chain, and it names the skipped points."""
     lines = []
-    out = tradeoff.run_tradeoff(*_smoke_model(), impl="plain", repeats=1,
-                                emit=lines.append)
+    out = tradeoff.run_lm_tradeoff(*_smoke_model(), impl="plain",
+                                   repeats=1, emit=lines.append)
     rows, chain = out["rows"], out["chain"]
     assert rows[0]["strategy"] == "store-all"
     assert {r["strategy"].split("(")[0] for r in rows} >= {

@@ -41,7 +41,7 @@ from repro_torch.core.executor import reference_grads  # noqa: E402
 from repro_torch.core.planner import (grad_with_peaks,  # noqa: E402
                                       measure_host_bandwidth,
                                       profile_stages_measured)
-from repro_torch.core.schedule import Schedule  # noqa: E402
+from repro_torch.core.schedule import Schedule, simulate  # noqa: E402
 from repro_torch.core.solver import solve_min_memory  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.dp_fill import ops as dp_ops  # noqa: E402
@@ -59,6 +59,7 @@ from repro_torch.models.lm import StagedLM  # noqa: E402
 from repro_torch.offload.solver import (solve_min_device_memory,  # noqa: E402
                                         solve_optimal_offload)
 from repro_torch.plan import resolve_policy  # noqa: E402
+from repro_torch.tree import tensors_of  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -493,6 +494,148 @@ def test_grad_with_peaks_subtracts_only_gradients_already_made(dev):
     grads, peak, act = grad_with_peaks([loss], [w, x], params=[w])
     assert act == peak - n * 4
     assert torch.equal(grads[0], x.detach())
+
+
+def test_measured_sizes_count_the_allocator_bound(dev):
+    """On CUDA the measured chain counts each tensor at the caching
+    allocator's bound (``core.planner.allocator_bytes``), as the analytic
+    chain does with ``allocator=True``: a 2 MiB activation counts 3 MiB,
+    the 4-byte loss 512 B."""
+    mib = 1 << 20
+    x = torch.randn(mib // 2, device=dev)
+    w = torch.ones(mib // 2, device=dev, requires_grad=True)
+    stages = [lambda p, a: a * p["w"], lambda p, a: (a * a).sum()]
+    chain = profile_stages_measured(stages, [{"w": w}, {}], x)
+    assert list(chain.wa) == [3 * mib] * 2
+    assert list(chain.wabar) == [3 * mib, 512]
+
+
+N_TOY = 512 * 64                  # floats: every size a multiple of 512 B
+
+
+def _toy_stages(fwd_bytes, bwd_bytes):
+    """A 3-stage chain whose last stage holds most of the parameters
+    (8 · N_TOY of N_TOY · 9 floats); stage 2 allocates known temporaries
+    in its forward and backward."""
+    return [lambda p, a: a * p["w"],
+            lambda p, a: _Transient.apply(a, fwd_bytes, bwd_bytes),
+            lambda p, a: (a.sum() * p["w"]).sum()]
+
+
+def _toy_params(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    return [{"w": torch.randn(N_TOY, generator=g, device=dev)
+             .requires_grad_()}, {},
+            {"w": torch.randn(8 * N_TOY, generator=g, device=dev)
+             .requires_grad_()}]
+
+
+@pytest.mark.parametrize("fwd_mb,bwd_mb", [(16, 0), (0, 16)])
+def test_offload_walker_peak_leaves_out_only_gradients_made(dev, fwd_mb,
+                                                            bwd_mb):
+    """The walker's activation peak against a hand count.  With the forward
+    temporary the peak lies in stage 2's forward, where no gradient exists:
+    nothing is subtracted, and the peak is stage 1's output, the temporary
+    and stage 2's output.  With the backward temporary it lies in B^2,
+    after B^3 made the last stage's gradient (8 · N_TOY floats): exactly
+    that is subtracted."""
+    stages = _toy_stages(fwd_mb << 20, bwd_mb << 20)
+    params = _toy_params(dev)
+    x = torch.randn(N_TOY, device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    stats = {}
+    execute_offload_schedule(Schedule.store_all(2), stages, params, x,
+                             stats=stats)
+    peak, act = stats["peak_bytes"], stats["act_peak_bytes"]
+    if fwd_mb:
+        assert act == peak
+        assert 0 <= peak - start - (8 * N_TOY + (fwd_mb << 20)) <= 4096
+    else:
+        assert act == peak - 4 * 8 * N_TOY
+        assert peak - start >= (bwd_mb << 20) + 4 * 8 * N_TOY
+
+
+def test_offload_walker_frees_what_the_schedule_frees(dev):
+    """On a toy chain whose sizes are multiples of 512 B in the allocator's
+    small pool, the walker's activation peak (plus the input ``a^0``,
+    allocated before the call) is the simulator's on the measured chain,
+    but for the loss value, which the simulator counts as 0 bytes and the
+    allocator as one 512-B block.  The peak is B^1, with stage 1's backward
+    temporary; a prefetched activation, a consumed input or the loss's
+    graph held one op too long would put it one 128 KiB activation over."""
+    stages = [lambda p, a: _Transient.apply(a * p["w"], 0, 512 * 1500),
+              lambda p, a: a * p["w"], lambda p, a: a * p["w"],
+              lambda p, a: (a * p["w"]).sum()]
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = [{"w": torch.randn(N_TOY, generator=g, device=dev)
+               .requires_grad_()} for _ in stages]
+    x = torch.randn(N_TOY, device=dev)
+    chain = profile_stages_measured(stages, params, x).with_host(
+        HostTransferModel(bandwidth_d2h=1e10))
+    sched = Schedule(3, [
+        ("Fck", 1), ("Foff", 1), ("Fnone", 2), ("Fnone", 3), ("Fall", 4),
+        ("B", 4), ("Prefetch", 1), ("Fall", 2), ("Fall", 3), ("B", 3),
+        ("B", 2), ("Fall", 1), ("B", 1)])
+    want = simulate(chain, sched)
+    assert want.valid
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    stats = {}
+    execute_offload_schedule(sched, stages, params, x, stats=stats)
+    assert stats["act_peak_bytes"] - start + 4 * N_TOY <= want.peak_mem + 512
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_peak_leaves_out_only_gradients_made(dev, grad_accum):
+    """``make_train_step``'s ``fwd_bwd_peak`` per microbatch, against the
+    same hand count: the peak lies in stage 2's forward, before any
+    gradient of the microbatch is made, so nothing is subtracted (the
+    earlier fallback took every parameter gradient off), and the running
+    float32 sums of the second microbatch are in the memory at its
+    start."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    fwd_bytes = 16 << 20
+    stages = _toy_stages(fwd_bytes, 0)
+    sp = _toy_params(dev)
+    params = {"s1": sp[0], "s3": sp[2]}
+
+    class Toy:
+        def loss_fn(self, params, batch, tree=None):
+            a = batch["tokens"]
+            for fn, p in zip(stages, (params["s1"], {}, params["s3"])):
+                a = fn(p, a)
+            return a
+
+    step = make_train_step(Toy(), AdamWConfig(lr=1e-3), None,
+                           grad_accum=grad_accum)
+    batch = {"tokens": torch.randn((grad_accum, N_TOY), device=dev)}
+    opt_state = adamw_init(tensors_of(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = step(params, opt_state, batch, 0)
+    assert 0 <= m["fwd_bwd_peak"] - (8 * N_TOY + fwd_bytes) <= 4096
+    assert m["grads_peak"] >= m["fwd_bwd_peak"]
+
+
+def test_run_training_on_cuda_plans_on_the_measured_chain(dev):
+    """With no chain given, ``run_training`` on CUDA measures one on its
+    weights and first batch and plans on it: transients recorded, no
+    ``peak_flops`` needed."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    cfg = smoke_config("qwen1.5-4b", num_layers=2,
+                       layer_kinds=("dense",) * 2, n_chunks=2)
+    out = run_training(cfg, TrainLoopConfig(
+        steps=1, global_batch=2, seq_len=64, policy="rotor:x0.8",
+        solver_impl="cuda"), device=dev, log_fn=lambda *_: None)
+    chain = out["chain"]
+    assert out["plan"].chain is chain
+    assert np.any(chain.of) and np.any(chain.ob)
+    assert out["steps"][0]["fwd_bwd_peak_bytes"] > 0
 
 
 @pytest.mark.parametrize("policy", ["rotor:x0.6", "optimal_offload:x0.4:1.0"])

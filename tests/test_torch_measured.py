@@ -24,8 +24,9 @@ from repro_torch.configs import smoke_config as psmoke  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.core.chain import HostTransferModel  # noqa: E402
 from repro_torch.core.planner import (_grad_consumers,  # noqa: E402
-                                      grad_with_peaks,
-                                      measure_host_bandwidth)
+                                      allocator_bytes, grad_with_peaks,
+                                      measure_host_bandwidth,
+                                      profile_stages_analytic)
 from repro_torch.core.solver import solve_min_memory  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.launch.steps import (measure_chain, plan_chain,  # noqa: E402
@@ -56,7 +57,8 @@ def _measured(arch, **kw):
                          scan_layer_remat="full", logits_chunk=8)),
     ("moonshot-v1-16b-a3b", dict(use_flash_attention=True,
                                  scan_layer_remat="full", logits_chunk=8)),
-], ids=["qwen", "qwen-flash-remat-xent", "mamba2", "zamba2", "moe"])
+    ("deepseek-v2-lite-16b", dict(scan_layer_remat="full", logits_chunk=8)),
+], ids=["qwen", "qwen-flash-remat-xent", "mamba2", "zamba2", "moe", "mla"])
 def test_measured_chain_sizes_equal_analytic(arch, kw):
     model, _, _, chain = _measured(arch, **kw)
     analytic = plan_chain(model, input_specs(
@@ -66,6 +68,37 @@ def test_measured_chain_sizes_equal_analytic(arch, kw):
     assert np.all(chain.uf > 0) and np.all(chain.ub > 0)
     assert not np.any(chain.of) and not np.any(chain.ob)
     assert chain.length == model.n_stages() - 1
+
+
+def test_allocator_bound_of_the_chain_sizes():
+    """With ``allocator=True`` each tensor of ``wa`` and each storage of
+    ``wabar`` counts at the CUDA caching allocator's bound: rounded up to
+    512 B, plus 1 MiB above 1 MiB (the allocator serves such a request
+    from a free block it does not split when at most 1 MiB would remain).
+    The measured chain counts its sizes so on CUDA; times are unchanged."""
+    mib = 1 << 20
+    assert [allocator_bytes(n) for n in (0, 1, 512, 513, mib, mib + 1)] == [
+        0, 512, 512, 1024, mib, 2 * mib + 512]
+    x = torch.empty(mib // 2, device="meta")          # 2 MiB of float32
+    w = torch.empty(mib // 2, device="meta", requires_grad=True)
+    stages = [lambda p, a: a * p["w"], lambda p, a: (a * a).sum()]
+    kw = dict(flops_fwd=[1.0, 1.0], flops_bwd=[2.0, 2.0], peak_flops=1.0)
+    nominal = profile_stages_analytic(stages, [{"w": w}, {}], x, **kw)
+    bound = profile_stages_analytic(stages, [{"w": w}, {}], x, **kw,
+                                    allocator=True)
+    # ā^1 is the product (unsaved, added as a^1), ā^2 the 4-byte loss
+    assert list(nominal.wa) == [2 * mib] * 2
+    assert list(nominal.wabar) == [2 * mib, 4]
+    assert list(bound.wa) == [3 * mib] * 2
+    assert list(bound.wabar) == [3 * mib, 512]
+    np.testing.assert_array_equal(bound.uf, nominal.uf)
+    model = PLM(psmoke("qwen1.5-4b", **QWEN))
+    specs = input_specs(model.cfg, ShapeSpec("t", "train", S, B))
+    got = plan_chain(model, specs, 1e12, allocator=True)
+    want = plan_chain(model, specs, 1e12)
+    assert got.wa[0] == sum(allocator_bytes(t.numel() * t.element_size())
+                            for t in tensors_of(specs))
+    assert np.all(got.wa >= want.wa) and np.all(got.wabar >= want.wabar)
 
 
 def test_measured_wa_equals_jax_measured_chain():
@@ -109,6 +142,26 @@ def test_run_training_plans_on_the_given_chain():
     assert out["chain"] is chain and out["plan"].chain is chain
     assert out["steps"][0]["fwd_bwd_peak_bytes"] is None
     assert np.isfinite(out["losses"][0])
+
+
+def test_run_training_plans_on_the_analytic_chain_off_cuda():
+    """Off CUDA, with no chain given, the plan is solved on the analytic
+    chain (times = FLOPs over ``peak_flops``, no transients), so the CPU
+    runs compare like with like against the JAX package."""
+    cfg = psmoke("qwen1.5-4b", **QWEN)
+    out = run_training(cfg, TrainLoopConfig(
+        steps=1, global_batch=B, seq_len=S, policy="rotor:x0.8",
+        solver_impl="plain", peak_flops=1e12), device="cpu",
+        log_fn=lambda *_: None)
+    want = plan_chain(PLM(cfg), input_specs(cfg, ShapeSpec("t", "train", S,
+                                                           B)), 1e12)
+    for field in ("uf", "ub", "wa", "wabar", "of", "ob"):
+        np.testing.assert_array_equal(getattr(out["chain"], field),
+                                      getattr(want, field), err_msg=field)
+    with pytest.raises(ValueError, match="peak_flops"):
+        run_training(cfg, TrainLoopConfig(steps=1, global_batch=B,
+                                          seq_len=S, policy="rotor:x0.8"),
+                     device="cpu", log_fn=lambda *_: None)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "moonshot-v1-16b-a3b"],

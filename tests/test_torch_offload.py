@@ -10,7 +10,9 @@ min/max do not round).  Gradients of the walker are held to JAX's at rtol
 1e-4 (another library's float32 kernels) and to the port's own plain
 autograd at rtol 1e-5; training losses to JAX's at rtol 1e-4."""
 
+import gc
 import math
+import weakref
 
 import pytest
 
@@ -322,6 +324,29 @@ def test_walker_grads_match_jax_and_autograd():
     # the two-tier entry point runs the same walker
     _, g2, _ = execute_schedule(sched, pstages, pparams, px)
     assert torch.equal(g2[0]["w"], grads[0]["w"])
+
+
+def test_walker_keeps_no_stage_input_after_its_backward():
+    """The walker returns the loss as a value: held by the caller, it keeps
+    no graph, so no stage's input leaf outlives that stage's backward (the
+    loss's graph would keep the head's input alive through every later
+    ``B``: one boundary activation over the plan's predicted peak)."""
+    L = 6
+    stages, params, x = make_mlp_chain(L)
+    pstages, pparams, px = _torch_mlp(params, x)
+    seen = []
+
+    def watched(fn):
+        def stage(p, a):
+            seen.append(weakref.ref(a))
+            return fn(p, a)
+        return stage
+
+    out, grads, dx = execute_offload_schedule(
+        PSchedule.store_all(L), [watched(f) for f in pstages], pparams, px)
+    gc.collect()
+    assert out.grad_fn is None and len(seen) == L + 1
+    assert all(r() is None for r in seen)
 
 
 def test_offload_training_matches_jax():

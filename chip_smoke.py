@@ -129,8 +129,11 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     and printed stage by stage, then the trade-off of path 10 at 0.35, 0.5,
     0.65, 0.8 and 1.0 × store-all (the JAX package's budgets) and at two
     budgets a third and two thirds of the way from the measured two-tier
-    floor to store-all, on the CUDA band-min kernel: predicted
-    and measured time and peak per point, the MAPE and rotor's gain over
+    floor to store-all, on the CUDA band-min kernel (each stage's backward
+    transient measured in isolation, its ``ob``, printed beside the same
+    backward inside the chain; past 5 % plus one allocator rounding apart
+    it fails): predicted and measured time and peak per point, the MAPE
+    and rotor's gain over
     sequential, measured and predicted; every point's loss and gradient
     norm equal store-all's within 1e-2, the gain must be read at two
     budgets below store-all at least, and K1 must launch;
@@ -140,9 +143,33 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     shared; vocab 102400; the attention is plain PyTorch, as in the JAX
     package), cut to 4 layers, one a chunk (a 6-stage chain); it must launch
     K1 and K4;
-15. one JSON line describing every kernel, then the final JSON result line.
+15. serving: Qwen1.5-4B at its published width and depth (40 layers, bf16,
+    flash attention, 3.95e9 parameters), batch 8 prompts of 2048 random
+    tokens, a decode cache of 2112 positions (40 blocks of 173,015,040 B),
+    its prefilled size checked against ``cache_layout`` by the allocator's
+    count.  (a) The whole cache on the card: 63 decode steps, each step's
+    logits (two sequences) against ``forward_logits`` of the prompt and the
+    tokens fed, its head only at those positions (bf16: per position max
+    |Δ| ≤ ``SERVE_MAX_ERR``, mean over every checked logit ≤
+    ``SERVE_MEAN_ERR``).  Then ``run_serving`` for 16 tokens three ways:
+    the whole cache; ``plan=`` a ``plan_serving`` plan at 0.5 × the
+    cache's blocks on the fused fill (K5b) with the measured link (the
+    per-band fill, K5a, must give the same schedule); ``kv_policy="lru"``
+    at the same budget.  The tokens must equal (a)'s; the KV held on the
+    card between steps (``memory_allocated``) must stay within the budget;
+    the planned step's peak within (a)'s less the staged bytes plus two
+    blocks; the copies must move the booked bytes (and, planned, the last
+    step's write-back), the planned ones no more than LRU's; the modeled
+    stall and the measured wait are printed.  Must launch K3, K4 and K5b;
+16. serving the other archs on the whole cache: Mamba2-1.3B at its 48 layers
+    (the SSD kernel, K6, in prefill), phase 11's Zamba2 (24 layers) and
+    phase 14's deepseek-v2-lite (4 layers, capacity factor 16 so that decode
+    and the full forward drop no token), batch 8 × 2048, prefill and 32
+    decode steps against ``forward_logits`` as in 15(a).  Must launch K4 and
+    K6;
+17. one JSON line describing every kernel, then the final JSON result line.
 
-Each path (6 to 14) runs with the launch counts set to 0 just before it and
+Each path (6 to 16) runs with the launch counts set to 0 just before it and
 read just after; a kernel launched on none of them fails the run.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
@@ -150,6 +177,7 @@ Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -403,6 +431,291 @@ def fill_report() -> int:
     return 0
 
 
+# serving (phases 15-16): batch 8 prompts of 2048 random tokens
+SERVE_BATCH, SERVE_PROMPT = 8, 2048
+# bf16 decode against the full forward, per checked position: the largest
+# |logit difference| (an expert choice flipping on a near-tie moves a token's
+# logits by ~0.1) and the mean one over every checked logit, beyond the
+# mean difference between the kernels' forward and the plain one
+# (check_against_forward)
+SERVE_MAX_ERR, SERVE_MEAN_ERR = 0.5, 0.01
+
+
+def uncounted(fn):
+    """``fn()`` with the launch counts left as they were: a check beside a
+    path, not the path."""
+    from repro_torch import counters
+    saved = counters.snapshot()
+    try:
+        return fn()
+    finally:
+        counters.LAUNCHES.clear()
+        counters.LAUNCHES.update(saved)
+
+
+def decode_run(tag, model, params, prompts, steps, max_len, card):
+    """Prefill ``prompts`` and decode ``steps`` greedy tokens on the whole
+    cache (``StagedLM.prefill`` / ``decode_step``), keeping the first two
+    sequences' logits at every new position.  Checks the cache against
+    ``cache_layout`` by the allocator's count (what dropping it frees).
+    Returns ``(tokens
+    (B, steps + 1), logits (2, steps + 1, V) float32, prefill ms, decode
+    tokens/s)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.planner import allocator_bytes
+
+    B, S0 = prompts.shape
+    dev = torch.device("cuda")
+    tokens = torch.as_tensor(prompts, device=dev)
+    layout = model.cache_layout(B, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len=max_len)
+    nxt = torch.argmax(logits[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    seen, toks = [logits[:2, 0].float()], [nxt]
+    del logits
+    sizes = [t.nbytes for d in cache["layers"] + cache["shared"]
+             for t in d.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, toks[-1][:, None])
+        toks.append(torch.argmax(logits[:, -1], dim=-1))
+        seen.append(logits[:2, 0].float())
+        del logits
+    torch.cuda.synchronize()
+    tok_s = B * steps / (time.perf_counter() - t0)
+    # the allocator's count of the cache: what dropping it frees
+    held = torch.cuda.memory_allocated()
+    del cache
+    gc.collect()
+    held -= torch.cuda.memory_allocated()
+    say(f"[serve] {tag}: cache_layout({B}, {max_len}): "
+        f"{len(layout.block_bytes)} blocks, block_bytes {sorted(set(layout.block_bytes))}, "
+        f"token_bytes {layout.token_bytes}, static_bytes "
+        f"{layout.static_bytes}, allocated_bytes {layout.allocated_bytes}; "
+        f"the cache's tensors {sum(sizes)} B, the allocator's count {held} "
+        f"B; prefill {prefill_ms:.3f} ms on {card}")
+    if sum(sizes) != layout.allocated_bytes - 4 or not (
+            sum(sizes) <= held <= sum(map(allocator_bytes, sizes))):
+        raise AssertionError(f"{tag}: the cache ({sum(sizes)} B, the "
+                             f"allocator's {held} B) is not cache_layout's "
+                             f"{layout.allocated_bytes} B less pos")
+    torch.cuda.empty_cache()
+    return (torch.stack(toks, 1).cpu().numpy(), torch.stack(seen, 1),
+            prefill_ms, tok_s)
+
+
+def check_against_forward(tag, model, params, prompts, tokens, seen, card):
+    """Each decode position's logits (first two sequences) against
+    ``forward_logits`` of the prompt and the tokens fed, its head computed
+    only at those positions.  Fails past ``SERVE_MAX_ERR`` at a position,
+    or past ``SERVE_MEAN_ERR`` in the mean beyond the floor: the mean
+    difference between that forward and the same forward on the kernels'
+    plain versions (flash attention and the SSD kernel off), two valid bf16
+    forwards of the same logits."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.lm import StagedLM
+
+    S0, n = prompts.shape[1], seen.shape[1]
+    fed = torch.as_tensor(
+        [list(prompts[i]) + list(tokens[i, :n - 1]) for i in range(2)],
+        device="cuda")
+    at = slice(S0 - 1, S0 - 1 + n)
+    ref = model.forward_logits(params, {"tokens": fed}, at=at).float()
+    plain = StagedLM(dataclasses.replace(
+        model.cfg, use_flash_attention=False, use_ssd_kernel=False))
+    floor = float((plain.forward_logits(params, {"tokens": fed}, at=at)
+                   .float() - ref).abs().mean())
+    err = (seen - ref).abs()
+    worst, mean = float(err.amax()), float(err.mean())
+    per_pos = err.mean(dim=(0, 2))
+    say(f"[serve] {tag}: {n} positions x 2 sequences against forward_logits:"
+        f" max |err| {worst:.4f} (tol {SERVE_MAX_ERR}), mean |err| "
+        f"{mean:.6f} (tol {SERVE_MEAN_ERR} + the floor {floor:.6f}, the "
+        f"forward on the plain versions against it; at the prefill's "
+        f"position {float(per_pos[0]):.6f}, per position "
+        f"{[round(float(x), 4) for x in per_pos]}), max |logit| "
+        f"{float(ref.abs().max()):.3f} on {card}")
+    if not (worst <= SERVE_MAX_ERR and mean <= SERVE_MEAN_ERR + floor):
+        raise AssertionError(f"{tag}: decode differs from the full forward")
+
+
+def serve_qwen(card, host) -> dict:
+    """Phase 15: Qwen1.5-4B served at its published width and depth — the
+    whole cache, then ``plan=`` and LRU at half of it on the link ``host``;
+    returns the phase's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import counters
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dp_fill import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.plan.serving import kv_residency_layers, plan_serving
+    from repro_torch.runtime.serve_loop import ServeLoopConfig, run_serving
+    from repro_torch.tree import tensors_of
+
+    dev = torch.device("cuda")
+    B, S0 = SERVE_BATCH, SERVE_PROMPT
+    NEW, SHORT = 64, 16
+    max_len = S0 + NEW
+    cfg = get_config("qwen1.5-4b", use_flash_attention=True)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    n_params = sum(t.numel() for t in tensors_of(params))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    say(f"[serve] qwen1.5-4b at its published width and depth: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"x {cfg.head_dim}, vocab {cfg.vocab_size}, bf16, {n_params} "
+        f"parameters ({n_params * 2} B); batch {B} x {S0} prompt tokens")
+    counters.reset()
+    tokens_a, seen, prefill_ms, tok_s = decode_run(
+        "qwen (a) whole cache", model, params, prompts, NEW - 1, max_len,
+        card)
+    say(f"[serve] qwen (a) whole cache: prefill {prefill_ms:.3f} ms, decode "
+        f"{tok_s:.2f} tokens/s ({B} x {NEW - 1} steps) on {card}")
+    loop = ServeLoopConfig(max_new_tokens=SHORT, max_len=max_len)
+    layout = model.cache_layout(B, max_len)
+    total = sum(layout.block_bytes)
+    budget = 0.5 * total
+    runs = {"whole cache": run_serving(cfg, params, prompts, loop,
+                                       model=model)}
+    plans = {impl: plan_serving(cfg, budget, batch=B, prompt_len=S0,
+                                max_len=max_len, host=host, impl=impl)
+             for impl in ("cuda_fused", "cuda")}
+    plan = plans["cuda_fused"]
+    runs["planned"] = run_serving(cfg, params, prompts, loop, model=model,
+                                  plan=plan, kv_budget=budget)
+    runs["lru"] = run_serving(cfg, params, prompts, loop, model=model,
+                              kv_policy="lru", kv_budget=budget, host=host)
+    launched = counters.snapshot()
+    uncounted(lambda: check_against_forward(
+        "qwen (a) whole cache", model, params, prompts, tokens_a, seen,
+        card))
+    del seen
+    if plans["cuda"].schedule.ops != plan.schedule.ops:
+        raise AssertionError("plan_serving: cuda (K5a) and cuda_fused (K5b) "
+                             "give different schedules")
+    staged = kv_residency_layers(plan, budget_bytes=budget)
+    staged_bytes = sum(layout.block_bytes[j] for j in staged)
+    largest = max(layout.block_bytes[j] for j in staged)
+    say(f"[serve] qwen (b) plan_serving at 0.5 x {total} B = {int(budget)} B "
+        f"on cuda_fused (== cuda's schedule, {len(plan.schedule.ops)} ops), "
+        f"link {host.bandwidth_d2h:.6e} B/s: {len(staged)} layers staged "
+        f"({staged_bytes} B) {staged}; predicted stall "
+        f"{plan.transfer_stall:.6e} s")
+    whole = runs["whole cache"]
+    for name, r in runs.items():
+        if not np.array_equal(r["generations"], tokens_a[:, :SHORT]):
+            raise AssertionError(f"qwen {name}: greedy tokens differ from "
+                                 f"(a)'s")
+        say(f"[serve] qwen {name}: prefill {r['prefill_s'] * 1e3:.3f} ms, "
+            f"decode {r['decode_tokens_per_s']:.2f} tokens/s, device KV "
+            f"between steps max {max(r['device_kv_bytes'])} B, step peak "
+            f"max {max(r['step_peak_bytes'])} B"
+            + ("" if name == "whole cache" else
+               f", transfers {int(r['kv_transfer_bytes'])} B booked, "
+               f"{r['kv_copied_bytes']} B copied, modeled stall "
+               f"{r['kv_stall_s']:.6e} s, measured wait "
+               f"{r['kv_wait_s']:.6e} s")
+            + (f", hits {r['kv_lru_hits']} misses {r['kv_lru_misses']}"
+               if name == "lru" else "") + f"; tokens == (a)'s on {card}")
+    for name in ("planned", "lru"):
+        r = runs[name]
+        if max(r["device_kv_bytes"]) > budget:
+            raise AssertionError(f"qwen {name}: {max(r['device_kv_bytes'])} "
+                                 f"B of KV on the card between steps, over "
+                                 f"the budget {budget}")
+        # the planned policy also writes back behind the last step, which
+        # the reference books nowhere
+        unbooked = staged_bytes if name == "planned" else 0
+        if r["kv_copied_bytes"] != r["kv_transfer_bytes"] + unbooked:
+            raise AssertionError(f"qwen {name}: copied {r['kv_copied_bytes']}"
+                                 f" B, booked {r['kv_transfer_bytes']} B")
+    steps = SHORT - 1
+    want = staged_bytes * (2 * steps)          # the first staging included
+    if runs["planned"]["kv_transfer_bytes"] != want:
+        raise AssertionError(f"qwen planned: "
+                             f"{runs['planned']['kv_transfer_bytes']} B "
+                             f"booked, the model's count {want}")
+    if runs["planned"]["kv_transfer_bytes"] > runs["lru"]["kv_transfer_bytes"]:
+        raise AssertionError("qwen: planned moves more than LRU")
+    limit = max(whole["step_peak_bytes"]) - staged_bytes + 2 * largest
+    if max(runs["planned"]["step_peak_bytes"]) > limit:
+        raise AssertionError(f"qwen planned: step peak "
+                             f"{max(runs['planned']['step_peak_bytes'])} B "
+                             f"over (a)'s less the staged bytes plus two "
+                             f"blocks, {limit} B")
+    say(f"[serve] qwen: planned step peak "
+        f"{max(runs['planned']['step_peak_bytes'])} B <= {limit} B ((a)'s "
+        f"{max(whole['step_peak_bytes'])} - {staged_bytes} staged + 2 x "
+        f"{largest}); planned moves "
+        f"{int(runs['planned']['kv_transfer_bytes'])} B <= LRU's "
+        f"{int(runs['lru']['kv_transfer_bytes'])} B")
+    for name in (flash_ops.NAME, rms_ops.NAME, dp_ops.NAME_FUSED_OFFLOAD):
+        if not launched.get(name):
+            raise AssertionError(f"phase 15 never launched {name}")
+    say(f"[serve] phase 15 launches: {json.dumps(launched)}")
+    del params, runs, plans, plan
+    torch.cuda.empty_cache()
+    return launched
+
+
+def serve_archs(card) -> dict:
+    """Phase 16: Mamba2, Zamba2 and deepseek-v2-lite served on the whole
+    cache, each decode position against the full forward; returns the
+    phase's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import counters
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.tree import tensors_of
+
+    dev = torch.device("cuda")
+    B, S0 = SERVE_BATCH, SERVE_PROMPT
+    STEPS16 = 32
+    counters.reset()
+    for arch, overrides, what in (
+            (MAMBA_ARCH, {"use_ssd_kernel": True}, "its published 48 layers"),
+            (ZAMBA_ARCH, ZAMBA_OVERRIDES, "phase 11's 24 layers"),
+            (MLA_ARCH, {**MLA_OVERRIDES, "moe_capacity_factor": 16.0},
+             "phase 14's 4 layers, capacity factor 16 (no token dropped, so "
+             "decode and the full forward route alike)")):
+        acfg = get_config(arch, **{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in overrides.items()})
+        amodel = StagedLM(acfg)
+        aparams = amodel.init(0, dev)
+        aprompts = np.random.default_rng(1).integers(
+            0, acfg.vocab_size, (B, S0)).astype(np.int32)
+        say(f"[serve] {arch} at {what}: "
+            f"{sum(t.numel() for t in tensors_of(aparams))} parameters")
+        toks, aseen, pms, ts = decode_run(arch, amodel, aparams, aprompts,
+                                          STEPS16, S0 + STEPS16, card)
+        say(f"[serve] {arch}: prefill {pms:.3f} ms, decode {ts:.2f} tokens/s "
+            f"({B} x {STEPS16} steps) on {card}")
+        uncounted(lambda: check_against_forward(
+            arch, amodel, aparams, aprompts, toks, aseen, card))
+        del aparams, aseen
+        torch.cuda.empty_cache()
+    launched = counters.snapshot()
+    for name in (rms_ops.NAME, ssd_ops.NAME):
+        if not launched.get(name):
+            raise AssertionError(f"phase 16 never launched {name}")
+    say(f"[serve] phase 16 launches: {json.dumps(launched)}")
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -427,7 +740,8 @@ def main() -> int:
     from repro_torch.core.baselines import best_periodic
     from repro_torch.core.chain import Chain, HostTransferModel
     from repro_torch.configs import paper_resnet
-    from repro_torch.core.planner import (measure_host_bandwidth,
+    from repro_torch.core.planner import (chain_backward_transients,
+                                          measure_host_bandwidth,
                                           profile_stages_measured)
     from repro_torch.core.solver import solve_min_memory, solve_optimal
     from repro_torch.data.pipeline import SyntheticLMData
@@ -1609,9 +1923,23 @@ def main() -> int:
         say(f"[resnet] {i + 1}: {cchain.uf[i]:.6e}, {cchain.ub[i]:.6e}, "
             f"{int(cchain.wa[i])}, {int(cchain.wabar[i])}, "
             f"{int(cchain.of[i])}, {int(cchain.ob[i])} on {card}")
+    # each stage's backward transient measured in isolation (the chain's
+    # ob) beside the same backward inside the chain's own store-all backward
+    inchain = chain_backward_transients(cstages, cparams, cx)
+    say("[resnet] stage: backward transient in isolation (ob) B, inside the "
+        "chain B, isolated / in-chain")
+    for i, got in enumerate(inchain):
+        iso = int(cchain.ob[i])
+        say(f"[resnet] {i + 1}: {iso}, {got}, "
+            f"{iso / got if got else float('nan'):.4f} on {card}")
+        if abs(iso - got) > 0.05 * got + (1 << 20) + 512:
+            raise AssertionError(
+                f"conv chain stage {i + 1}: the isolated backward transient "
+                f"{iso} B is not within 5 % plus one allocator rounding of "
+                f"the in-chain one, {got} B")
     # the reference's budgets, and two between the measured chain's two-tier
-    # floor and store-all: the measured backward transients of the first
-    # blocks can put the floor above the reference's lower budgets
+    # floor and store-all (where the floor lies above the reference's lower
+    # budgets)
     cfloor = solve_min_memory(cchain).mem_limit / cchain.store_all_peak()
     budgets = sorted({*paper_resnet.BUDGETS,
                       *(round(cfloor + (1 - cfloor) * k / 3, 4) for k in (1, 2))})
@@ -1679,7 +2007,11 @@ def main() -> int:
         f"d_ff {dcfg.moe_d_ff} and {dcfg.num_shared_experts} shared, vocab "
         f"{dcfg.vocab_size}", (rms_ops.NAME,))
 
-    # -- 15. result lines ---------------------------------------------------------
+    # -- 15-16. serving ----------------------------------------------------
+    path_launches["serve"] = serve_qwen(card, host)
+    path_launches["serve_archs"] = serve_archs(card)
+
+    # -- 17. result lines -------------------------------------------------
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

@@ -7,6 +7,9 @@ shape with no transpose, and gradients map back leaf by leaf on the same
 tree paths.  The conv chain (``configs.paper_resnet``) is the exception: its
 kernels are HWIO in the JAX package and OIHW in the port, converted both
 ways by :func:`chain_params_from_numpy` and :func:`chain_grads_to_numpy`.
+The decode cache differs too: the JAX package stacks it per chunk, the
+port keeps one dict per layer (:func:`cache_from_numpy`,
+:func:`cache_to_numpy`).
 """
 
 from __future__ import annotations
@@ -76,3 +79,35 @@ def chain_grads_to_numpy(grads: Any) -> Any:
     gradients: OIHW tensors → HWIO float32 numpy arrays."""
     return [{k: v.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
              for k, v in g.items()} for g in grads]
+
+
+def cache_from_numpy(cache: Any, cfg, device) -> dict:
+    """The JAX package's decode cache (``{"pos", "chunks": [stacked per
+    chunk], "shared": stacked per invocation}``, numpy leaves) → the port's
+    (one dict per layer and per shared invocation, ``pos`` an int)."""
+    layers = [{k: _to_tensor(v[off]).to(device)
+               for k, v in cache["chunks"][ci].items()}
+              for ci, off in cfg.layer_slices]
+    sh = cache.get("shared")
+    shared = [] if sh is None else [
+        {k: _to_tensor(sh[k][i]).to(device) for k in sh}
+        for i in range(len(sh["k"]))]
+    return {"pos": int(np.asarray(cache["pos"])), "layers": layers,
+            "shared": shared}
+
+
+def cache_to_numpy(cache: dict, cfg) -> dict:
+    """Inverse of :func:`cache_from_numpy`, float32 numpy leaves."""
+    def np_(t):
+        return t.float().cpu().numpy()
+
+    chunks = []
+    for _, start, length in cfg.chunks:
+        block = cache["layers"][start:start + length]
+        chunks.append({k: np.stack([np_(c[k]) for c in block])
+                       for k in block[0]})
+    out = {"pos": np.int32(cache["pos"]), "chunks": chunks}
+    if cache["shared"]:
+        out["shared"] = {k: np.stack([np_(c[k]) for c in cache["shared"]])
+                         for k in cache["shared"][0]}
+    return out

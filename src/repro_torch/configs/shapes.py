@@ -17,14 +17,21 @@ class ShapeSpec:
 
 
 def input_specs(cfg, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
-    """``meta`` tensors standing in for every model input of a text training
-    cell (shapes and dtypes only, nothing allocated)."""
-    if shape.kind != "train" or cfg.modality != "text":
+    """``meta`` tensors standing in for every model input of a text cell
+    (shapes and dtypes only, nothing allocated): a training batch, a
+    prefill's prompt, or a decode step's one new token (the cache's specs
+    come from ``StagedLM.init_cache`` on ``meta``)."""
+    if cfg.modality != "text":
         raise NotImplementedError(
-            f"input specs of {shape.kind!r} {cfg.modality!r} cells are not "
-            f"ported")
+            f"input specs of {cfg.modality!r} cells are not ported")
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta"),
-            "labels": torch.empty((B, S), dtype=torch.int32, device="meta"),
-            "loss_mask": torch.empty((B, S), dtype=torch.float32,
-                                     device="meta")}
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        return {"tokens": spec((B, S)), "labels": spec((B, S)),
+                "loss_mask": spec((B, S), torch.float32)}
+    if shape.kind == "prefill":
+        return {"tokens": spec((B, S))}
+    return {"tokens": spec((B, 1))}

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -100,16 +100,49 @@ def _tree_size(tree: Any, allocator: bool) -> int:
                   allocator)
 
 
-def _fresh_input(tree: Any) -> Any:
+def _fresh_input(tree: Any, grad: bool = True) -> Any:
     """A copy of an activation whose floating tensors are new leaves that
-    require grad (so autograd saves what the input gradient needs)."""
+    require grad (so autograd saves what the input gradient needs), or with
+    ``grad=False`` detached leaves that do not (a chain input that needs no
+    gradient)."""
     if isinstance(tree, torch.Tensor):
         if tree.is_floating_point():
-            return tree.detach().requires_grad_()
+            return tree.detach().requires_grad_(grad)
         return tree
     if isinstance(tree, dict):
-        return {k: _fresh_input(v) for k, v in tree.items()}
+        return {k: _fresh_input(v, grad) for k, v in tree.items()}
     return tree
+
+
+class _Seed(torch.autograd.Function):
+    """A scalar whose backward hands boxed cotangents to the outputs it was
+    made from and keeps no reference to them.  A backward seeded through it
+    frees each cotangent and each unsaved output as soon as autograd is done
+    with them, as the chain's own backward does; passed as
+    ``grad_outputs`` they would live to the call's end."""
+
+    @staticmethod
+    def forward(ctx, box, *outs):
+        ctx.box = box
+        return outs[0].new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        cots, ctx.box = ctx.box, None
+        grads = tuple(cots)
+        cots.clear()
+        return (None, *grads)
+
+
+def seeded(outs: List[torch.Tensor], cotangents: List[torch.Tensor]
+           ) -> torch.Tensor:
+    """The scalar to differentiate for the cotangents ``cotangents`` on
+    ``outs`` (see :class:`_Seed`).  The two lists are emptied: the caller
+    must drop every other reference to those tensors before the backward."""
+    seed = _Seed.apply(list(cotangents), *outs)
+    outs.clear()
+    cotangents.clear()
+    return seed
 
 
 def residual_bytes(fn: Callable, p: Any, a: Any,
@@ -248,7 +281,8 @@ def grad_with_peaks(outputs: Sequence[torch.Tensor],
     return grads, state["peak"], state["act"]
 
 
-def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
+def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device,
+                input_grad: bool = True) -> tuple:
     """One forward under grad and one backward of a stage on real tensors:
     ``(forward s, backward s, forward transient B, backward transient B)``.
 
@@ -258,9 +292,13 @@ def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
     plus what it leaves live: output and saved tensors); the backward's is
     its peak less the memory before it (``ā``, ``δ`` and the input live),
     the parameter gradients formed by then left out
-    (:func:`grad_with_peaks`).  Off CUDA both are 0."""
+    (:func:`grad_with_peaks`).  The backward runs in the chain's liveness:
+    seeded through :func:`seeded`, so the cotangent and an output the stage
+    did not save die when autograd is done with them, and without the
+    input's gradient where the chain's input needs none
+    (``input_grad=False``).  Off CUDA both transients are 0."""
     cuda = dev.type == "cuda"
-    inp = _fresh_input(a)
+    inp = _fresh_input(a, input_grad)
     if cuda:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.reset_peak_memory_stats(dev)
@@ -277,16 +315,25 @@ def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
         t1 = time.perf_counter()
     outs = [o for o in tensors_of(out)
             if o.is_floating_point() and o.requires_grad]
-    ins = [t for t in tensors_of(inp) if t.is_floating_point()]
+    if not outs:    # no parameter and no input gradient: no backward runs
+        if cuda:
+            ev[1].synchronize()
+            return (ev[0].elapsed_time(ev[1]) * 1e-3, 0.0,
+                    max(f_transient, 0), 0)
+        return t1 - t0, 0.0, 0, 0
+    ins = [t for t in tensors_of(inp)
+           if t.is_floating_point() and t.requires_grad]
     ps = tensors_of(p)
-    cotangents = [torch.ones_like(o) for o in outs]
+    seed = seeded(outs, [torch.ones_like(o) for o in outs])
+    one = torch.ones_like(seed)     # allocated before the count starts
+    del out
     if cuda:
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         ev[2].record()
     else:
         t2 = time.perf_counter()
-    _, _, act_peak = grad_with_peaks(outs, ins + ps, cotangents, ps,
+    _, _, act_peak = grad_with_peaks([seed], ins + ps, [one], ps,
                                      allow_unused=True)
     if not cuda:
         return t1 - t0, time.perf_counter() - t2, 0, 0
@@ -295,6 +342,81 @@ def _stage_pass(fn: Callable, p: Any, a: Any, dev: torch.device) -> tuple:
     ev[3].synchronize()
     return (ev[0].elapsed_time(ev[1]) * 1e-3, ev[2].elapsed_time(ev[3]) * 1e-3,
             max(f_transient, 0), max(b_transient, 0))
+
+
+def chain_backward_transients(stages: Sequence[Callable],
+                              params: Sequence[Any], x: Any) -> List[int]:
+    """Each stage's backward transient *inside* the chain (CUDA only), as
+    :func:`_stage_pass` reads it in isolation: the whole chain's forward
+    under grad, then one backward (the parameters' gradients, and the
+    input's where it requires grad) in which a hook on each stage's output
+    marks where that stage's backward starts, its gradient formed.  A
+    stage's transient is its backward's activation peak (the allocator's
+    peak less the parameter gradients made by then, read as
+    :func:`grad_with_peaks` reads it) less the memory at its mark.  Entry
+    ``l-1`` is paper stage ``l``: what the isolated ``ob`` stands for."""
+    leaves = tensors_of([list(params), x])
+    dev = leaves[0].device
+    if dev.type != "cuda":
+        raise ValueError("chain_backward_transients reads the CUDA "
+                         "allocator")
+    n = len(stages)
+    got = [0] * n
+    ps = [t for t in tensors_of(list(params)) if t.requires_grad]
+    sizes = [t.numel() * t.element_size() for t in ps]
+    formed: set = set()
+    st = {"stage": n, "start": 0, "act": 0, "grads": 0}
+
+    def close_span() -> None:
+        st["act"] = max(st["act"], torch.cuda.max_memory_allocated(dev)
+                        - st["grads"])
+
+    def mark(i: int) -> None:
+        if i >= st["stage"]:
+            return                    # another output of a marked stage
+        close_span()
+        if st["stage"] < n:
+            got[st["stage"]] = st["act"] - st["start"]
+        st["stage"] = i
+        st["start"] = st["act"] = (torch.cuda.memory_allocated(dev)
+                                   - st["grads"])
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def hook_outputs(out: Any, i: int) -> None:
+        # a function, so that no loop variable keeps an output alive
+        for t in tensors_of(out):
+            if t.is_floating_point() and t.requires_grad:
+                t.register_hook(lambda g: mark(i))
+
+    a = x
+    with torch.enable_grad():
+        for i, (fn, p) in enumerate(zip(stages, params)):
+            a = fn(p, a)
+            if i < n - 1:
+                hook_outputs(a, i)
+
+    def hook_for(slots):
+        def hook(grad_inputs, _grad_outputs):
+            close_span()
+            for slot, k in slots:
+                if grad_inputs[slot] is not None and k not in formed:
+                    formed.add(k)
+                    st["grads"] += sizes[k]
+            torch.cuda.reset_peak_memory_stats(dev)
+        return hook
+
+    handles = [node.register_hook(hook_for(slots)) for node, slots
+               in _grad_consumers([a], ps).items()]
+    wrt = ps + [t for t in tensors_of(x) if t.requires_grad]
+    mark(n - 1)
+    try:
+        grads = torch.autograd.grad(a, wrt, allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    mark(-1)
+    del grads, a
+    return got
 
 
 def profile_stages_measured(stages: Sequence[Callable],
@@ -332,8 +454,10 @@ def profile_stages_measured(stages: Sequence[Callable],
         out, res = residual_bytes(fn, p, _fresh_input(a), alloc)
         del out
         wabar.append(res)
-        _stage_pass(fn, p, a, dev)
-        runs = [_stage_pass(fn, p, a, dev) for _ in range(repeats)]
+        # the chain's first input needs a gradient only if it requires one
+        grad_in = i > 0 or any(t.requires_grad for t in tensors_of(x))
+        _stage_pass(fn, p, a, dev, grad_in)
+        runs = [_stage_pass(fn, p, a, dev, grad_in) for _ in range(repeats)]
         uf.append(statistics.median(r[0] for r in runs))
         ub.append(statistics.median(r[1] for r in runs))
         of.append(max(r[2] for r in runs))

@@ -1,7 +1,8 @@
 """Analytic per-stage FLOP counts (the text-model part of
 ``repro.models.flops``: dense and MoE layers on GQA or MLA attention,
 Mamba2 and Zamba2 layers, the Zamba2 shared block) — the rotor planner's
-``u_f``/``u_b`` without running anything.
+``u_f``/``u_b`` without running anything, and the per-layer counts the
+KV-residency planner prices a decode step with.
 
 Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
 at full (non-causal) cost.  Backward ≈ 2× forward, +1× when the per-layer
@@ -13,18 +14,19 @@ from __future__ import annotations
 from typing import List, Tuple
 
 
-def _attn_flops(cfg, B: int, S: int) -> float:
+def _attn_flops(cfg, B: int, S: int, kv_len: int | None = None) -> float:
+    kv = kv_len if kv_len is not None else S
     if cfg.attention_kind == "mla":
         d, H = cfg.d_model, cfg.n_heads
         dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                          cfg.v_head_dim, cfg.kv_lora_rank)
         proj = 2 * B * S * d * (H * (dn + dr) + r + dr + H * dv)
         absorb = 2 * B * S * H * dn * r + 2 * B * S * H * r * dv
-        attn = 2 * B * S * S * H * (r + dr) + 2 * B * S * S * H * r
+        attn = 2 * B * S * kv * H * (r + dr) + 2 * B * S * kv * H * r
         return proj + absorb + attn
     d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     proj = 2 * B * S * d * (H * Dh + 2 * K * Dh) + 2 * B * S * H * Dh * d
-    attn = 2 * B * S * S * H * Dh * 2
+    attn = 2 * B * S * kv * H * Dh * 2
     return proj + attn
 
 
@@ -57,12 +59,31 @@ def _mamba_flops(cfg, B: int, S: int) -> float:
     return proj + conv + ssd
 
 
-def _layer_flops(cfg, kind: str, B: int, S: int) -> float:
+def _layer_flops(cfg, kind: str, B: int, S: int, kv_len=None) -> float:
     if kind == "dense":
-        return _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
+        return _attn_flops(cfg, B, S, kv_len) + _mlp_flops(cfg, B, S, cfg.d_ff)
     if kind == "moe":
-        return _attn_flops(cfg, B, S) + _moe_flops(cfg, B, S)
+        return _attn_flops(cfg, B, S, kv_len) + _moe_flops(cfg, B, S)
     return _mamba_flops(cfg, B, S)
+
+
+def per_layer_flops(cfg, B: int, S: int, kv_len: int | None = None
+                    ) -> List[float]:
+    """Forward FLOPs per *model layer* (length ``cfg.num_layers``).
+
+    The Zamba2 shared block is attributed to the period-start layers that
+    invoke it.  ``kv_len`` prices attention against a KV prefix longer than
+    ``S`` (a decode step: ``S=1``, ``kv_len=`` the cache position)."""
+    out = [0.0] * cfg.num_layers
+    for kind, start, length in cfg.chunks:
+        per = _layer_flops(cfg, kind, B, S, kv_len)
+        for j in range(start, start + length):
+            out[j] += per
+        if (cfg.hybrid_period and kind == "zamba"
+                and start % cfg.hybrid_period == 0):
+            out[start] += (_attn_flops(cfg, B, S, kv_len)
+                           + _mlp_flops(cfg, B, S, cfg.d_ff))
+    return out
 
 
 def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:

@@ -17,7 +17,14 @@ checkpoint.  Layer kinds:
   set of parameters every such chunk stage holds, so its gradient is the
   sum over the chunks.
 
-VLM/audio stages and the serving methods are not ported yet.
+Serving: :meth:`StagedLM.prefill` runs a prompt and fills the decode cache,
+:meth:`StagedLM.decode_step` runs one token against it.  The cache is one
+dict of tensors *per model layer* (``{"k", "v"}``, MLA's ``{"c_kv",
+"k_rope"}`` or Mamba2's ``{"conv", "ssm"}``), one ``{"k", "v"}`` per Zamba2
+shared-block invocation, and ``pos``, a Python int — the JAX package stacks
+it per chunk.  So one layer's block can leave the card between its uses
+(:mod:`..runtime.kv_residency`), and decode writes each new position in
+place instead of rebuilding the cache.  VLM/audio stages are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch.nn.functional as F
 
 from ..core.rematerialize import build_remat_fn, remat
 from ..device import resolve_device
-from ..tree import tensors_of, tree_map, with_tensors
+from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlp_mod
@@ -39,6 +46,37 @@ from .common import (dense_apply, dense_init, rms_norm, rms_norm_init,
                      softmax_cross_entropy, truncated_normal_init)
 
 Params = Dict[str, Any]
+
+#: the JAX package's cache holds ``pos`` as an int32 scalar; the port's is a
+#: Python int, counted at the same 4 bytes so the layouts agree
+POS_BYTES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """Byte layout of a decode cache (see :meth:`StagedLM.cache_layout`).
+
+    - ``block_bytes[j]`` — allocated bytes of model layer ``j``'s cache: its
+      KV block padded to ``max_len`` (attention layers) or its recurrent
+      state (SSM layers); the Zamba2 shared-attention KV is attributed
+      evenly to the period-start layers that invoke it.
+    - ``token_bytes`` — bytes logically appended per decoded token across
+      all attention layers.
+    - ``static_bytes`` — position-independent bytes (SSM conv/ssm states,
+      the ``pos`` scalar).
+    - ``allocated_bytes`` — total preallocated bytes; equals
+      ``static_bytes + token_bytes * max_len`` exactly.
+    """
+
+    block_bytes: Tuple[int, ...]
+    token_bytes: int
+    static_bytes: int
+    allocated_bytes: int
+    max_len: int
+
+    def logical_bytes(self, pos: int) -> int:
+        """Bytes logically resident with ``pos`` tokens in the cache."""
+        return self.static_bytes + int(pos) * self.token_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +243,20 @@ def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
                                  cfg.mlp_kind), None
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg, kind: str) -> torch.Tensor:
+    """The feed-forward half of an attention block (MoE aux dropped)."""
+    if kind == "moe":
+        return h + mlp_mod.moe_apply(p["moe"], cfg, rms_norm(p["ln2"], h))[0]
+    return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h), cfg.mlp_kind)
+
+
+def _fill(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> None:
+    """Copy a prefill's cache tensors into the leading positions of the
+    preallocated ones (in their dtype)."""
+    for k, t in src.items():
+        dst[k][:, :t.shape[1]].copy_(t)
+
+
 def _stack(trees: List[Params]) -> Params:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -350,3 +402,176 @@ class StagedLM:
                 a = fn(p, a)
             return a
         return build_remat_fn(tree, fns)(sp, batch)
+
+    # -- logits forward and serving -----------------------------------------
+
+    def _embed_stage_nolabel(self, p: Params, batch: Dict) -> Dict:
+        B = batch["tokens"].shape[0]
+        return self._embed_stage(p, {
+            "tokens": batch["tokens"], "loss_mask": None,
+            "labels": torch.zeros((B, 1), dtype=torch.int32,
+                                  device=batch["tokens"].device)})
+
+    @torch.no_grad()
+    def forward_logits(self, params: Params, batch: Dict,
+                       at: Any = None) -> torch.Tensor:
+        """Logits of every position of ``batch["tokens"]``, or only of the
+        positions ``at`` indexes along the sequence (the head's output is
+        the largest tensor of a long sequence)."""
+        sp = self.stage_params(params)
+        a = self._embed_stage_nolabel(params["embed"], batch)
+        for i in range(len(self.cfg.chunks)):
+            a = self._chunk_stage(i, sp[i + 1], a)
+        h = a["h"] if at is None else a["h"][:, at]
+        return dense_apply(params["head"], rms_norm(params["final_norm"], h))
+
+    def _shared_starts(self) -> List[int]:
+        """The layers that open a Zamba2 period: each invokes the shared
+        block first (its KV is ``cache["shared"][i]`` for the i-th)."""
+        cfg = self.cfg
+        if not (cfg.hybrid_period and "zamba" in cfg.layer_kinds):
+            return []
+        return [start for kind, start, _ in cfg.chunks
+                if kind == "zamba" and start % cfg.hybrid_period == 0]
+
+    def _layer_params(self, params: Params, j: int) -> Params:
+        ci, off = self.cfg.layer_slices[j]
+        return tree_map(lambda t: t[off], params["chunks"][ci])
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> Dict:
+        """A zeroed decode cache: attention KV in ``kv_cache_dtype`` (the
+        model dtype if unset), the Zamba2 shared KV in the model dtype and
+        the SSM states as :func:`..mamba2.mamba2_init_cache`, as the JAX
+        package's ``init_cache`` lays them out; ``device="meta"`` allocates
+        nothing."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        cdt = cfg.kv_cache_dtype or cfg.dtype
+
+        def zeros(*shape, dtype=cdt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        layers = []
+        for kind in cfg.layer_kinds:
+            if kind in ("mamba", "zamba"):
+                layers.append(m2.mamba2_init_cache(cfg, batch, cfg.dtype, dev))
+            elif cfg.attention_kind == "mla":
+                layers.append({
+                    "c_kv": zeros(batch, max_len, cfg.kv_lora_rank),
+                    "k_rope": zeros(batch, max_len, 1, cfg.qk_rope_head_dim)})
+            else:
+                layers.append({
+                    "k": zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                    "v": zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim)})
+        shared = [{k: zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                            dtype=cfg.dtype) for k in ("k", "v")}
+                  for _ in self._shared_starts()]
+        return {"pos": 0, "layers": layers, "shared": shared}
+
+    def cache_layout(self, batch: int, max_len: int) -> CacheLayout:
+        """Byte layout of the decode cache, sized from :meth:`init_cache` on
+        the ``meta`` device (nothing is allocated): the sizing base of the
+        KV-residency planner (:mod:`..plan.serving`)."""
+        cfg = self.cfg
+        spec = self.init_cache(batch, max_len, device="meta")
+        blocks = [tree_bytes(c) for c in spec["layers"]]
+        attn_bytes = sum(b for b, kind in zip(blocks, cfg.layer_kinds)
+                         if kind in ("dense", "moe"))
+        static_bytes = POS_BYTES + sum(blocks) - attn_bytes
+        shared_bytes = tree_bytes(spec["shared"])
+        starts = self._shared_starts()
+        for s in starts:
+            blocks[s] += shared_bytes // len(starts)
+        return CacheLayout(
+            block_bytes=tuple(blocks),
+            token_bytes=(attn_bytes + shared_bytes) // max_len,
+            static_bytes=static_bytes,
+            allocated_bytes=POS_BYTES + tree_bytes(spec["layers"])
+            + shared_bytes,
+            max_len=max_len)
+
+    def cache_block(self, cache: Dict, j: int) -> List[Dict]:
+        """The cache dicts that make up layer ``j``'s block: its own, and
+        the shared block's KV where ``j`` opens a Zamba2 period."""
+        starts = self._shared_starts()
+        return [cache["layers"][j]] + ([cache["shared"][starts.index(j)]]
+                                       if j in starts else [])
+
+    @torch.no_grad()
+    def prefill(self, params: Params, batch: Dict,
+                max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+        """Run a full prompt; returns ``(last-position logits (B, 1, V),
+        decode cache)`` with room for ``max_len`` positions."""
+        cfg = self.cfg
+        h = self._embed_stage_nolabel(params["embed"], batch)["h"]
+        B, S = h.shape[:2]
+        cache = self.init_cache(B, max_len or S, device=h.device)
+        cache["pos"] = S
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        mask = attn.MaskSpec(causal=True, window=cfg.sliding_window)
+        starts = self._shared_starts()
+        pf = attn.mla_prefill if cfg.attention_kind == "mla" \
+            else attn.gqa_prefill
+        for kind, start, length in cfg.chunks:
+            if start in starts:
+                sp = params["shared_attn"]
+                y, kv = attn.gqa_prefill(sp["attn"], cfg,
+                                         rms_norm(sp["ln1"], h), positions,
+                                         mask)
+                _fill(cache["shared"][starts.index(start)], kv)
+                h = _ffn(sp, h + y, cfg, "dense")
+            for j in range(start, start + length):
+                lp = self._layer_params(params, j)
+                if kind in ("mamba", "zamba"):
+                    y, c = m2.mamba2_prefill(lp["mixer"], cfg,
+                                             rms_norm(lp["ln"], h))
+                    _fill(cache["layers"][j], c)
+                    h = h + y
+                else:
+                    y, kv = pf(lp["attn"], cfg, rms_norm(lp["ln1"], h),
+                               positions, mask)
+                    _fill(cache["layers"][j], kv)
+                    h = _ffn(lp, h + y, cfg, kind)
+        h = rms_norm(params["final_norm"], h[:, -1:])
+        return dense_apply(params["head"], h), cache
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, cache: Dict, tokens: torch.Tensor,
+                    residency=None) -> Tuple[torch.Tensor, Dict]:
+        """One greedy decode step.  ``tokens``: (B, 1) int.  The cache is
+        updated in place (the new position written, ``pos`` advanced) and
+        returned with the logits (B, 1, V).  ``residency`` (a
+        :mod:`..runtime.kv_residency` stager) is called around each layer:
+        ``before_layer(cache, j)`` brings layer ``j``'s block to the card,
+        ``after_layer(cache, j)`` may send it back."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        h = F.embedding(tokens, params["embed"]["table"]).to(cfg.dtype)
+        starts = self._shared_starts()
+        dec = attn.mla_decode if cfg.attention_kind == "mla" \
+            else attn.gqa_decode
+        for j, kind in enumerate(cfg.layer_kinds):
+            if residency is not None:
+                residency.before_layer(cache, j)
+            if j in starts:
+                sp = params["shared_attn"]
+                y, _ = attn.gqa_decode(sp["attn"], cfg,
+                                       rms_norm(sp["ln1"], h),
+                                       cache["shared"][starts.index(j)], pos)
+                h = _ffn(sp, h + y, cfg, "dense")
+            lp = self._layer_params(params, j)
+            if kind in ("mamba", "zamba"):
+                y, _ = m2.mamba2_decode(lp["mixer"], cfg,
+                                        rms_norm(lp["ln"], h),
+                                        cache["layers"][j])
+                h = h + y
+            else:
+                y, _ = dec(lp["attn"], cfg, rms_norm(lp["ln1"], h),
+                           cache["layers"][j], pos)
+                h = _ffn(lp, h + y, cfg, kind)
+            if residency is not None:
+                residency.after_layer(cache, j)
+        cache["pos"] = pos + 1
+        h = rms_norm(params["final_norm"], h)
+        return dense_apply(params["head"], h), cache

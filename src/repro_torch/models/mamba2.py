@@ -1,8 +1,9 @@
-"""Mamba2 mixer (SSD — state-space duality, arXiv:2405.21060): the training
-surface of ``repro.models.mamba2``.  The chunked SSD runs on the within-chunk
-kernel (:mod:`..kernels.ssd.ops`) when ``cfg.use_ssd_kernel`` is set, and
-otherwise in plain PyTorch.  The prefill, decode-cache and recurrent decode
-paths belong to serving and are not ported yet.
+"""Mamba2 mixer (SSD — state-space duality, arXiv:2405.21060): the port of
+``repro.models.mamba2``, its full-sequence forward (training and prefill,
+which also returns the decode cache) and the O(1)-per-token recurrent
+decode.  The chunked SSD runs on the within-chunk kernel
+(:mod:`..kernels.ssd.ops`) when ``cfg.use_ssd_kernel`` is set, and
+otherwise in plain PyTorch.
 
 Numerics follow the JAX package: the depthwise causal conv is summed over K
 shifted slices in the input dtype, ``dt = softplus(dt + dt_bias)`` and
@@ -82,20 +83,74 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
 
 def mamba2_apply(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward (training)."""
+    return mamba2_prefill(p, cfg, x)[0]
+
+
+def mamba2_prefill(p: Params, cfg, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward and the recurrent decode cache: ``conv`` the
+    last K−1 *raw* xBC rows (zeros before the sequence), ``ssm`` the final
+    SSD state (B, H, P, N) float32."""
     B, S, d = x.shape
     d_inner, H, G, N = _dims(cfg)
+    K = cfg.ssm_conv
     proj = dense_apply(p["in_proj"], x)
-    z, xBC, dt = _split_proj(cfg, proj)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    z, xBC_raw, dt = _split_proj(cfg, proj)
+    # a copy: a view would keep the whole projection alive
+    conv_cache = F.pad(xBC_raw, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):
+                                                              ].clone()
+    xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
     xs = xs.reshape(B, S, H, cfg.ssm_head_dim)
     Bm = Bm.reshape(B, S, G, N)
     Cm = Cm.reshape(B, S, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk,
-                       use_kernel=cfg.use_ssd_kernel)
+    y, final_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk,
+                                 use_kernel=cfg.use_ssd_kernel)
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, d_inner)
     y = rms_norm(p["norm"], y * F.silu(z))
-    return dense_apply(p["out_proj"], y)
+    return dense_apply(p["out_proj"], y), {"conv": conv_cache,
+                                           "ssm": final_state}
+
+
+def mamba2_init_cache(cfg, batch: int, dtype, device
+                      ) -> Dict[str, torch.Tensor]:
+    d_inner, H, G, N = _dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner + 2 * G * N),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N),
+                               dtype=torch.float32, device=device)}
+
+
+def mamba2_decode(p: Params, cfg, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step, x: (B, 1, d); the cache is updated in
+    place and returned."""
+    B = x.shape[0]
+    d_inner, H, G, N = _dims(cfg)
+    proj = dense_apply(p["in_proj"], x)[:, 0]            # (B, d_proj)
+    z, xBC, dt = _split_proj(cfg, proj)
+    win = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)   # (B, K, C)
+    # summed over the K taps in the input dtype, as _causal_conv sums them
+    # (the JAX package contracts the window in one einsum, which rounds
+    # once: in bf16 the prefill and decode convs would differ)
+    xBC = F.silu(sum(win[:, i] * p["conv_w"][i].to(xBC.dtype)
+                     for i in range(win.shape[1]))
+                 + p["conv_b"].to(xBC.dtype))
+    cache["conv"].copy_(win[:, 1:])
+    xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, H, cfg.ssm_head_dim)
+    Bm = Bm.reshape(B, G, N).repeat_interleave(H // G, dim=1)  # (B, H, N)
+    Cm = Cm.reshape(B, G, N).repeat_interleave(H // G, dim=1)
+    dt = F.softplus(dt.float() + p["dt_bias"][None])           # (B, H)
+    decay = torch.exp(dt * -torch.exp(p["A_log"])[None])
+    st = cache["ssm"] * decay[:, :, None, None] + torch.einsum(
+        "bh,bhp,bhn->bhpn", dt, xs.float(), Bm.float())
+    cache["ssm"].copy_(st)
+    y = torch.einsum("bhpn,bhn->bhp", st, Cm.float()).to(x.dtype)
+    y = y + xs * p["D"][None, :, None].to(y.dtype)
+    y = rms_norm(p["norm"], y.reshape(B, d_inner) * F.silu(z))
+    return dense_apply(p["out_proj"], y)[:, None, :], cache

@@ -6,8 +6,11 @@
   keeps the residuals).
 - ``F_ck^l`` / ``F_∅^l`` → the stage under ``torch.no_grad()``; ``F_∅``
   drops its input.
-- ``B^l``      → ``torch.autograd.grad(output, [input, *params], δ^l)``;
-  parameter gradients accumulate, the input gradient is ``δ^{l-1}``.
+- ``B^l``      → ``torch.autograd.grad(output, [input, *params], δ^l)``,
+  seeded through ``core.planner.seeded`` so that δ^l and an output the
+  stage did not save die as autograd is done with them, as the measured
+  ``ob`` counts them; parameter gradients accumulate, the input gradient
+  is ``δ^{l-1}``.
 - ``F_off^i``  → on CUDA, a copy of ``a^i`` into pinned host memory with
   ``non_blocking=True`` on a side stream, so it overlaps the compute that
   follows (as the simulator assumes); elsewhere a ``.clone()`` into fresh
@@ -35,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..core.planner import _fresh_input, grad_with_peaks
+from ..core.planner import _fresh_input, grad_with_peaks, seeded
 from ..core.schedule import BWD, F_ALL, F_CK, F_NONE, F_OFF, PREFETCH, Schedule
 from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from .host_buffer import HostBuffer
@@ -207,12 +210,16 @@ def execute_offload_schedule(
             pairs = [(o, g) for o, g in zip(outs, delta) if o.requires_grad]
             ins = _float_leaves(inp)
             ps = tensors_of(params[l - 1])
-            args = ([o for o, _ in pairs], ins + ps, [g for _, g in pairs])
+            # δ^l and an unsaved a^l die as autograd is done with them
+            seed = seeded([o for o, _ in pairs], [g for _, g in pairs])
+            del out, outs, delta, pairs
             if track_peaks:
-                got, peak, act = grad_with_peaks(*args, params=ps,
+                got, peak, act = grad_with_peaks([seed], ins + ps, None,
+                                                 params=ps,
                                                  allow_unused=True)
             else:
-                got = torch.autograd.grad(*args, allow_unused=True)
+                got = torch.autograd.grad([seed], ins + ps,
+                                          allow_unused=True)
             got = [torch.zeros_like(t) if g is None else g
                    for t, g in zip(ins + ps, got)]
             dps = got[len(ins):]
@@ -221,9 +228,9 @@ def execute_offload_schedule(
             grads[l - 1] = with_tensors(params[l - 1], dps)
             deltas[l - 1] = got[:len(ins)]
             acts.pop(l - 1, None)          # B^l consumes a^{l-1}
-            # B^l's output holds its graph, whose AccumulateGrad nodes hold
-            # the input leaves: drop it and δ^l before the next op
-            del out, inp, outs, delta, pairs, ins, args, got
+            # B^l's seed holds its graph, whose AccumulateGrad nodes hold
+            # the input leaves: drop it before the next op
+            del seed, inp, ins, got
         else:
             raise ValueError(f"offload executor cannot run op kind {kind}")
         if track_peaks:

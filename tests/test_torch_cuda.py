@@ -455,7 +455,8 @@ def test_measured_transients_recover_known_temporaries(dev):
     from the allocator's small pool, which rounds to 512 B: the bytes
     below are multiples of 512, so the counts are exact."""
     fwd_bytes, bwd_bytes = 512 * 600, 512 * 900
-    x = torch.randn(1 << 16, device=dev)
+    # an input that requires grad: the chain differentiates it
+    x = torch.randn(1 << 16, device=dev, requires_grad=True)
     w = torch.ones(1 << 16, device=dev, requires_grad=True)
     stages = [lambda p, a: _Transient.apply(a * p["w"], fwd_bytes,
                                             bwd_bytes),
@@ -474,6 +475,10 @@ def test_measured_transients_recover_known_temporaries(dev):
     chain = profile_stages_measured(stages, [{}, {}], x)
     assert chain.of[0] == fwd_bytes
     assert chain.ob[0] == bwd_bytes + nbytes
+    # an input without grad and no parameters: the chain runs no backward
+    # there, and the measure none either
+    chain = profile_stages_measured(stages, [{}, {}], x.detach())
+    assert chain.ob[0] == 0 and chain.ub[0] == 0
 
 
 def test_grad_with_peaks_subtracts_only_gradients_already_made(dev):
@@ -1067,3 +1072,113 @@ def test_rotor_on_the_measured_chain_keeps_its_memory_promise(dev, arch):
     pred = out["plan"].peak_device_mem
     for rec in out["steps"]:
         assert pred >= rec["fwd_bwd_peak_bytes"] > 0, (pred, rec)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_serving_on_the_card_matches_the_cpu(dev, arch):
+    """The float32 smoke model's prefill and 4 decode steps (flash attention
+    and the SSD kernel in prefill) on the card against the CPU, where every
+    wrapper takes its plain version: logits and every cache tensor within
+    rtol 1e-3 / atol 1e-4 (K3's float32 tolerance is 1e-4, K6's 2e-4);
+    prefill launches K4, and K3 (GQA) or K6 (SSM)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_config(arch, use_flash_attention=True, use_ssd_kernel=True,
+                       moe_capacity_factor=16.0)
+    model = StagedLM(cfg)
+    cpu = model.init(0, "cpu")
+    card = tree_map(lambda t: t.detach().to(dev, copy=True), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    runs = []
+    for params, where in ((cpu, "cpu"), (card, dev)):
+        counters.reset()
+        logits, cache = model.prefill(params, {"tokens": toks[:, :16].to(
+            where)}, max_len=20)
+        out = [logits]
+        for t in range(16, 20):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1].to(where))
+            out.append(logits)
+        runs.append((out, cache, counters.snapshot()))
+    (want, wcache, _), (got, gcache, launched) = runs
+    kernels = [rms_ops.NAME] + (
+        [flash_ops.NAME] if cfg.attention_kind == "gqa"
+        and "mamba" not in cfg.layer_kinds else []) + (
+        [ssd_ops.NAME] if cfg.layer_kinds[0] in ("mamba", "zamba") else [])
+    assert all(launched.get(k, 0) > 0 for k in kernels), launched
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+    for a, b in zip(tensors_of([gcache["layers"], gcache["shared"]]),
+                    tensors_of([wcache["layers"], wcache["shared"]])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+
+
+def test_planned_kv_leaves_the_card_between_uses(dev):
+    """``run_serving(plan=)`` on a small float32 model with a ~2-MB block
+    per layer: the staged blocks really leave the card between steps
+    (``memory_allocated``: the device KV is at most the budget, and below
+    the whole cache by the staged bytes), a step holds at most two staged
+    blocks beyond the resident ones, the copies move the booked bytes plus
+    the last step's write-back, and the tokens equal the whole-cache
+    run's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.plan.serving import kv_residency_layers, plan_serving
+    from repro_torch.runtime.serve_loop import ServeLoopConfig, run_serving
+
+    cfg = smoke_config("qwen1.5-4b", d_model=256, n_heads=4, n_kv_heads=4,
+                       head_dim=64, num_layers=6, layer_kinds=("dense",) * 6,
+                       n_chunks=6, use_flash_attention=True)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    B, S0, max_len = 4, 200, 256
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    loop = ServeLoopConfig(max_new_tokens=8, max_len=max_len)
+    layout = model.cache_layout(B, max_len)
+    budget = 0.5 * sum(layout.block_bytes)
+    link = measure_host_bandwidth(1 << 24, device=dev)
+    plan = plan_serving(cfg, budget, batch=B, prompt_len=S0, max_len=max_len,
+                        host=link, impl="cuda_fused")
+    staged = kv_residency_layers(plan, budget_bytes=budget)
+    staged_bytes = sum(layout.block_bytes[j] for j in staged)
+    whole = run_serving(cfg, params, prompts, loop, model=model)
+    planned = run_serving(cfg, params, prompts, loop, model=model,
+                          plan=plan, kv_budget=budget)
+    np.testing.assert_array_equal(planned["generations"],
+                                  whole["generations"])
+    assert staged and max(planned["device_kv_bytes"]) <= budget
+    assert max(planned["device_kv_bytes"]) <= \
+        min(whole["device_kv_bytes"]) - staged_bytes
+    assert max(planned["step_peak_bytes"]) <= (
+        max(whole["step_peak_bytes"]) - staged_bytes
+        + 2 * max(layout.block_bytes))
+    assert planned["kv_copied_bytes"] == \
+        planned["kv_transfer_bytes"] + staged_bytes
+    assert planned["kv_wait_s"] >= 0
+
+
+def test_conv_chain_isolated_ob_matches_in_chain(dev):
+    """Each stage's backward transient measured in isolation
+    (``profile_stages_measured``'s ``ob``) is within 5 % plus one allocator
+    rounding of the same backward inside the chain
+    (``chain_backward_transients``), on a small float32 conv chain."""
+    from repro_torch.configs import paper_resnet
+    from repro_torch.core.planner import chain_backward_transients
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        stages, params, x = paper_resnet.resnet_ish_chain(
+            num_blocks=6, base_ch=32, image=96, batch=16, device=dev)
+        chain = profile_stages_measured(stages, params, x)
+        inchain = chain_backward_transients(stages, params, x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert len(inchain) == chain.length + 1
+    for iso, got in zip(chain.ob, inchain):
+        assert abs(iso - got) <= 0.05 * got + (1 << 20) + 512, (
+            list(chain.ob), inchain)

@@ -8,7 +8,9 @@ the same weights bridged through numpy and inputs from a numpy seed:
 - the smoke model (one dense layer, then MoE layers, every attention MLA):
   every stage output, the loss, and every gradient under store-all and a
   rotor plan, without and with per-layer remat and the token-chunked loss;
-- the chunked path past ``DIRECT_ATTEND_MAX`` still raises;
+- the chunked path past ``DIRECT_ATTEND_MAX`` runs (it raised before the
+  serving slice; ``tests/test_torch_serve.py`` holds it against the JAX
+  package);
 - the full-width tree has the JAX package's paths, shapes and dtypes.
 
 Tolerances, as ``tests/test_torch_archs.py`` states them: outputs and
@@ -90,14 +92,16 @@ def test_mla_apply_matches_jax(window):
 
 
 def test_mla_chunked_path_still_raises():
+    """The name is from before the chunked path was ported: past
+    ``DIRECT_ATTEND_MAX`` MLA no longer raises but runs in q blocks."""
     cfg = psmoke(ARCH)
     p = pattn.mla_init(torch.Generator().manual_seed(0), cfg, torch.float32,
                        "meta")
     Sq = pattn.DIRECT_ATTEND_MAX + 1
     x = torch.empty((1, Sq, cfg.d_model), device="meta")
     pos = torch.zeros((1, Sq), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="chunked MLA"):
-        pattn.mla_apply(p, cfg, x, pos, pattn.MaskSpec())
+    y = pattn.mla_apply(p, cfg, x, pos, pattn.MaskSpec())
+    assert tuple(y.shape) == (1, Sq, cfg.d_model)
 
 
 def test_full_width_tree_matches_jax():

@@ -32,8 +32,9 @@ def _to_tensor(a: Any) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, cfg, device) -> Any:
     """JAX ``StagedLM.init`` parameters (numpy leaves) → the port's tensors on
-    ``device``, in the config's parameter dtype, requiring grad.  Raises if
-    the tree does not have the port model's structure and shapes."""
+    ``device``, in the config's parameter dtype, requiring grad (an audio
+    model's empty ``embed`` tree carries across as it is).  Raises if the
+    tree does not have the port model's structure and shapes."""
     ref = StagedLM(cfg).init(device="meta")
 
     def convert(a, r):

@@ -1,6 +1,7 @@
-"""Architecture configs (the text archs of ``repro.configs.archs`` that the
-port trains: the dense four, the two MoE (one on MLA), Mamba2 and the
-Zamba2 hybrid) and the smoke-reduction helper."""
+"""Architecture configs — the ten of ``repro.configs.archs``: the dense
+four, the audio decoder (MusicGen) and the VLM (PaliGemma), the two MoE
+(one on MLA), Mamba2 and the Zamba2 hybrid — and the smoke-reduction
+helper."""
 
 from __future__ import annotations
 
@@ -45,6 +46,26 @@ def qwen15_110b(**ov) -> ModelConfig:
                        n_heads=64, n_kv_heads=8, d_ff=49152,
                        vocab_size=152064, qkv_bias=True, mlp_kind="swiglu",
                        rope_theta=1e6, n_chunks=10, **{**_COMMON, **ov})
+
+
+def musicgen_medium(**ov) -> ModelConfig:
+    # [audio] decoder-only over EnCodec tokens [arXiv:2306.05284; hf]
+    # frontend (EnCodec) is a stub: the batch carries frame embeddings.
+    return ModelConfig(name="musicgen-medium", num_layers=48, d_model=1536,
+                       n_heads=24, n_kv_heads=24, d_ff=6144, vocab_size=2048,
+                       use_rope=False, mlp_kind="gelu",
+                       modality="audio_embed", n_chunks=8,
+                       **{**_COMMON, **ov})
+
+
+def paligemma_3b(**ov) -> ModelConfig:
+    # [vlm] SigLIP + gemma [arXiv:2407.07726; hf] — MQA, GeGLU, 256-patch
+    # bidirectional prefix; SigLIP frontend is a stub (patch embeddings in).
+    return ModelConfig(name="paligemma-3b", num_layers=18, d_model=2048,
+                       n_heads=8, n_kv_heads=1, d_ff=16384,
+                       vocab_size=257216, head_dim=256, mlp_kind="geglu",
+                       modality="vlm", prefix_len=256, embed_scale=True,
+                       rope_theta=10000.0, n_chunks=6, **{**_COMMON, **ov})
 
 
 def moonshot_16b_a3b(**ov) -> ModelConfig:
@@ -102,6 +123,8 @@ ARCHS: Dict[str, Callable[..., ModelConfig]] = {
     "qwen1.5-4b": qwen15_4b,
     "starcoder2-7b": starcoder2_7b,
     "qwen1.5-110b": qwen15_110b,
+    "musicgen-medium": musicgen_medium,
+    "paligemma-3b": paligemma_3b,
     "moonshot-v1-16b-a3b": moonshot_16b_a3b,
     "deepseek-v2-lite-16b": deepseek_v2_lite,
     "mamba2-1.3b": mamba2_13b,

@@ -26,18 +26,28 @@
 //   - warpgroup 0 is the producer, warpgroups 1 and 2 the consumers, 64
 //     query rows each; `setmaxnreg` moves registers to the consumers;
 //   - one producer thread loads each Q tile, and the K and V tiles (128 keys
-//     each) into a three-stage ring, by TMA, with mbarriers for arrival and
-//     release (a K tile is freed as soon as its scores are done).  The
-//     tensor maps are 4-D over (D, H, S, B) with the tensors' byte strides
-//     (no copy, no transpose) and 128-byte swizzle; rows past S and columns
-//     past D come in as zeros.  The head dimension is stored in 64-column
-//     chunks (D = 80 takes two, the second padded with zeros);
+//     each up to D = 128) into a three-stage ring, by TMA, with mbarriers for
+//     arrival and release (a K tile is freed as soon as its scores are
+//     done).  The tensor maps are 4-D over (D, H, S, B) with the tensors'
+//     byte strides (no copy, no transpose) and 128-byte swizzle; rows past S
+//     and columns past D come in as zeros.  The head dimension is stored in
+//     64-column chunks (D = 80 takes two, the second padded with zeros);
 //   - S = Q K^T is wgmma.m64n128k16 with both operands from shared memory
 //     and a float32 accumulator; the online softmax runs in registers on the
 //     accumulator's own layout (row max by shuffles within the quad of lanes
 //     that holds the row); P is rounded to bf16 in registers and fed as
 //     wgmma's register A operand of O += P V, with V from shared memory in
 //     the transposed-B form.  The denominator sums the float32 p;
+//   - D = 256 (PaliGemma) takes other tiles (`Tiles<D>`): with 128-key K and
+//     V tiles in three stages the ring alone would need 384 KB of the 227 KB
+//     a block may hold, and each consumer thread would hold 128 registers of
+//     O beside 64 of S.  So the K and V tiles are 64 keys in a two-stage
+//     ring (64 KB of Q, 4 x 32 KB of K and V: 193 KB), S = Q K^T is
+//     wgmma.m64n64k16 (32 registers) and P V two m64n128k16 halves (O's 128
+//     registers).  With 64-key tiles the first tile a consumer of the lower
+//     64 query rows takes lies wholly above its diagonal: its p of 1 (the
+//     mask value against a running max still at it) are wiped exactly by
+//     the next tile's rescaling factor, exp2(-1e30 - m) = 0;
 //   - the two consumers take turns at the tensor cores (named barriers):
 //     in its turn a consumer issues the next tile's Q K^T and this tile's
 //     P V, then runs the next softmax while its P V and the other
@@ -268,17 +278,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 namespace sm90 {
 
 constexpr int kBlockM = 128;    // query rows per block, 64 per consumer
-constexpr int kBlockN = 128;    // keys per K/V tile
-constexpr int kStages = 3;      // depth of the K/V ring
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 constexpr int kConsumers = 256;
 constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout for head dim D: the Q tile, then kStages K tiles,
-// then kStages V tiles; each tile is kChunks chunks of rows x 64 columns.
+// Tiles and shared-memory layout for head dim D: the Q tile, then kStages K
+// tiles, then kStages V tiles; each tile is kChunks chunks of rows x 64
+// columns.  Up to D = 128, 128 keys per K/V tile in three stages; D = 256
+// takes 64 keys in two (see the note at the top).
 template <int D>
 struct Tiles {
+  static constexpr int kBlockN = D > 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kStages = D > 128 ? 2 : 3;     // depth of the K/V ring
   static constexpr int kChunks = (D + 63) / 64;
   static constexpr int kPad = 64 * kChunks;  // head dim as stored
   static constexpr int kQChunk = kBlockM * kRowBytes;
@@ -445,6 +457,52 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) = A (64 x 16, smem) * B (16 x 64, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64_first(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 64, f32) += A (64 x 16, smem) * B (16 x 64, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, smem,
 // MN-major: the transposed-B form).
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
@@ -520,9 +578,9 @@ __device__ __forceinline__ void named_arrive(int id) {
                : "memory");
 }
 
-// S (64 x 128) = Q K^T: D / 16 steps of k16 along the head dimension, both
-// operands K-major; a step of 16 columns moves 32 bytes along the swizzled
-// row, or to the next 64-column chunk.
+// S (64 x kBlockN) = Q K^T: D / 16 steps of k16 along the head dimension,
+// both operands K-major; a step of 16 columns moves 32 bytes along the
+// swizzled row, or to the next 64-column chunk.
 template <int D>
 __device__ __forceinline__ void issue_scores(float* sc, uint32_t q_addr,
                                              uint32_t k_addr) {
@@ -533,26 +591,45 @@ __device__ __forceinline__ void issue_scores(float* sc, uint32_t q_addr,
         sw128_desc(q_addr + (kk / 4) * Tiles<D>::kQChunk + off, 16, 1024);
     const uint64_t db =
         sw128_desc(k_addr + (kk / 4) * Tiles<D>::kKVChunk + off, 16, 1024);
-    if (kk == 0)
-      wgmma_ss_n128_first(sc, da, db);
-    else
-      wgmma_ss_n128(sc, da, db);
+    if constexpr (Tiles<D>::kBlockN == 128) {
+      if (kk == 0)
+        wgmma_ss_n128_first(sc, da, db);
+      else
+        wgmma_ss_n128(sc, da, db);
+    } else {
+      if (kk == 0)
+        wgmma_ss_n64_first(sc, da, db);
+      else
+        wgmma_ss_n64(sc, da, db);
+    }
   }
 }
 
 // O (64 x kPad) += P V: kBlockN / 16 steps of k16 along the keys, P from
-// registers, V MN-major (16 keys are 16 swizzled rows).
+// registers, V MN-major (16 keys are 16 swizzled rows; the leading offset
+// steps to the next 64-column chunk).  kPad = 256 is two n128 halves, the
+// second on chunks 2 and 3 into O's registers 64 to 127 (the accumulator
+// layout's columns 128 on).
 template <int D>
 __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pf,
                                          uint32_t v_addr) {
+  using T = Tiles<D>;
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    const uint64_t db = sw128_desc(v_addr + kk * 16 * kRowBytes,
-                                   Tiles<D>::kKVChunk, 8 * kRowBytes);
-    if constexpr (Tiles<D>::kPad == 128)
-      wgmma_rs_n128(acc, pf + 4 * kk, db);
-    else
-      wgmma_rs_n64(acc, pf + 4 * kk, db);
+  for (int kk = 0; kk < T::kBlockN / 16; ++kk) {
+    const uint32_t rows = v_addr + kk * 16 * kRowBytes;
+    if constexpr (T::kPad == 256) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        wgmma_rs_n128(acc + 64 * half, pf + 4 * kk,
+                      sw128_desc(rows + 2 * half * T::kKVChunk, T::kKVChunk,
+                                 8 * kRowBytes));
+    } else {
+      const uint64_t db = sw128_desc(rows, T::kKVChunk, 8 * kRowBytes);
+      if constexpr (T::kPad == 128)
+        wgmma_rs_n128(acc, pf + 4 * kk, db);
+      else
+        wgmma_rs_n64(acc, pf + 4 * kk, db);
+    }
   }
 }
 
@@ -564,7 +641,8 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pf,
 // alpha receives each row's rescaling factor.  Row maxima are reduced over
 // the quad of lanes that holds the row; the sums stay per thread until the
 // end.  Unmasked tiles fold the scale into the exponent's FMA (the scale
-// is positive, so the row max commutes with it).
+// is positive, so the row max commutes with it).  kBlockN keys a tile.
+template <int kBlockN>
 __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
                                              float* alpha, int k0,
                                              int row_lo, int r0, int col0,
@@ -641,6 +719,7 @@ __device__ __forceinline__ void rescale(float* acc, const float* alpha) {
 }
 
 // p rounded to bf16, two to a register: the A fragments of P V.
+template <int kBlockN>
 __device__ __forceinline__ void pack_p(const float* sc, uint32_t* pf) {
 #pragma unroll
   for (int j = 0; j < kBlockN / 4; ++j)
@@ -659,6 +738,7 @@ struct Work {
   int h, b, q0, n_tiles;
 };
 
+template <int kBlockN>
 __device__ __forceinline__ Work decode(int w, int heads, int bh_total,
                                        int sq, int skv, int n_qtiles,
                                        int section) {
@@ -698,6 +778,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                int bh_total, int sq, int skv, int n_qtiles, int section,
                float scale_log2) {
   using T = Tiles<D>;
+  constexpr int kBlockN = T::kBlockN;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[2 + 4 * kStages];
   __shared__ int s_work;                  // the item of the current Q tile
@@ -741,8 +823,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
           mbar_arrive(full_q);
           break;
         }
-        const Work wk = decode(w, heads, bh_total, sq, skv, n_qtiles,
-                               section);
+        const Work wk = decode<kBlockN>(w, heads, bh_total, sq, skv,
+                                        n_qtiles, section);
         const int kv_head = wk.h / group;
         mbar_expect_tx(full_q, T::kQBytes);
         for (int c = 0; c < T::kChunks; ++c)
@@ -797,7 +879,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full_q, n & 1);
       const int w = s_work;
       if (w >= n_work) break;
-      const Work wk = decode(w, heads, bh_total, sq, skv, n_qtiles, section);
+      const Work wk =
+          decode<kBlockN>(w, heads, bh_total, sq, skv, n_qtiles, section);
       const int row_lo = wk.q0 + 64 * c;
       const int r0 = row_lo + 16 * (t / 32) + lane / 4;  // rows r0, r0 + 8
       float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
@@ -815,9 +898,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       fence_regs<kBlockN / 2>(sc);
       mbar_arrive(&empty_k[it % kStages]);
       if (wk.n_tiles == 1) mbar_arrive(empty_q);
-      softmax_tile(sc, m, l, alpha, (wk.n_tiles - 1) * kBlockN, row_lo, r0,
-                   col0, skv, scale_log2);
-      pack_p(sc, pf);
+      softmax_tile<kBlockN>(sc, m, l, alpha, (wk.n_tiles - 1) * kBlockN,
+                            row_lo, r0, col0, skv, scale_log2);
+      pack_p<kBlockN>(sc, pf);
 
       // Tile i < n - 1: rescale O, then in one turn issue S = Q K^T of
       // tile i + 1 and O += P V of tile i; the softmax of tile i + 1 runs
@@ -841,13 +924,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         fence_regs<kBlockN / 2>(sc);
         mbar_arrive(&empty_k[s1]);
         if (i + 2 == wk.n_tiles) mbar_arrive(empty_q);  // last Q K^T done
-        softmax_tile(sc, m, l, alpha, (wk.n_tiles - 2 - i) * kBlockN, row_lo,
-                     r0, col0, skv, scale_log2);
+        softmax_tile<kBlockN>(sc, m, l, alpha, (wk.n_tiles - 2 - i) * kBlockN,
+                              row_lo, r0, col0, skv, scale_log2);
         wgmma_wait<0>();
         fence_regs<T::kPad / 2>(acc);
         fence_regs<kBlockN / 4>(pf);
         mbar_arrive(&empty_v[s]);
-        pack_p(sc, pf);
+        pack_p<kBlockN>(sc, pf);
       }
       // the last tile: O += P V alone
       {
@@ -957,8 +1040,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   CUtensorMap tq, tk, tv;
   if (!make_map(encode, &tq, q, D, heads, sq, batch, layouts[0], kBlockM) ||
       !make_map(encode, &tk, k, D, kv_heads, skv, batch, layouts[1],
-                kBlockN) ||
-      !make_map(encode, &tv, v, D, kv_heads, skv, batch, layouts[2], kBlockN))
+                T::kBlockN) ||
+      !make_map(encode, &tv, v, D, kv_heads, skv, batch, layouts[2],
+                T::kBlockN))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_sm90<D>;
   int dev = 0, sms = 0;
@@ -1010,6 +1094,7 @@ cudaError_t dispatch(int is_bf16, int head_dim, const void* q, const void* k,
     FLASH_CASE(64)
     FLASH_CASE(80)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }

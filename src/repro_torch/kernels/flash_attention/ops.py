@@ -6,6 +6,8 @@ The forward runs the Hopper kernel on CUDA tensors (the model layout
 plain version on any other device.  bf16 inputs go to the tensor cores by
 TMA, which needs 16-byte-aligned bases and strides (:func:`tma_strides`
 raises otherwise; nothing falls back); float32 inputs to the scalar kernel.
+Head dims ``HEAD_DIMS`` (256 is PaliGemma's, on smaller K/V tiles); any
+other raises.
 The backward recomputes attention from the saved ``(q, k, v)`` through the
 plain :func:`.ref.attention`, as the JAX package's custom VJP does — no
 ``(S × S)`` tensor is kept between forward and backward.
@@ -23,7 +25,7 @@ from .. import _build
 from . import ref
 
 NAME = "flash_attention_fwd"
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _STRIDES = ctypes.c_int64 * 12  # (batch, seq, head) of q, k, v, o
 
 

@@ -11,8 +11,10 @@ and on the CPU at the smoke width::
 
     python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
 
-A VLM is served text-only (no image prefix) and an audio arch is skipped,
-as the JAX package's launcher does; the port's configs hold neither yet.
+A VLM is served text-only (PaliGemma's Gemma decoder, its embedding scale
+kept, without an image prefix) and an audio arch is skipped, as the JAX
+package's launcher does; both run their prefix or frames at model level
+(``StagedLM.prefill`` / ``decode_step``).
 """
 
 from __future__ import annotations

@@ -12,6 +12,7 @@ import torch
 from ..core.chain import Chain, HostTransferModel
 from ..core.planner import (grad_with_peaks, profile_stages_analytic,
                             profile_stages_measured)
+from ..data.pipeline import sequence_shape
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
@@ -39,7 +40,7 @@ def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
     allocator's bound with ``allocator``, as :func:`measure_chain` counts
     on CUDA), times from analytic FLOPs over ``peak_flops``, the host tier
     priced by ``host`` (a measured link)."""
-    B, S = batch_specs["tokens"].shape
+    B, S = sequence_shape(batch_specs)
     fwd, bwd = stage_flops(model.cfg, B, S)
     params = model.init(device="meta")
     return profile_stages_analytic(
@@ -140,7 +141,7 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
         if grad_accum == 1:
             loss, grads = loss_and_grads(batch)
         else:
-            n = batch["tokens"].shape[0]
+            n = sequence_shape(batch)[0]
             if n % grad_accum:
                 raise ValueError(f"batch {n} does not split into "
                                  f"{grad_accum} microbatches")

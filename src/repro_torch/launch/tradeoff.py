@@ -55,7 +55,7 @@ from ..core.chain import Chain
 from ..core.planner import (_fresh_input, grad_with_peaks,
                             profile_stages_measured)
 from ..core.solver import solve_min_memory
-from ..data.pipeline import SyntheticLMData
+from ..data.pipeline import SyntheticLMData, sequence_shape
 from ..device import resolve_device
 from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
@@ -232,9 +232,12 @@ def run_lm_tradeoff(model: StagedLM, params: Any,
                     batch: Dict[str, torch.Tensor], **kwargs
                     ) -> Dict[str, Any]:
     """:func:`run_tradeoff` on a :class:`StagedLM`'s stages at ``batch``:
-    items are tokens, and the norm sums a shared block's per-stage parts."""
+    items are the sequence's positions (tokens, audio frames, a VLM's image
+    prefix and tokens), and the norm sums a shared block's per-stage
+    parts."""
+    B, S = sequence_shape(batch)
     return run_tradeoff(model.stage_fns(), model.stage_params(params), batch,
-                        items=batch["tokens"].numel(),
+                        items=B * S,
                         combine_grads=model.combine_stage_grads, **kwargs)
 
 

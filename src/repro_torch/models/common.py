@@ -67,6 +67,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, dim: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """MusicGen-style sinusoidal embeddings, (seq_len, dim), float32: sin on
+    the even columns, cos on the odd ones."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / dim))
+    emb = torch.zeros((seq_len, dim), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(pos * div)
+    emb[:, 1::2] = torch.cos(pos * div)
+    return emb
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           z_loss: float = 0.0) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Analytic per-stage FLOP counts (the text-model part of
-``repro.models.flops``: dense and MoE layers on GQA or MLA attention,
-Mamba2 and Zamba2 layers, the Zamba2 shared block) — the rotor planner's
-``u_f``/``u_b`` without running anything, and the per-layer counts the
-KV-residency planner prices a decode step with.
+"""Analytic per-stage FLOP counts (``repro.models.flops``' stage and layer
+counts: dense and MoE layers on GQA or MLA attention, Mamba2 and Zamba2
+layers, the Zamba2 shared block, a VLM's head on its text positions) —
+the rotor planner's ``u_f``/``u_b`` without running anything, and the
+per-layer counts the KV-residency planner prices a decode step with.
 
 Counting convention: multiply-add = 2 FLOPs; attention scores/values counted
 at full (non-causal) cost.  Backward ≈ 2× forward, +1× when the per-layer
@@ -88,7 +88,8 @@ def per_layer_flops(cfg, B: int, S: int, kv_len: int | None = None
 
 def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:
     """(fwd, bwd) FLOPs per rotor stage: [embed] + chunks + [head+loss]; a
-    Zamba2 chunk that starts a period adds its shared block."""
+    Zamba2 chunk that starts a period adds its shared block.  ``S`` counts
+    every position, a VLM's image prefix included."""
     fwd: List[float] = [2 * B * S * cfg.d_model]  # lookup/scale — negligible
     for kind, start, length in cfg.chunks:
         f = length * _layer_flops(cfg, kind, B, S)
@@ -96,7 +97,9 @@ def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:
                 and start % cfg.hybrid_period == 0):
             f += _attn_flops(cfg, B, S) + _mlp_flops(cfg, B, S, cfg.d_ff)
         fwd.append(f)
-    fwd.append(2 * B * S * cfg.d_model * cfg.vocab_size)
+    # a VLM's head runs on the text positions only
+    S_eff = S - cfg.prefix_len if cfg.modality == "vlm" else S
+    fwd.append(2 * B * S_eff * cfg.d_model * cfg.vocab_size)
     # backward ≈ 2× fwd; +1× when inner per-layer remat replays the forward
     inner = 1.0 if cfg.scan_layer_remat == "full" else 0.0
     bwd = [(2.0 + inner) * f for f in fwd[:-1]] + [2.0 * fwd[-1]]

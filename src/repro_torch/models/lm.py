@@ -24,13 +24,27 @@ dict of tensors *per model layer* (``{"k", "v"}``, MLA's ``{"c_kv",
 shared-block invocation, and ``pos``, a Python int — the JAX package stacks
 it per chunk.  So one layer's block can leave the card between its uses
 (:mod:`..runtime.kv_residency`), and decode writes each new position in
-place instead of rebuilding the cache.  VLM/audio stages are not ported.
+place instead of rebuilding the cache.
+
+Modalities (dense GQA layers only, as the JAX package's two configs):
+
+- ``vlm`` (PaliGemma) — the batch carries ``image_embeds`` (B, P, d), a
+  stand-in for the SigLIP tower, laid before the token embeddings; the
+  first ``prefix_len`` positions attend to each other bidirectionally
+  (so attention takes the plain path, never the causal flash kernel), and
+  the head drops them before the loss;
+- ``audio_embed`` (MusicGen) — the batch carries frame ``embeds`` (B, S, d),
+  a stand-in for the EnCodec frontend, plus sinusoidal positions; the embed
+  stage holds no parameters, and a decode step takes a frame (B, 1, d);
+- ``embed_scale`` (Gemma) multiplies the embeddings by ``sqrt(d_model)``
+  rounded to the model dtype, in training, prefill and decode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -43,7 +57,8 @@ from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlp_mod
 from .common import (dense_apply, dense_init, rms_norm, rms_norm_init,
-                     softmax_cross_entropy, truncated_normal_init)
+                     sinusoidal_positions, softmax_cross_entropy,
+                     truncated_normal_init)
 
 Params = Dict[str, Any]
 
@@ -267,15 +282,33 @@ def _check_supported(cfg) -> None:
     kinds = set(cfg.layer_kinds)
     allowed = ({"dense", "moe", "mamba", "zamba"}
                if cfg.attention_kind == "gqa" else {"dense", "moe"})
-    if (cfg.modality != "text" or cfg.attention_kind not in ("gqa", "mla")
+    if cfg.modality != "text":
+        allowed = {"dense"} if cfg.attention_kind == "gqa" else set()
+    if (cfg.modality not in ("text", "vlm", "audio_embed")
+            or cfg.attention_kind not in ("gqa", "mla")
             or not kinds <= allowed
             or cfg.scan_layer_remat not in ("none", "full")):
         raise NotImplementedError(
             f"{cfg.name}: only text models with dense, MoE, Mamba2 and "
-            f"Zamba2 layers on GQA attention, or dense and MoE layers on MLA, "
-            f"are ported (modality={cfg.modality}, "
-            f"attention={cfg.attention_kind}, kinds={sorted(kinds)}, "
-            f"scan_layer_remat={cfg.scan_layer_remat})")
+            f"Zamba2 layers on GQA attention, dense and MoE layers on MLA, "
+            f"and VLM and audio models with dense GQA layers are ported "
+            f"(modality={cfg.modality}, attention={cfg.attention_kind}, "
+            f"kinds={sorted(kinds)}, scan_layer_remat={cfg.scan_layer_remat})")
+
+
+def _train_mask(cfg) -> attn.MaskSpec:
+    """Causal, the VLM's image prefix bidirectional, the sliding window."""
+    return attn.MaskSpec(causal=True, prefix_len=cfg.prefix_len,
+                         window=cfg.sliding_window)
+
+
+def _scale_embeddings(cfg, h: torch.Tensor) -> torch.Tensor:
+    """Gemma's ``h * sqrt(d_model)``, the factor rounded to the model dtype
+    first (45.25 in bf16 at d_model 2048), as the JAX package does."""
+    if not cfg.embed_scale:
+        return h
+    # a Python number: the product saves no tensor for its backward
+    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +334,10 @@ class StagedLM:
         gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
         gen.manual_seed(seed)
         dt = cfg.param_dtype
-        params: Params = {"embed": {"table": truncated_normal_init(
-            gen, (cfg.vocab_size, cfg.d_model), dt, 1.0, dev)}}
+        # an audio model takes frame embeddings: no table
+        params: Params = {"embed": {} if cfg.modality == "audio_embed" else {
+            "table": truncated_normal_init(gen, (cfg.vocab_size, cfg.d_model),
+                                           dt, 1.0, dev)}}
         params["chunks"] = [
             _stack([_block_init(gen, cfg, kind, dev) for _ in range(length)])
             for kind, start, length in cfg.chunks]
@@ -342,7 +377,17 @@ class StagedLM:
         return out
 
     def _embed_stage(self, p: Params, batch: Dict[str, torch.Tensor]) -> Dict:
-        h = F.embedding(batch["tokens"], p["table"]).to(self.cfg.dtype)
+        cfg = self.cfg
+        if cfg.modality == "audio_embed":
+            emb = batch["embeds"].to(cfg.dtype)
+            h = emb + sinusoidal_positions(emb.shape[1], cfg.d_model,
+                                           device=emb.device
+                                           ).to(cfg.dtype)[None]
+        else:
+            h = F.embedding(batch["tokens"], p["table"]).to(cfg.dtype)
+            if cfg.modality == "vlm":    # [image prefix] + [text tokens]
+                h = torch.cat([batch["image_embeds"].to(cfg.dtype), h], dim=1)
+        h = _scale_embeddings(cfg, h)
         return {"h": h, "aux": torch.zeros((), dtype=torch.float32,
                                            device=h.device),
                 "labels": batch["labels"], "mask": batch.get("loss_mask")}
@@ -354,7 +399,7 @@ class StagedLM:
         B, S = h.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
-        mask = attn.MaskSpec(causal=True, window=cfg.sliding_window)
+        mask = _train_mask(cfg)
         if "shared" in p and start % cfg.hybrid_period == 0:
             # Zamba2's shared block is a dense block; not under the
             # per-layer checkpoint, as in the reference
@@ -372,6 +417,8 @@ class StagedLM:
     def _head_stage(self, p: Params, a: Dict) -> torch.Tensor:
         cfg = self.cfg
         h = rms_norm(p["final_norm"], a["h"])
+        if cfg.modality == "vlm" and cfg.prefix_len:
+            h = h[:, cfg.prefix_len:]    # no loss on the image prefix
         if cfg.logits_chunk:
             from ..kernels.xent import ops as xent_ops
             loss = xent_ops.token_chunked_xent(
@@ -406,18 +453,21 @@ class StagedLM:
     # -- logits forward and serving -----------------------------------------
 
     def _embed_stage_nolabel(self, p: Params, batch: Dict) -> Dict:
-        B = batch["tokens"].shape[0]
+        x = batch["embeds" if self.cfg.modality == "audio_embed"
+                  else "tokens"]
         return self._embed_stage(p, {
-            "tokens": batch["tokens"], "loss_mask": None,
-            "labels": torch.zeros((B, 1), dtype=torch.int32,
-                                  device=batch["tokens"].device)})
+            **batch, "loss_mask": None,
+            "labels": torch.zeros((x.shape[0], 1), dtype=torch.int32,
+                                  device=x.device)})
 
     @torch.no_grad()
     def forward_logits(self, params: Params, batch: Dict,
                        at: Any = None) -> torch.Tensor:
-        """Logits of every position of ``batch["tokens"]``, or only of the
-        positions ``at`` indexes along the sequence (the head's output is
-        the largest tensor of a long sequence)."""
+        """Logits of every position of the sequence (a VLM's image prefix
+        included), or only of the positions ``at`` indexes along it (the
+        head's output is the largest tensor of a long sequence).  ``batch``
+        holds ``tokens``, ``embeds`` (audio) or ``image_embeds`` and
+        ``tokens`` (VLM)."""
         sp = self.stage_params(params)
         a = self._embed_stage_nolabel(params["embed"], batch)
         for i in range(len(self.cfg.chunks)):
@@ -500,8 +550,9 @@ class StagedLM:
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict,
                 max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-        """Run a full prompt; returns ``(last-position logits (B, 1, V),
-        decode cache)`` with room for ``max_len`` positions."""
+        """Run a full prompt (``batch`` as :meth:`forward_logits` takes it);
+        returns ``(last-position logits (B, 1, V), decode cache)`` with room
+        for ``max_len`` positions (a VLM's image prefix counts)."""
         cfg = self.cfg
         h = self._embed_stage_nolabel(params["embed"], batch)["h"]
         B, S = h.shape[:2]
@@ -509,7 +560,7 @@ class StagedLM:
         cache["pos"] = S
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
-        mask = attn.MaskSpec(causal=True, window=cfg.sliding_window)
+        mask = _train_mask(cfg)
         starts = self._shared_starts()
         pf = attn.mla_prefill if cfg.attention_kind == "mla" \
             else attn.gqa_prefill
@@ -539,7 +590,9 @@ class StagedLM:
     @torch.no_grad()
     def decode_step(self, params: Params, cache: Dict, tokens: torch.Tensor,
                     residency=None) -> Tuple[torch.Tensor, Dict]:
-        """One greedy decode step.  ``tokens``: (B, 1) int.  The cache is
+        """One greedy decode step.  ``tokens``: (B, 1) int, or for an audio
+        model a frame embedding (B, 1, d_model), to which the sinusoidal
+        code of the current position is added.  The cache is
         updated in place (the new position written, ``pos`` advanced) and
         returned with the logits (B, 1, V).  ``residency`` (a
         :mod:`..runtime.kv_residency` stager) is called around each layer:
@@ -547,7 +600,13 @@ class StagedLM:
         ``after_layer(cache, j)`` may send it back."""
         cfg = self.cfg
         pos = cache["pos"]
-        h = F.embedding(tokens, params["embed"]["table"]).to(cfg.dtype)
+        if cfg.modality == "audio_embed":
+            h = tokens.to(cfg.dtype) + sinusoidal_positions(
+                1, cfg.d_model, offset=pos, device=tokens.device
+            ).to(cfg.dtype)[None]
+        else:
+            h = F.embedding(tokens, params["embed"]["table"]).to(cfg.dtype)
+        h = _scale_embeddings(cfg, h)
         starts = self._shared_starts()
         dec = attn.mla_decode if cfg.attention_kind == "mla" \
             else attn.gqa_decode

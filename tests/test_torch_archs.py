@@ -7,8 +7,8 @@ mapped by name), the chunking and stage count of the published-depth chain
 stage (published and smoke size), and for the dense three the smoke
 model's loss and gradients with weights bridged through numpy (float32 on
 the CPU; loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5, as
-``tests/test_torch_model.py``).  The archs the port does not train yet
-(the VLM and audio stubs) still raise."""
+``tests/test_torch_model.py``).  The VLM and the audio decoder are held in
+``tests/test_torch_vlm_audio.py``."""
 
 import dataclasses
 
@@ -32,7 +32,6 @@ from repro_torch.configs import smoke_config as psmoke  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.launch.steps import plan_chain  # noqa: E402
 from repro_torch.models import flops as pflops  # noqa: E402
-from repro_torch.models.lm import ModelConfig as PConfig  # noqa: E402
 from repro_torch.models.lm import StagedLM as PLM  # noqa: E402
 from repro_torch.tree import tensors_of, tree_map  # noqa: E402
 
@@ -46,16 +45,6 @@ def _same_value(p, j) -> bool:
     if isinstance(p, torch.dtype):
         return str(p).removeprefix("torch.") == jnp.dtype(j).name
     return p == j
-
-
-def _port_config(jcfg) -> PConfig:
-    """A port config with the JAX config's fields, dtypes mapped by name."""
-    def conv(v):
-        if isinstance(v, type) and issubclass(v, jnp.generic):
-            return getattr(torch, jnp.dtype(v).name)
-        return v
-    return PConfig(**{f.name: conv(getattr(jcfg, f.name))
-                      for f in dataclasses.fields(jcfg)})
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -97,8 +86,3 @@ def test_arch_matches_jax(arch):
         np.testing.assert_allclose(node, np.asarray(want), rtol=1e-4,
                                    atol=1e-5, err_msg=str(path))
 
-
-@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
-def test_unported_archs_still_raise(arch):
-    with pytest.raises(NotImplementedError):
-        PLM(_port_config(jget(arch)))

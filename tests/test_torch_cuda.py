@@ -688,7 +688,11 @@ def _bf16_flash_bound(got, q, k, v):
     # head dim 80 and ragged lengths around one tile, group 1 and group 4
     (2, 1, 4, 4, 80), (1, 63, 8, 2, 80), (2, 65, 4, 4, 80),
     (1, 1000, 8, 2, 80), (1, 1, 8, 2, 128), (2, 63, 4, 4, 64),
-    (1, 65, 8, 2, 16), (1, 1000, 4, 4, 128)])
+    (1, 65, 8, 2, 16), (1, 1000, 4, 4, 128),
+    # head dim 256 on its 64-key tiles (K = 1: MQA), ragged and at
+    # PaliGemma's prefill shape; MusicGen's 24 heads × 64
+    (1, 300, 8, 1, 256), (2, 129, 4, 4, 256), (1, 64, 2, 1, 256),
+    (8, 2048, 8, 1, 256), (4, 2048, 24, 24, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype, tol):
@@ -702,6 +706,24 @@ def test_flash_kernel_matches_plain(dev, B, S, H, K, D, dtype, tol):
                                atol=tol)
     if dtype == torch.bfloat16:
         _bf16_flash_bound(got, q, k, v)
+
+
+def test_flash_kernel_takes_the_tensor_cores_at_every_head_dim(dev):
+    """Each bf16 instantiation of the flash kernel in the built library,
+    one per head dim the wrapper takes (256 on its own tiles), runs its
+    products as HGMMA (wgmma) instructions, as cuobjdump's SASS shows."""
+    flash_ops._FWD.load()
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "flash_attn_fwd"))], capture_output=True, text=True,
+        check=True).stdout
+    bodies = {f.splitlines()[0]: f for f in sass.split("Function :")[1:]
+              if "flash_fwd_sm90" in f.splitlines()[0]}
+    dims = sorted(int(name.split("ILi")[1].split("E")[0]) for name in bodies)
+    assert dims == sorted(flash_ops.HEAD_DIMS)
+    for body in bodies.values():
+        assert "HGMMA" in body
 
 
 def test_flash_kernel_reads_strided_layout(dev):

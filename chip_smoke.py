@@ -58,6 +58,18 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    parent/change comparison); where the per-band fill's time goes at
    L = 41 (host recursion, uploads, launches, downloads); and the host's
    cost of one band's copy through the library and through ``copy_``;
+From phase 6 on, ``REPRO_CHECK=1`` is set: every plan is verified as
+``build_plan`` returns it and again as it is bound, executed or served
+(``MemoryPlan.verify``, the static verifier of ``repro_torch.check``), and
+a plan that fails raises ``PlanVerificationError`` and fails the phase;
+the count of verifications is printed after phase 19.  Phases 7, 10 and
+15 also run traced steps (``repro_torch.obs``: one span per op, CUDA-event
+pairs on the stream that runs it), each written as a Perfetto file under
+``build/`` and checked with ``validate_trace_file``; a traced step fails
+its phase on a span count other than the schedule's op count, a span of
+negative length, an invalid file, or a loss or gradient norm off
+store-all's by more than 1e-2.
+
 6. rotor path: the Qwen1.5-4B model at full width, cut to 8 layers, batch
    4 × 2048 tokens, its chain measured on real tensors
    (``launch.steps.measure_chain``: forward and backward times by CUDA
@@ -90,7 +102,12 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
    the gradients made by then) must not fall below 1; then the offload
    schedule and store-all agree within 1e-2 on one batch.  The two-tier
    plan of the same budget (or of its floor) trains 3 steps first, as the
-   yardstick;
+   yardstick.  Then one traced step of the offload schedule on the walker:
+   its ``Foff``/``Prefetch`` spans on the side stream, the share of their
+   time under compute spans, the measured stall (the compute stream's
+   wait, and the ``Prefetch`` spans) against ``plan.transfer_stall``, and
+   the host buffer's peak from ``host_buffer.bytes_in_use``, which must
+   equal the buffer's own and reach the copied activation;
 8. planning with the other fill: on each training run's measured chain,
    the offload policy on the per-band kernel (K5a) and the rotor policy on
    the fused fill (K2) give the schedules the two training runs used;
@@ -111,9 +128,17 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     store-all peak, each through ``MemoryPlan.bind(...).value_and_grad``,
     predicted against measured time and peak, the time MAPE and rotor's
     gain over sequential; every point's loss and gradient norm equal
-    store-all's within 1e-2.  Then again for the same model without its
-    per-layer remat (the paper's setting: the planner is the only
-    checkpointing), its chain measured and printed as in path 6;
+    store-all's within 1e-2.  Each point also runs one traced step through
+    ``bind(stages, tracer=)`` (the op walker), printed beside the untraced
+    step, its loss and norm held alike; the rotor points' traces are
+    written out; then per stage the measured ``uf``/``ub`` against the
+    chain's (predicted, measured, ratio, the stage's share of the miss),
+    the chain calibrated on the spans (``calibrate_from_trace``), every
+    point re-planned on it at its budget, and the MAPE on the calibrated
+    chain beside the uncalibrated one (no limit held).  Then again,
+    untraced, for the same model without its per-layer remat (the paper's
+    setting: the planner is the only checkpointing), its chain measured
+    and printed as in path 6;
 11. Zamba2 path: as path 9, Zamba2-2.7B
     at full width (d_model 2560, 80 SSM heads of 64, state 64, chunks of
     256; the shared attention+MLP block at 32 heads × 80 and d_ff 10240;
@@ -164,7 +189,10 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
     the planned step's peak within (a)'s less the staged bytes plus two
     blocks; the copies must move the booked bytes (and, planned, the last
     step's write-back), the planned ones no more than LRU's; the modeled
-    stall and the measured wait are printed.  Must launch K3, K4 and K5b;
+    stall and the measured wait are printed.  One more ``run_serving`` at
+    the planned budget is traced: one ``Decode`` span per decode step, the
+    Perfetto file valid, the tokens (a)'s, and its ``serve.*`` metrics
+    equal to its returned dict.  Must launch K3, K4 and K5b;
 16. serving the other archs on the whole cache: Mamba2-1.3B at its 48 layers
     (the SSD kernel, K6, in prefill), phase 11's Zamba2 (24 layers) and
     phase 14's deepseek-v2-lite (4 layers, capacity factor 16 so that decode
@@ -203,6 +231,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -356,7 +385,6 @@ def card_name() -> str:
 def sass_functions(source: str, kernel: str) -> dict:
     """``{mangled name: SASS}`` of each function of the built library of
     ``source`` whose name holds ``kernel`` (``cuobjdump -sass``)."""
-    import os
     import shutil
 
     from repro_torch.kernels import _build
@@ -396,7 +424,7 @@ def time_fills(fills: dict, card: str, reps: int = 20,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import dp_kernels
-    from repro_torch.plan.plan import DEFAULT_NUM_SLOTS as slots
+    from repro_torch.plan import DEFAULT_NUM_SLOTS as slots
 
     def band_kernels(fill):
         runs = []
@@ -459,7 +487,7 @@ def fill_report() -> int:
     from repro_torch.launch.steps import plan_chain
     from repro_torch.models.lm import StagedLM
     from repro_torch.offload.solver import solve_min_device_memory
-    from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
+    from repro_torch.plan import DEFAULT_NUM_SLOTS
 
     fills = {}
     for layers in (LAYERS, get_config(ARCH).num_layers):
@@ -617,6 +645,67 @@ def check_against_forward(tag, model, params, prompt, tokens, seen, card,
         raise AssertionError(f"{tag}: decode differs from the full forward")
 
 
+def traced_serving(cfg, params, prompts, loop, model, plan, budget, want,
+                   card) -> None:
+    """Phase 15's traced run: ``run_serving`` with a tracer at the planned
+    budget; one ``Decode`` span per decode step, the Perfetto file under
+    build/ valid, the ``serve.*`` metrics (this run's readings, counters
+    as their growth over it) equal to the returned dict and the tokens
+    ``want``."""
+    import numpy as np
+    from repro_torch.obs import metrics
+    from repro_torch.obs.trace import Tracer, validate_trace_file
+    from repro_torch.runtime.serve_loop import run_serving
+
+    reg = metrics.registry()
+
+    def total(name):
+        m = reg.get(name)
+        return 0.0 if m is None else m.total
+
+    before = {k: total(k) for k in ("serve.decode_tokens",
+                                    "serve.kv_transfer_bytes")}
+    tracer = Tracer(name="phase 15 serving")
+    r = run_serving(cfg, params, prompts, loop, model, tracer, plan=plan,
+                    kv_budget=budget)
+    if not np.array_equal(r["generations"], want):
+        raise AssertionError("qwen traced: greedy tokens differ from (a)'s")
+    decodes = [s for s in tracer.spans if s.op == "Decode"]
+    if [s.arg for s in decodes] != list(range(1, loop.max_new_tokens)):
+        raise AssertionError(f"qwen traced: {len(decodes)} Decode spans for "
+                             f"{loop.max_new_tokens - 1} decode steps")
+    path = ROOT / "build" / "trace_phase15_serving.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tracer.save(str(path))
+    n = validate_trace_file(str(path))
+    gauges = {
+        "serve.kv_bytes": (reg.get("serve.kv_bytes").value, r["kv_bytes"]),
+        "serve.kv_bytes_allocated": (
+            reg.get("serve.kv_bytes_allocated").value,
+            r["kv_bytes_allocated"]),
+        "serve.decode_tokens": (
+            total("serve.decode_tokens") - before["serve.decode_tokens"],
+            r["decode_tokens"]),
+        "serve.prefill_seconds": (reg.get("serve.prefill_seconds").last,
+                                  r["prefill_s"]),
+        "serve.kv_transfer_bytes": (
+            total("serve.kv_transfer_bytes")
+            - before["serve.kv_transfer_bytes"], r["kv_transfer_bytes"]),
+        "serve.kv_stall_seconds": (reg.get("serve.kv_stall_seconds").last,
+                                   r["kv_stall_s"])}
+    for name, (got, exp) in gauges.items():
+        if got != exp:
+            raise AssertionError(f"qwen traced: {name} {got} but the "
+                                 f"returned dict says {exp}")
+    step = sorted(s.duration for s in decodes)[len(decodes) // 2]
+    say(f"[serve] qwen traced (plan= at the same budget): {len(decodes)} "
+        f"Decode spans, median {step * 1e3:.3f} ms; {n} spans in "
+        f"{path.relative_to(ROOT)} (valid); decode "
+        f"{r['decode_tokens_per_s']:.2f} tokens/s; serve.* metrics == the "
+        f"returned dict: {json.dumps({k: v[0] for k, v in gauges.items()})}"
+        f"; tokens == (a)'s on {card}")
+
+
 def serve_qwen(card, host) -> dict:
     """Phase 15: Qwen1.5-4B served at its published width and depth — the
     whole cache, then ``plan=`` and LRU at half of it on the link ``host``;
@@ -668,6 +757,8 @@ def serve_qwen(card, host) -> dict:
     runs["lru"] = run_serving(cfg, params, prompts, loop, model=model,
                               kv_policy="lru", kv_budget=budget, host=host)
     launched = counters.snapshot()
+    traced_serving(cfg, params, prompts, loop, model, plan, budget,
+                   tokens_a[:, :SHORT], card)
     uncounted(lambda: check_against_forward(
         "qwen (a) whole cache", model, params, {"tokens": prompts}, tokens_a,
         seen, card))
@@ -946,9 +1037,13 @@ def main() -> int:
     from repro_torch.offload.executor import execute_offload_schedule
     from repro_torch.offload.solver import (solve_min_device_memory,
                                             solve_optimal_offload)
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.drift import compare
+    from repro_torch.obs.trace import (Tracer, transfer_overlap,
+                                       validate_trace_file)
+    from repro_torch.offload.host_buffer import HostBuffer
     from repro_torch.optim.adamw import global_norm
-    from repro_torch.plan import resolve_policy
-    from repro_torch.plan.plan import DEFAULT_NUM_SLOTS
+    from repro_torch.plan import DEFAULT_NUM_SLOTS, resolve_policy
     from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
     from repro_torch.tree import tensors_of
 
@@ -1700,6 +1795,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. rotor path ------------------------------------------------------------
+    # from here on every plan is verified as it is built, bound or executed
+    # (MemoryPlan.verify; a plan that fails raises PlanVerificationError)
+    os.environ["REPRO_CHECK"] = "1"
+    obs_metrics.reset()
+    verified = [0]
+
+    def fresh_metrics():
+        """Reset the metrics, keeping the count of verified plans."""
+        h = obs_metrics.registry().get("plan.verify_seconds")
+        verified[0] += h.count if h is not None else 0
+        obs_metrics.reset()
     batch = SyntheticLMData(cfg, BATCH, SEQ, seed=0).device_batch(0, dev)
 
     def same_results(tag, params, grads_of, model=model, batch=batch):
@@ -1784,6 +1890,26 @@ def main() -> int:
                 f"{tag}: the plan over-predicts the forward and backward's "
                 f"activation peak by more than 25 % (predicted / measured "
                 f"{max(ratios):.4f})")
+
+    def trace_report(tag, plan, tracer, name):
+        """A traced step's spans: one per schedule op, in order, none
+        negative; written as a Perfetto file under build/ and checked with
+        ``validate_trace_file``; the drift against the plan printed."""
+        spans = tracer.spans
+        if [(s_.op, s_.arg) for s_ in spans] != list(plan.schedule.ops):
+            raise AssertionError(f"{tag}: {len(spans)} spans for "
+                                 f"{len(plan.schedule)} schedule ops")
+        if any(not s_.duration >= 0 for s_ in spans):
+            raise AssertionError(f"{tag}: a span of negative length")
+        path = ROOT / "build" / f"trace_{name}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tracer.save(str(path))
+        if validate_trace_file(str(path)) != len(plan.schedule):
+            raise AssertionError(f"{tag}: {path} does not hold one span per "
+                                 f"op")
+        say(f"[{tag}] traced step: {len(spans)} spans (one per op, CUDA "
+            f"events), Perfetto file {path.relative_to(ROOT)} valid; "
+            + compare(plan, spans).summary().replace("\n", ";"))
 
     # the chain the launcher plans on: measured on the card for the same
     # model, seeded weights and first batch (the launcher measures its own)
@@ -1961,6 +2087,56 @@ def main() -> int:
 
     same_results("offload", out["params"], offload_grads, off_model,
                  off_batch)
+
+    # one traced step of the same schedule: CUDA-event spans on the compute
+    # stream (F*, B) and the side stream (Foff, Prefetch)
+    traced = {"tracer": Tracer(name="phase 7 offload"), "stats": {},
+              "host": HostBuffer()}
+
+    def traced_offload_grads(params):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, stage_grads, _ = execute_offload_schedule(
+            plan.schedule, off_model.stage_fns(),
+            off_model.stage_params(params), off_batch,
+            host_buffer=traced["host"], stats=traced["stats"],
+            tracer=traced["tracer"])
+        torch.cuda.synchronize(dev)
+        traced["seconds"] = time.perf_counter() - t0
+        return loss, tensors_of(off_model.combine_stage_grads(stage_grads))
+
+    fresh_metrics()
+    same_results("offload traced", out["params"], traced_offload_grads,
+                 off_model, off_batch)
+    trace_report("offload", plan, traced["tracer"], "phase7_offload")
+    spans = traced["tracer"].spans
+    t_first = min(s_.t_start for s_ in spans)
+    for s_ in spans:
+        if s_.op in ("Foff", "Prefetch"):
+            say(f"[offload] traced {s_.op}^{s_.arg} on the side stream: "
+                f"{(s_.t_start - t_first) * 1e3:.4f} ms into the step, "
+                f"{s_.duration * 1e3:.4f} ms, {s_.bytes} B on {card}")
+    moved_s, hidden_s = transfer_overlap(spans)
+    report = compare(plan, spans)
+    gauge = obs_metrics.registry().get("host_buffer.bytes_in_use")
+    say(f"[offload] traced step: copies {moved_s * 1e3:.4f} ms, "
+        f"{hidden_s * 1e3:.4f} ms of it under compute spans (overlap share "
+        f"{hidden_s / moved_s if moved_s else math.nan:.4f}); stall "
+        f"predicted {plan.transfer_stall:.6e} s, measured "
+        f"{traced['stats']['prefetch_wait_s']:.6e} s (the compute stream's "
+        f"wait on prefetches) and {report.measured_stall:.6e} s (the "
+        f"Prefetch spans); host buffer peak {int(gauge.max)} B "
+        f"(host_buffer.bytes_in_use), the buffer's own "
+        f"{traced['host'].peak_bytes} B; walker step "
+        f"{traced['seconds']:.4f} s traced against "
+        f"{statistics.median(r['seconds'] for r in out['steps']):.4f} s a "
+        f"whole untraced step (AdamW included) on {card}")
+    if int(gauge.max) != traced["host"].peak_bytes or gauge.max < need:
+        raise AssertionError(f"host_buffer.bytes_in_use peaked at "
+                             f"{gauge.max} B, the buffer at "
+                             f"{traced['host'].peak_bytes} B, the copied "
+                             f"activation has {need} B")
+    del traced, spans
     offload_schedule = plan.schedule.ops
     del out, plan
     torch.cuda.empty_cache()
@@ -2056,15 +2232,17 @@ def main() -> int:
 
     # -- 10. the trade-off on the measured chain ----------------------------------
     def check_tradeoff(tag, trade):
-        """Every point's loss and gradient norm must equal store-all's
-        within 1e-2."""
+        """Every point's loss and gradient norm (and its traced step's) must
+        equal store-all's within 1e-2."""
         ref = trade["rows"][0]
         for r in trade["rows"]:
-            for key in ("loss", "grad_norm"):
-                if not abs(r[key] - ref[key]) <= 1e-2 * abs(ref[key]):
+            for key in ("loss", "grad_norm", "traced_loss",
+                        "traced_grad_norm"):
+                want = ref[key.replace("traced_", "")]
+                if key in r and not abs(r[key] - want) <= 1e-2 * abs(want):
                     raise AssertionError(
                         f"{tag}, {r['strategy']} at {r['budget_frac']}: "
-                        f"{key} {r[key]} vs store-all {ref[key]}")
+                        f"{key} {r[key]} vs store-all {want}")
         say(f"[tradeoff] {tag}: every point's loss and gradient norm == "
             f"store-all's within 1e-2 ({ref['loss']:.6f}, "
             f"{ref['grad_norm']:.6f})")
@@ -2074,10 +2252,26 @@ def main() -> int:
 
     counters.reset()
     params = model.init(0, dev)
-    check_tradeoff("per-layer remat", run_lm_tradeoff(
-        model, params, batch, impl="cuda", chain=measured,
-        emit=emit_as("per-layer remat")))
-    del params
+    # each point also runs one traced step on the op walker; the spans give
+    # the per-stage drift, and the chain calibrated on them the MAPE beside
+    # the uncalibrated one
+    trade = run_lm_tradeoff(model, params, batch, impl="cuda", chain=measured,
+                            emit=emit_as("per-layer remat"), trace=True)
+    check_tradeoff("per-layer remat", trade)
+    for r in trade["rows"]:
+        if r["strategy"] == "rotor":
+            point = Tracer(name="phase 10 rotor")
+            for s_ in r["spans"]:
+                point.record(s_.op, s_.arg, s_.t_start, s_.t_end,
+                             bytes=s_.bytes)
+            trace_report("tradeoff", r["plan"], point,
+                         f"phase10_rotor_{r['budget_frac']:g}")
+    cal = trade["calibration"]
+    say(f"[tradeoff] per-layer remat: time prediction MAPE "
+        f"{trade['mape_percent']:.2f} % on the measured chain, "
+        f"{cal['mape_percent']:.2f} % on the chain calibrated on the traced "
+        f"steps (no limit held) on {card}")
+    del params, trade, cal
     torch.cuda.empty_cache()
     # the paper's setting: the planner is the only checkpointing, so each
     # chunk stage keeps its layer's saved tensors (no per-layer remat)
@@ -2244,6 +2438,13 @@ def main() -> int:
 
     # -- 19. serving PaliGemma and MusicGen ---------------------------------
     path_launches.update(serve_vlm_audio(card))
+
+    fresh_metrics()
+    if not verified[0]:
+        raise AssertionError("REPRO_CHECK=1 verified no plan in phases 6-19")
+    say(f"[check] REPRO_CHECK=1: {verified[0]} MemoryPlan.verify calls as "
+        f"phases 6-19 built, bound, executed or served their plans, every "
+        f"report ok")
 
     # -- 20. result lines -------------------------------------------------
     # K3's head dim on each path that launches it

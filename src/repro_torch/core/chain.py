@@ -144,6 +144,37 @@ class Chain:
         """A copy of this chain priced with the given host-transfer model."""
         return dataclasses.replace(self, host=host)
 
+    def calibrate(self, uf: "Sequence[float] | None" = None,
+                  ub: "Sequence[float] | None" = None,
+                  blend: float = 1.0) -> "Chain":
+        """A copy with *measured* per-stage compute times folded in.
+
+        ``uf``/``ub`` are length-``L+1`` arrays of measured forward/backward
+        seconds (the chain's own indexing); ``NaN`` entries keep the modeled
+        value — :func:`repro_torch.obs.trace.measured_stage_times` gives
+        this shape from a trace.  ``blend`` interpolates model → measurement
+        (1.0 = the measurement); sizes and the host link are untouched."""
+        if not 0.0 <= blend <= 1.0:
+            raise ValueError("blend must be in [0, 1]")
+
+        def fold(model: np.ndarray, measured) -> np.ndarray:
+            if measured is None:
+                return model
+            meas = np.asarray(measured, dtype=np.float64)
+            if meas.shape != model.shape:
+                raise ValueError(
+                    f"measured times have shape {meas.shape}, "
+                    f"expected {model.shape}")
+            if np.any(meas[~np.isnan(meas)] < 0):
+                raise ValueError("measured times must be non-negative")
+            out = model.copy()
+            ok = ~np.isnan(meas)
+            out[ok] = (1.0 - blend) * model[ok] + blend * meas[ok]
+            return out
+
+        return dataclasses.replace(self, uf=fold(np.asarray(self.uf), uf),
+                                   ub=fold(np.asarray(self.ub), ub))
+
     def offload_times(self) -> np.ndarray:
         """Per-activation device→host copy time: entry ``i`` is ``a^i``."""
         if self.host is None:

@@ -18,14 +18,15 @@ from .schedule import Schedule
 def execute_schedule(schedule: Schedule, stages: Sequence[Callable],
                      params: Sequence[Any], x: Any,
                      loss_cotangent: Any = None,
-                     track_live_bytes: bool = False):
+                     track_live_bytes: bool = False, tracer=None):
     """Run forward and backward per ``schedule``; returns ``(loss_output,
     param_grads, input_grad)`` (and the peak of the saved set in bytes with
-    ``track_live_bytes``) — see ``execute_offload_schedule``."""
+    ``track_live_bytes``) — see ``execute_offload_schedule``.  ``tracer``
+    (opt-in) records one span per op."""
     from ..offload.executor import execute_offload_schedule
     return execute_offload_schedule(
         schedule, stages, params, x, loss_cotangent=loss_cotangent,
-        track_live_bytes=track_live_bytes)
+        track_live_bytes=track_live_bytes, tracer=tracer)
 
 
 def value_and_grads(fn: Callable, params: Sequence[Any], x: Any

@@ -175,14 +175,17 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
 
 
 def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
-                      lr_fn: Optional[Callable[[int], float]] = None):
+                      lr_fn: Optional[Callable[[int], float]] = None,
+                      tracer=None):
     """``train_step(params, opt_state, batch, step) -> metrics`` for a
-    three-tier (host-offload) schedule: gradients come from the eager op
-    walker — real copies to host memory and back — then one AdamW step in
-    place.  The metrics add the step's ``host_peak_bytes``, the host bytes
-    still parked after it (``host_bytes_after``, 0 for a sound schedule),
-    ``prefetch_wait_s`` and, on CUDA, ``grads_peak`` and ``fwd_bwd_peak``
-    (as :func:`make_train_step`, from the walker's per-op peaks)."""
+    three-tier (host-offload) schedule, or any schedule when traced:
+    gradients come from the eager op walker — real copies to host memory
+    and back — then one AdamW step in place.  The metrics add the step's
+    ``host_peak_bytes``, the host bytes still parked after it
+    (``host_bytes_after``, 0 for a sound schedule), ``prefetch_wait_s``
+    and, on CUDA, ``grads_peak`` and ``fwd_bwd_peak`` (as
+    :func:`make_train_step`, from the walker's per-op peaks).  ``tracer``
+    records one span per schedule op of every step."""
     stage_fns = model.stage_fns()
 
     def train_step(params, opt_state, batch, step: int) -> dict:
@@ -191,7 +194,7 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
         hb, stats = HostBuffer(), {}
         loss, stage_grads, _ = execute_offload_schedule(
             schedule, stage_fns, model.stage_params(params), batch,
-            host_buffer=hb, stats=stats)
+            host_buffer=hb, stats=stats, tracer=tracer)
         lr = lr_fn(step) if lr_fn is not None else None
         grads = tensors_of(model.combine_stage_grads(stage_grads))
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)

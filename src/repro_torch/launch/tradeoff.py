@@ -29,6 +29,17 @@ from measured times at each budget and, as the JAX package's benchmark
 computes it, from predicted times with rotor planned at each sequential
 point's own predicted peak (paper §5.4: mean +17.2 %).
 
+With ``trace``, each point also runs one traced step through
+``MemoryPlan.bind(stages, tracer=)`` — the op walker, one span per
+schedule op (CUDA-event pairs on the card) — printed beside the untraced
+step.  The spans of all points then give the measured per-stage ``uf`` /
+``ub`` against the chain's, with each stage's share of the time miss summed
+over the points, and the chain calibrated on them
+(:func:`~repro_torch.obs.drift.calibrate_from_trace`) re-plans every point
+at its budget: the schedules that ran, priced on the calibrated chain,
+against the untraced measured times give the calibrated MAPE, printed
+beside the uncalibrated one.
+
     # the conv chain on the CPU, then at the paper's size on the card
     python -m repro_torch.launch.tradeoff --arch paper-resnet --device cpu \\
         --override '{"num_blocks": 6, "base_ch": 8, "image": 16}' \\
@@ -54,13 +65,16 @@ from ..core.baselines import best_periodic
 from ..core.chain import Chain
 from ..core.planner import (_fresh_input, grad_with_peaks,
                             profile_stages_measured)
+from ..core.schedule import simulate
 from ..core.solver import solve_min_memory
 from ..data.pipeline import SyntheticLMData, sequence_shape
 from ..device import resolve_device
 from ..models.lm import StagedLM
+from ..obs.drift import calibrate_from_trace
+from ..obs.trace import Tracer, measured_stage_times
 from ..offload.executor import execute_offload_schedule
 from ..optim.adamw import global_norm
-from ..plan import InfeasiblePlanError, MemoryPlan, resolve_policy
+from ..plan import InfeasiblePlanError, MemoryPlan, build_plan, resolve_policy
 from ..tree import tensors_of
 
 BUDGETS = (0.45, 0.7, 1.0)
@@ -124,29 +138,123 @@ def time_point(plan: MemoryPlan, stages: Sequence[Callable],
             "loss": float(out), "grads": grads}
 
 
+def trace_point(plan: MemoryPlan, stages: Sequence[Callable],
+                params: Sequence[Any], x: Any) -> dict:
+    """One traced call of ``plan.bind(stages, tracer=).value_and_grad``
+    (the op walker): ``{"seconds" (CUDA events; the host clock off CUDA),
+    "spans", "loss", "grads"}``.  Raises unless the trace holds one span
+    per schedule op, in order, none negative."""
+    tracer = Tracer(name="tradeoff")
+    bound = plan.bind(stages, tracer=tracer)
+    dev = tensors_of([list(params), x])[0].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out, grads, _ = bound.value_and_grad(params, x)
+    if cuda:
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) * 1e-3
+    else:
+        seconds = time.perf_counter() - t0
+    spans = tracer.spans
+    if [(s.op, s.arg) for s in spans] != list(plan.schedule.ops):
+        raise AssertionError(f"{len(spans)} spans for "
+                             f"{len(plan.schedule)} schedule ops")
+    if any(not s.duration >= 0 for s in spans):
+        raise AssertionError("a span of negative length")
+    return {"seconds": seconds, "spans": spans, "loss": float(out),
+            "grads": grads}
+
+
+def calibration_report(chain: Chain, rows: List[dict],
+                       emit: Callable[[str], None]) -> Dict[str, Any]:
+    """The traced spans of ``rows`` against ``chain``: per stage the
+    predicted and measured ``uf``/``ub`` and each one's share of the time
+    miss (the measured less the predicted time of each op, summed over the
+    points' schedules); then the chain calibrated on the spans, every point
+    re-planned on it at its budget (its own request: the same fill), and
+    the schedules that ran priced on it against their untraced measured
+    times (the calibrated MAPE).  Returns the calibrated ``chain`` and
+    ``mape_percent``."""
+    spans = [s for r in rows for s in r["spans"]]
+    uf, ub = measured_stage_times(spans, chain.length)
+    fwd_miss, bwd_miss = [0.0] * len(uf), [0.0] * len(ub)
+    for r in rows:
+        for op, l in r["plan"].schedule.ops:
+            if op in ("Fall", "Fck", "Fnone") and not math.isnan(uf[l - 1]):
+                fwd_miss[l - 1] += uf[l - 1] - chain.uf[l - 1]
+            elif op == "B" and not math.isnan(ub[l - 1]):
+                bwd_miss[l - 1] += ub[l - 1] - chain.ub[l - 1]
+    emit("stage: uf predicted s, measured s (ratio), its miss summed over "
+         "the points s; ub the same")
+    for i in range(chain.length + 1):
+        emit(f"stage {i + 1}: uf {chain.uf[i]:.6e}, {uf[i]:.6e} "
+             f"({uf[i] / chain.uf[i] if chain.uf[i] else math.nan:.4f}), "
+             f"{fwd_miss[i]:+.6e}; ub {chain.ub[i]:.6e}, {ub[i]:.6e} "
+             f"({ub[i] / chain.ub[i] if chain.ub[i] else math.nan:.4f}), "
+             f"{bwd_miss[i]:+.6e}")
+    worst_f = max(range(len(uf)), key=lambda i: abs(fwd_miss[i]))
+    worst_b = max(range(len(ub)), key=lambda i: abs(bwd_miss[i]))
+    miss = sum(r["measured_s"] - r["predicted_s"] for r in rows)
+    emit(f"the points' summed miss (measured - predicted) {miss:+.6e} s; "
+         f"largest forward share: stage {worst_f + 1}'s uf "
+         f"{fwd_miss[worst_f]:+.6e} s, largest backward share: stage "
+         f"{worst_b + 1}'s ub {bwd_miss[worst_b]:+.6e} s (traced op times)")
+    calibrated = calibrate_from_trace(chain, spans)
+    errs, same = [], 0
+    for r in rows:
+        plan = r["plan"]
+        priced = simulate(calibrated, plan.schedule).time
+        replanned = (plan.schedule.ops if plan.budget_bytes is None else
+                     build_plan(plan.request, calibrated,
+                                policy=plan.policy).schedule.ops)
+        same += replanned == plan.schedule.ops
+        errs.append(abs(priced - r["measured_s"]) / r["measured_s"])
+        emit(f"calibrated {r['strategy']} at {r['budget_frac']:g} x "
+             f"store-all: predicted {priced:.6e} s (uncalibrated "
+             f"{r['predicted_s']:.6e}), measured {r['measured_s']:.6e} s; "
+             f"re-planned schedule "
+             f"{'the same' if replanned == plan.schedule.ops else 'differs'}")
+    mape = 100 * statistics.fmean(errs)
+    emit(f"time prediction MAPE on the calibrated chain {mape:.2f} % over "
+         f"{len(rows)} points ({same} re-planned to the same schedule)")
+    return {"chain": calibrated, "mape_percent": mape}
+
+
 def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
                  *, items: int, impl: Optional[str] = None,
                  chain: Optional[Chain] = None, repeats: int = 3,
                  budgets: Sequence[float] = BUDGETS,
                  combine_grads: Optional[Callable[[List[Any]], Any]] = None,
-                 emit: Callable[[str], None] = print) -> Dict[str, Any]:
+                 emit: Callable[[str], None] = print,
+                 trace: bool = False) -> Dict[str, Any]:
     """Plan and run the four strategies at ``budgets`` × the store-all peak
     of ``chain`` (measured here on ``stages``, ``params`` and ``x`` when
     not given); ``items`` (tokens, images) are processed per call, and
     ``combine_grads`` turns the per-stage gradients into the tree whose
     norm is reported (e.g. a shared block's parts summed).  Returns the
     chain, the rows, the MAPE, both gains (``nan`` where no point allows
-    one) and the measured gain at each budget where both ran."""
+    one) and the measured gain at each budget where both ran; with
+    ``trace``, each row also holds its traced step (``traced_s``,
+    ``traced_loss``, ``traced_grad_norm``, ``spans``) and the result the
+    :func:`calibration_report` (``calibration``)."""
     if chain is None:
         chain = profile_stages_measured(stages, params, x, repeats=repeats)
     peak = chain.store_all_peak()
     rows: List[dict] = []
 
+    def norm(grads) -> float:
+        return float(global_norm(tensors_of(
+            combine_grads(grads) if combine_grads is not None else grads)))
+
     def row(strategy: str, frac: float, plan: MemoryPlan) -> dict:
         got = time_point(plan, stages, params, x, repeats)
-        grads = got.pop("grads")
-        gnorm = float(global_norm(tensors_of(
-            combine_grads(grads) if combine_grads is not None else grads)))
+        gnorm = norm(got.pop("grads"))
         seconds, measured_peak = got["seconds"], got["peak"]
         r = dict(strategy=strategy, budget_frac=frac,
                  budget_bytes=plan.budget_bytes,
@@ -154,13 +262,21 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
                  predicted_peak_bytes=plan.peak_device_mem,
                  measured_s=seconds, measured_peak_bytes=measured_peak,
                  items_per_s=items / seconds, loss=got["loss"],
-                 grad_norm=gnorm)
+                 grad_norm=gnorm, plan=plan)
         rows.append(r)
         emit(f"{strategy} at {frac:g} x store-all: predicted "
              f"{r['predicted_s']:.6e} s, peak "
              f"{r['predicted_peak_bytes']:.6e} B; measured "
              f"{seconds:.6e} s, peak {measured_peak} B; "
              f"{r['items_per_s']:.1f} items/s")
+        if trace:
+            t = trace_point(plan, stages, params, x)
+            r.update(traced_s=t["seconds"], traced_loss=t["loss"],
+                     traced_grad_norm=norm(t["grads"]), spans=t["spans"])
+            emit(f"{strategy} at {frac:g} x store-all traced: "
+                 f"{len(t['spans'])} spans (one per op), step "
+                 f"{t['seconds']:.6e} s on the op walker against "
+                 f"{seconds:.6e} s untraced (x{t['seconds'] / seconds:.4f})")
         return r
 
     def plan_or_skip(policy: str, frac: float) -> Optional[MemoryPlan]:
@@ -223,9 +339,15 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
          + ", ".join(f"{f:g}: {100 * g:+.2f} %" for f, g in gain_at.items())
          + f"), predicted {100 * gain_p:+.2f} % over {len(predicted)} points "
          f"(paper §5.4: mean +17.2 %)")
-    return {"chain": chain, "rows": rows, "mape_percent": mape,
-            "gain_measured": gain_m, "gain_predicted": gain_p,
-            "gain_measured_at": gain_at}
+    out = {"chain": chain, "rows": rows, "mape_percent": mape,
+           "gain_measured": gain_m, "gain_predicted": gain_p,
+           "gain_measured_at": gain_at}
+    if trace:
+        out["calibration"] = calibration_report(chain, rows, emit)
+        emit(f"time prediction MAPE {mape:.2f} % uncalibrated, "
+             f"{out['calibration']['mape_percent']:.2f} % on the chain "
+             f"calibrated on the traced steps")
+    return out
 
 
 def run_lm_tradeoff(model: StagedLM, params: Any,

@@ -29,6 +29,15 @@ counts from the end of the autograd node that makes it
 (``core.planner.grad_with_peaks`` runs each ``B``), so the activation peak
 it reports leaves out only the gradients already made, as the measured
 chain's ``ob`` does.
+
+``tracer`` (a :class:`~repro_torch.obs.trace.Tracer`, opt-in) records one
+span per op, with the bytes it produced or moved.  On CUDA each span is a
+timing-event pair on the stream that runs the op — the compute stream for
+``F*``/``B``, the side stream for ``F_off`` (the copy) and ``Prefetch``
+(from where the compute stream stood, through the wait for the ``F_off`` to
+land, to the copy's end) — so no op waits for tracing; the tracer reads
+the events after the step.  Off CUDA a span is the op's host-clock time.
+Untraced, the walker is unchanged.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 
 from ..core.planner import _fresh_input, grad_with_peaks, seeded
 from ..core.schedule import BWD, F_ALL, F_CK, F_NONE, F_OFF, PREFETCH, Schedule
+from ..obs import metrics
 from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from .host_buffer import HostBuffer
 
@@ -73,6 +83,7 @@ def execute_offload_schedule(
     track_live_bytes: bool = False,
     host_buffer: Optional[HostBuffer] = None,
     stats: Optional[dict] = None,
+    tracer=None,
 ):
     """Run forward and backward per ``schedule``; returns ``(loss_output,
     param_grads, input_grad)`` — per-stage gradients shaped like
@@ -85,7 +96,9 @@ def execute_offload_schedule(
     the allocator's largest peak over the ops' spans, and
     ``act_peak_bytes``, the largest of each span's peak less the parameter
     gradients made by then (both absolute: the memory before the call
-    included), for which the peak counter is reset at every op."""
+    included), for which the peak counter is reset at every op; the
+    prefetch waits also land in the ``offload.prefetch_stall_seconds``
+    histogram.  ``tracer`` records one span per op (module docstring)."""
     L = schedule.length
     hb = host_buffer if host_buffer is not None else HostBuffer()
     first = tensors_of(x)[0]
@@ -117,7 +130,14 @@ def execute_offload_schedule(
             return saved[i][0]
         raise RuntimeError(f"a^{i} not available — invalid schedule")
 
+    rec = tracer is not None and tracer.enabled
     for kind, l in schedule.ops:
+        # the stream the op runs on, for its span (None: the host clock)
+        stream = (side if kind in (F_OFF, PREFETCH) else compute) \
+            if cuda else None
+        moved = None                       # bytes the op produced or moved
+        if rec and kind not in (F_OFF, PREFETCH):
+            mark = tracer.begin(stream)
         if kind == F_OFF:
             i = int(l)
             if i not in acts:
@@ -125,6 +145,8 @@ def execute_offload_schedule(
                                    f"activation")
             if cuda:
                 side.wait_stream(compute)
+                if rec:
+                    mark = tracer.begin(side)
                 with torch.cuda.stream(side):
                     def to_host(t):
                         if not isinstance(t, torch.Tensor):
@@ -138,10 +160,16 @@ def execute_offload_schedule(
                 landed[i] = torch.cuda.Event()
                 landed[i].record(side)
             else:
+                if rec:
+                    mark = tracer.begin()
                 host = tree_map(lambda t: t.clone()
                                 if isinstance(t, torch.Tensor) else t,
                                 acts[i])
-            hb.put(i, host, nbytes=tree_bytes(host))
+            moved = tree_bytes(host)
+            if rec:
+                tracer.end(mark, kind, i, stream, bytes=moved,
+                           host_mem=float(hb.bytes_in_use + moved))
+            hb.put(i, host, nbytes=moved)
             del host
         elif kind == PREFETCH:
             i = int(l)
@@ -158,9 +186,14 @@ def execute_offload_schedule(
                     lambda t: torch.empty_like(t, device=first.device)
                     if isinstance(t, torch.Tensor) else t, host)
                 side.wait_stream(compute)
+                if rec:
+                    mark = tracer.begin(side)
                 side.wait_event(landed.pop(i))
                 with torch.cuda.stream(side):
                     _copy_into(dst, host)
+                if rec:
+                    tracer.end(mark, kind, i, side, bytes=tree_bytes(host),
+                               host_mem=float(hb.bytes_in_use))
                 done = torch.cuda.Event()
                 done.record(side)
                 compute.wait_event(done)
@@ -169,9 +202,14 @@ def execute_offload_schedule(
                 acts[i] = dst
                 del dst
             else:
+                if rec:
+                    mark = tracer.begin()
                 t0 = time.perf_counter()
                 acts[i] = host
                 waits.append(time.perf_counter() - t0)
+                if rec:
+                    tracer.end(mark, kind, i, bytes=tree_bytes(host),
+                               host_mem=float(hb.bytes_in_use))
             del host
         elif kind in (F_NONE, F_CK, F_ALL):
             a_in = get_act(l - 1)
@@ -198,6 +236,8 @@ def execute_offload_schedule(
                                      out)
             if kind == F_NONE:
                 acts.pop(l - 1, None)
+            if rec:
+                moved = tree_bytes(out)
             del a_in, out
         elif kind == BWD:
             out, inp, _ = saved.pop(l)
@@ -241,13 +281,18 @@ def execute_offload_schedule(
             if kind == BWD:       # stage l-1's gradients exist from here
                 peaks["grads"] += tree_bytes(dps)
             torch.cuda.reset_peak_memory_stats(first.device)
+        live = None
         if track_live_bytes:
             live = tensors_of([acts, deltas]) + [
                 t for o, i_, r in saved.values()
                 for t in tensors_of([o, i_]) + r]
-            peak_live = max(peak_live, _unique_bytes(
+            live = _unique_bytes(
                 t for t in live
-                if t.untyped_storage().data_ptr() not in param_ids))
+                if t.untyped_storage().data_ptr() not in param_ids)
+            peak_live = max(peak_live, live)
+        if rec and kind not in (F_OFF, PREFETCH):
+            tracer.end(mark, kind, int(l), stream, bytes=moved,
+                       device_mem=None if live is None else float(live))
 
     if 0 not in deltas:
         raise RuntimeError("schedule did not produce δ^0")
@@ -255,6 +300,9 @@ def execute_offload_schedule(
         if cuda and waits:
             waits[-1][1].synchronize()
             waits = [a.elapsed_time(b) / 1e3 for a, b in waits]
+        stall = metrics.histogram("offload.prefetch_stall_seconds")
+        for w in waits:
+            stall.observe(w)
         stats["prefetch_wait_s"] = float(sum(waits))
         stats["prefetches"] = len(waits)
         if track_peaks:

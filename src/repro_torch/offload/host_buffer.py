@@ -1,5 +1,5 @@
 """Host-RAM pool for offloaded activations and staged KV blocks (the port of
-``repro.offload.host_buffer``, without its metrics gauges).
+``repro.offload.host_buffer``).
 
 The walker parks activation copies here between ``F_off`` and ``Prefetch``;
 on CUDA it allocates them in pinned host memory, which is what lets the
@@ -9,6 +9,10 @@ planned — so by default an insert that would overflow ``capacity_bytes``
 raises.  The serving path's KV stagers (:mod:`..runtime.kv_residency`) put
 with ``evict=True``: the least recently touched entries make room, and a
 planned block that was evicted is found missing at restore time.
+
+Every change of occupancy is mirrored into the process metrics: the gauge
+``host_buffer.bytes_in_use`` (its ``max`` is the high-water mark across
+buffers) and the counter ``host_buffer.evictions``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 from collections import OrderedDict
 from typing import Any, List, Optional, Tuple
+
+from ..obs import metrics
 
 
 @dataclasses.dataclass
@@ -82,6 +88,9 @@ class HostBuffer:
         self._entries[key] = (value, size)
         self._bytes += size
         self.stats.peak_bytes = max(self.stats.peak_bytes, self._bytes)
+        if evicted:
+            metrics.counter("host_buffer.evictions").inc(len(evicted))
+        self._publish()
         return evicted
 
     def get(self, key, default=None):
@@ -100,4 +109,8 @@ class HostBuffer:
             raise KeyError(f"host buffer: no entry {key!r}")
         value, size = self._entries.pop(key)
         self._bytes -= size
+        self._publish()
         return value
+
+    def _publish(self) -> None:
+        metrics.gauge("host_buffer.bytes_in_use").set(self._bytes)

@@ -1,36 +1,40 @@
-"""The :class:`MemoryPlan` artifact, its executor binding (:class:`BoundPlan`)
-and the budget grammar (the part of ``repro.plan`` the port has: no store
-codec, verifier or tracer yet).
+"""The :class:`MemoryPlan` artifact and its executor binding
+(:class:`BoundPlan`) — the port of ``repro.plan.plan``, without the store
+(``save``/``load`` come with the plan store).
 
-Budget grammar (shared with the JAX package's policy strings):
+A plan carries the op :class:`~repro_torch.core.schedule.Schedule`, the
+recursion tree (run as nested checkpoints, or by the eager walker when it
+holds offload nodes), the solver :class:`~repro_torch.core.solver.Solution`
+(solver-backed strategies), the :class:`~repro_torch.plan.request.PlanRequest`
+it answers, the chain's content hash, and the float64 simulator's
+predicted makespan, device and host peaks and transfer stall (NaN without
+a profiled chain).  It answers:
 
-- ``"1.5G"``, ``"800M"``, ``"2e9"``, ``"123"`` — absolute bytes, with an
-  optional K/M/G/T decimal suffix (:func:`parse_size`);
-- ``"x0.5"`` — a fraction of the chain's store-all activation peak;
-- ``"auto"`` — derived from launch context (device memory minus parameter,
-  gradient and optimizer state).
+- *is it sound?* — :meth:`MemoryPlan.verify`, the static verifier
+  (:mod:`repro_torch.check`); under ``REPRO_CHECK=1``, ``build_plan``
+  runs it on every plan it returns and ``bind``/``execute`` before they
+  run, and each refuses a plan that fails (the JAX package gates only
+  ``bind``/``execute``, and its store's ``save``/``load``);
+- *how do I run it?* — :meth:`MemoryPlan.bind` (nested checkpoints, or the
+  walker for offload plans; with ``tracer=`` always the walker, one span
+  per op) and :meth:`MemoryPlan.execute` (the walker);
+- *what does it cost, and did it?* — :meth:`summary`, :meth:`stats`,
+  :meth:`timeline`, and :meth:`drift` of a trace against the prediction.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import re
-from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
+import os
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core.chain import Chain
 from ..core.schedule import Schedule, simulate, uses_offload
 from ..core.solver import Solution
-
-#: Default slot count for the DP discretization (paper §5.2).
-DEFAULT_NUM_SLOTS = 500
-
-_UNITS = {"K": 1e3, "M": 1e6, "G": 1e9, "T": 1e12}
-_NUMBER = r"(?:[0-9]+(?:\.[0-9]*)?|\.[0-9]+)(?:[eE][+-]?[0-9]+)?"
-_SIZE_RE = re.compile(rf"({_NUMBER})\s*([KMGT]?)")
-_FRACTION_RE = re.compile(rf"x({_NUMBER})")
+from .request import PlanRequest
 
 
 class InfeasiblePlanError(MemoryError):
@@ -57,106 +61,51 @@ def chain_fingerprint(chain: Chain) -> str:
     return h.hexdigest()
 
 
-def _strategy(policy: str) -> str:
-    """The JAX package's ``PlanRequest.strategy`` of a policy string."""
-    return {"none": "store_all", "full": "full_remat", "periodic": "periodic",
-            "revolve": "revolve"}.get(policy.split(":", 1)[0], "optimal")
-
-
-def parse_size(spec: str) -> float:
-    """A non-negative number with an optional K/M/G/T suffix (``"1.5G"`` →
-    1.5e9); anything else raises."""
-    m = _SIZE_RE.fullmatch(spec.strip())
-    if not m:
-        raise ValueError(
-            f"cannot parse size {spec!r}: expected a number with an optional "
-            f"K/M/G/T suffix, e.g. '1.5G', '800M', '2e9', '123'")
-    return float(m.group(1)) * _UNITS.get(m.group(2), 1.0)
-
-
-@dataclasses.dataclass(frozen=True)
-class Budget:
-    """A memory budget: absolute bytes, a fraction of the store-all peak, or
-    ``auto`` (derived from launch context by the caller)."""
-
-    kind: str           # "bytes" | "fraction" | "auto"
-    value: float = 0.0
-
-    @staticmethod
-    def parse(spec: str) -> "Budget":
-        spec = spec.strip()
-        if spec == "auto":
-            return Budget("auto")
-        if spec.startswith("x"):
-            m = _FRACTION_RE.fullmatch(spec)
-            if not m:
-                raise ValueError(
-                    f"cannot parse fractional budget {spec!r}: expected "
-                    f"'x' followed by a number, e.g. 'x0.5'")
-            return Budget("fraction", float(m.group(1)))
-        return Budget("bytes", parse_size(spec))
-
-    def resolve(self, chain: Chain,
-                auto_budget: Union[float, Callable[[], float], None] = None
-                ) -> float:
-        """The budget in bytes; ``auto`` needs ``auto_budget`` (a float or a
-        zero-argument callable supplied by the launch path)."""
-        if self.kind == "bytes":
-            return self.value
-        if self.kind == "fraction":
-            return self.value * chain.store_all_peak()
-        if auto_budget is None:
-            raise ValueError(
-                "auto budget needs launch context (device memory and the "
-                "parameter/optimizer footprint) — pass auto_budget=, or use "
-                "an explicit bytes/fraction budget")
-        return float(auto_budget() if callable(auto_budget) else auto_budget)
 
 
 @dataclasses.dataclass
 class MemoryPlan:
-    """A resolved memory plan for one chain: the recursion ``tree`` (run as
-    nested checkpoints, or by the eager walker when it holds offload nodes),
-    the equivalent flat ``schedule``, the solver ``solution`` (solver-backed
-    policies only) and the float64 simulator's predicted makespan, device
-    and host peaks and transfer stall (NaN without a profiled chain)."""
+    """A resolved memory plan for one chain (built by
+    :func:`~repro_torch.plan.build_plan`).
 
-    policy: str
+    ``tree`` is the recursion tree (two-tier nodes, plus
+    :class:`~repro_torch.offload.solver.OffNode` for host-tier plans);
+    ``schedule`` the equivalent flat op sequence.  ``expected_time`` and the
+    peaks are float64-simulator numbers (NaN for a plan built from a bare
+    length); ``policy`` is the policy string the plan came from, if any;
+    ``fallback`` marks the min-memory schedule that ``on_infeasible=
+    "min_memory"`` put in place of an infeasible budget.
+    """
+
+    request: PlanRequest
     schedule: Schedule
-    tree: Any
+    tree: Optional[Any]
     solution: Optional[Solution]
     chain: Optional[Chain]
+    chain_hash: Optional[str]
     budget_bytes: Optional[float]
     expected_time: float
     peak_device_mem: float
-    peak_host_mem: float = float("nan")
-    transfer_stall: float = float("nan")
-    num_slots: int = DEFAULT_NUM_SLOTS
-    tiers: str = "device"           # "device", or "device+host"
+    peak_host_mem: float
+    transfer_stall: float
+    policy: Optional[str] = None
+    # the min-memory schedule that stood in for an infeasible budget
+    fallback: bool = False
 
-    @staticmethod
-    def build(policy: str, chain: Optional[Chain], tree: Any,
-              schedule: Schedule, solution: Optional[Solution] = None,
-              budget_bytes: Optional[float] = None,
-              num_slots: int = DEFAULT_NUM_SLOTS,
-              tiers: str = "device") -> "MemoryPlan":
-        """Wrap a schedule with its simulator-exact predictions."""
-        nan = float("nan")
-        expected, peak, host_peak, stall = nan, nan, nan, nan
-        if chain is not None:
-            res = simulate(chain, schedule)
-            if not res.valid:
-                raise AssertionError(
-                    f"planned schedule does not simulate: {res.error}")
-            expected, peak = res.time, res.peak_mem
-            host_peak, stall = res.host_peak_mem, res.transfer_stall
-        return MemoryPlan(policy, schedule, tree, solution, chain,
-                          budget_bytes, expected, peak, host_peak, stall,
-                          num_slots, tiers)
+    # -- introspection -----------------------------------------------------
 
     @property
     def length(self) -> int:
         return self.schedule.length
+
+    @property
+    def tiers(self) -> str:
+        """The request's tiers, ``"+"``-joined (``"device+host"``)."""
+        return "+".join(self.request.tiers)
+
+    @property
+    def num_slots(self) -> int:
+        return self.request.resolved_num_slots
 
     @property
     def uses_offload(self) -> bool:
@@ -198,7 +147,7 @@ class MemoryPlan:
         """JSON-serializable description, with the JAX package's fields;
         ``executor`` is ``"nested-checkpoint"`` or ``"eager-offload"``."""
         return {
-            "strategy": _strategy(self.policy),
+            "strategy": self.request.strategy,
             "tiers": self.tiers,
             "policy": self.policy,
             "num_slots": self.num_slots,
@@ -214,8 +163,7 @@ class MemoryPlan:
             "uses_offload": self.uses_offload,
             "executor": ("eager-offload" if self.uses_offload
                          else "nested-checkpoint"),
-            "chain_hash": (chain_fingerprint(self.chain)
-                           if self.chain is not None else None),
+            "chain_hash": self.chain_hash,
         }
 
     def summary(self) -> str:
@@ -223,7 +171,9 @@ class MemoryPlan:
         ops = " ".join(f"{k}:{c[k]}" for k in
                        ("Fall", "Fck", "Fnone", "B", "Foff", "Prefetch")
                        if k in c)
-        lines = [f"MemoryPlan[{self.policy}] L={self.length} stages",
+        lines = [f"MemoryPlan[{self.request.describe()}]"
+                 + (f" (policy {self.policy!r})" if self.policy else "")
+                 + f" L={self.length} stages",
                  f"  ops: {len(self.schedule)} ({ops})"]
         if self.budget_bytes is not None:
             lines.append(f"  budget: {self.budget_bytes:.6e} B")
@@ -237,38 +187,126 @@ class MemoryPlan:
                                        else "nested checkpoints"))
         return "\n".join(lines)
 
+    # -- static verification ----------------------------------------------
+
+    def verify(self, max_violations: int = 64):
+        """Statically verify the schedule against the liveness,
+        offload-protocol and budget rules (:mod:`repro_torch.check`);
+        returns a :class:`~repro_torch.check.VerificationReport`.
+
+        Nothing runs: the abstract interpreter proves every backward has its
+        state, nothing is used after it is freed, the offload protocol
+        holds and (with a profiled chain and a budget) the symbolic device
+        peak stays within ``budget_bytes``.  A solver-backed two-tier
+        ``optimal`` plan is also re-checked slot by slot against the
+        solver's discretization, and a sound schedule's stored makespan and
+        peaks against the simulator (:meth:`_verify_metadata`).
+
+        One deliberate difference from the JAX package: the slot pass
+        skips a min-memory ``fallback``, whose solver discretized against
+        the store-all peak, not the budget it reports; re-quantized at that
+        budget, a schedule that fits it byte for byte can exceed ``S``
+        slots, and the JAX package refuses such a sound plan.  Each call's
+        time lands in the ``plan.verify_seconds`` histogram."""
+        from ..check import verify_schedule, verify_slot_discipline
+        from ..obs import metrics
+        with metrics.histogram("plan.verify_seconds").time():
+            report = verify_schedule(
+                self.schedule, chain=self.chain,
+                device_budget=self.budget_bytes,
+                max_violations=max_violations)
+            if (self.chain is not None and self.solution is not None
+                    and self.budget_bytes is not None
+                    and self.request.strategy == "optimal"
+                    and not self.fallback and not self.uses_offload):
+                # re-quantizing against the plan budget is only sound for
+                # the budget-driven two-tier solver
+                report.merge(verify_slot_discipline(
+                    self.schedule, self.chain, self.budget_bytes,
+                    self.num_slots, max_violations=max_violations))
+            if (report.ok and self.chain is not None
+                    and self.expected_time == self.expected_time):  # not NaN
+                report.merge(self._verify_metadata())
+        return report
+
+    def _verify_metadata(self):
+        """The stored makespan and peaks against the float64 cost model: a
+        corruption that leaves the schedule valid but changes what it
+        costs (a duplicated forward) still fails."""
+        from ..check import VerificationReport, Violation
+        res = simulate(self.chain, self.schedule)
+        report = VerificationReport(rules=["metadata"])
+
+        def drift(name, stored, got):
+            if abs(got - stored) > 1e-9 * max(1.0, abs(stored)):
+                report.violations.append(Violation(
+                    kind="metadata-drift",
+                    message=f"stored {name} {stored!r} but the schedule "
+                            f"simulates to {got!r}"))
+
+        drift("expected_time", self.expected_time, res.time)
+        drift("peak_device_mem", self.peak_device_mem, res.peak_mem)
+        drift("peak_host_mem", self.peak_host_mem, res.host_peak_mem)
+        return report
+
+    def _verify_or_raise(self, context: str) -> None:
+        report = self.verify()
+        if not report.ok:
+            from ..check import PlanVerificationError
+            raise PlanVerificationError(report, context=context)
+
     # -- execution ---------------------------------------------------------
 
-    def bind(self, stages: Sequence[Callable]) -> "BoundPlan":
+    def bind(self, stages: Sequence[Callable], tracer=None) -> "BoundPlan":
         """Bind per-stage callables (``stages[l-1]`` is paper-stage ``l``):
-        the one call surface for both executors."""
-        return BoundPlan(self, stages)
+        the one call surface for both executors.  ``tracer`` (a
+        :class:`repro_torch.obs.trace.Tracer`, opt-in) runs every call on
+        the op walker, whatever the plan, with one span per schedule op —
+        the measured timeline for :meth:`drift`; without it nothing
+        changes.  Under ``REPRO_CHECK=1`` the plan is verified first."""
+        if os.environ.get("REPRO_CHECK") == "1":
+            self._verify_or_raise("refusing to bind an invalid plan")
+        return BoundPlan(self, stages, tracer=tracer)
 
     def execute(self, stages: Sequence[Callable], params: Sequence[Any],
                 x: Any, **kwargs) -> Tuple[Any, List[Any], Any]:
         """Run the exact op sequence on the eager walker
         (``core.executor.execute_schedule``; host copies included);
-        returns ``(out, param_grads, input_grad)``."""
+        returns ``(out, param_grads, input_grad)``.  Pass ``tracer=`` to
+        record one span per op.  Under ``REPRO_CHECK=1`` the plan is
+        verified first."""
+        if os.environ.get("REPRO_CHECK") == "1":
+            self._verify_or_raise("refusing to execute an invalid plan")
         from ..core.executor import execute_schedule
         return execute_schedule(self.schedule, stages, params, x, **kwargs)
+
+    def drift(self, trace):
+        """Plan-vs-actual drift of a trace recorded while running this plan
+        (:func:`repro_torch.obs.drift.compare`)."""
+        from ..obs.drift import compare
+        return compare(self, trace)
 
 
 class BoundPlan:
     """A plan bound to stage callables.
 
-    - ``remat_expressible`` — the plan runs as nested checkpoints
-      (:func:`~repro_torch.core.rematerialize.build_remat_fn`); otherwise on
-      the eager offload walker with a fresh host buffer per call.
+    - ``remat_expressible`` — the calls run as nested checkpoints
+      (:func:`~repro_torch.core.rematerialize.build_remat_fn`); otherwise
+      on the eager walker with a fresh host buffer per call — always so
+      when bound with a tracer (``traced``).
     - ``forward(params, x)`` — the chain's output.
     - ``value_and_grad(params, x)`` — ``(out, param_grads, input_grad)``
       for a cotangent of ones on the output, shaped as
       :func:`~repro_torch.core.executor.reference_grads` shapes them.
     """
 
-    def __init__(self, plan: MemoryPlan, stages: Sequence[Callable]):
+    def __init__(self, plan: MemoryPlan, stages: Sequence[Callable],
+                 tracer=None):
         self.plan = plan
         self.stages = list(stages)
-        self.remat_expressible = plan.remat_expressible
+        self.tracer = tracer
+        self.traced = tracer is not None and tracer.enabled
+        self.remat_expressible = plan.remat_expressible and not self.traced
         self._fn = None
         if self.remat_expressible:
             from ..core.rematerialize import build_remat_fn
@@ -290,9 +328,10 @@ class BoundPlan:
         from ..offload.executor import execute_offload_schedule
         from ..offload.host_buffer import HostBuffer
         return execute_offload_schedule(self.plan.schedule, self.stages,
-                                        params, x, host_buffer=HostBuffer())
+                                        params, x, host_buffer=HostBuffer(),
+                                        tracer=self.tracer)
 
     def __repr__(self):
-        mode = "nested-checkpoint" if self.remat_expressible else \
-            "eager-offload"
+        mode = ("traced-walker" if self.traced else "nested-checkpoint"
+                if self.remat_expressible else "eager-offload")
         return f"BoundPlan({mode}, L={self.plan.length})"

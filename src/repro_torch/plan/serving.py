@@ -34,8 +34,11 @@ deterministically to the budget.
 
 The port keeps no default host link (``host=`` is required: on the card
 the rate ``core.planner.measure_host_bandwidth`` measures), and its time
-prices default to the H100's.  The plan wraps the schedule with
-``MemoryPlan.build``, which refuses a schedule that does not simulate.
+prices default to the H100's.  The plan is a ``("device", "kv")``
+:class:`~repro_torch.plan.PlanRequest` resolved by
+:func:`~repro_torch.plan.build_plan`, which refuses a schedule that does
+not simulate; ``run_serving`` verifies it before it serves
+(:meth:`MemoryPlan.verify`).
 """
 
 from __future__ import annotations
@@ -45,8 +48,9 @@ from typing import List, Optional, Union
 import numpy as np
 
 from ..core.chain import Chain, HostTransferModel
-from ..offload.solver import solve_min_device_memory, solve_optimal_offload
-from .plan import DEFAULT_NUM_SLOTS, Budget, InfeasiblePlanError, MemoryPlan
+from .api import build_plan
+from .plan import MemoryPlan
+from .request import Budget, PlanRequest
 
 #: Time prices of the per-layer estimates: NVIDIA H100 SXM's dense bf16
 #: tensor-core rate and HBM3 bandwidth (data sheet; the JAX package's
@@ -100,32 +104,21 @@ def plan_serving(cfg, budget: Union[Budget, str, float], *, batch: int,
     falls back to the smallest-memory schedule (reporting its budget).
     Returns a ``"device+kv"`` :class:`MemoryPlan`;
     :func:`..runtime.serve_loop.run_serving` runs it with ``plan=``."""
-    if on_infeasible not in ("raise", "min_memory"):
-        raise ValueError(f"on_infeasible must be 'raise' or 'min_memory', "
-                         f"got {on_infeasible!r}")
-    if isinstance(budget, str):
-        budget = Budget.parse(budget)
+    if isinstance(budget, Budget):
+        b = budget
+    elif isinstance(budget, str):
+        b = Budget.parse(budget)
+    else:
+        b = Budget.bytes(float(budget))
     chain = kv_chain(cfg, batch=batch, prompt_len=prompt_len,
                      max_len=max_len, host=host, device_flops=device_flops,
                      hbm_bandwidth=hbm_bandwidth,
                      recompute_penalty=recompute_penalty)
-    limit = (budget.resolve(chain) if isinstance(budget, Budget)
-             else float(budget))
-    slots = DEFAULT_NUM_SLOTS if num_slots is None else num_slots
-    sol = solve_optimal_offload(chain, limit, num_slots=slots, impl=impl)
-    if not sol.feasible and on_infeasible == "min_memory":
-        sol = solve_min_device_memory(chain, num_slots=slots, impl=impl)
-        if sol.feasible:
-            print(f"[plan] budget {limit / 2**30:.2f} GiB infeasible; "
-                  f"min-memory schedule needs {sol.mem_limit / 2**30:.2f} "
-                  f"GiB of activations", flush=True)
-            limit = sol.mem_limit
-    if not sol.feasible:
-        raise InfeasiblePlanError(
-            f"kv residency: no feasible persistent schedule within "
-            f"{limit:.3e} bytes for this chain (tiers device+kv)")
-    return MemoryPlan.build(f"kv:{limit:.6e}", chain, sol.tree, sol.schedule,
-                            sol, limit, slots, "device+kv")
+    request = PlanRequest(strategy="optimal", budget=b,
+                          tiers=("device", "kv"), host=chain.host,
+                          num_slots=num_slots, impl=impl,
+                          on_infeasible=on_infeasible)
+    return build_plan(request, chain)
 
 
 def kv_residency_layers(plan: MemoryPlan,

@@ -29,6 +29,12 @@ its measured wait (``kv_wait_s``): on CUDA the compute stream's wait on
 prefetches (CUDA events), the host's wait on write-backs and the demand
 copies (host clock); elsewhere the copies are host↔host clones and the
 modeled times are the ones that mean anything.
+
+Each booked transfer adds its bytes to the ``serve.kv_transfer_bytes``
+counter, and each run's modeled stall lands in the
+``serve.kv_stall_seconds`` histogram (:mod:`repro_torch.obs.metrics`);
+with a tracer, each booked transfer is also a ``Foff``/``Prefetch`` span of
+its modeled length, as the JAX package records it.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core.chain import HostTransferModel
+from ..obs import metrics as obs_metrics
 from ..offload.host_buffer import HostBuffer
 
 
@@ -49,11 +56,12 @@ class _KVStager:
     policy = "base"
 
     def __init__(self, model, layout, link: HostTransferModel,
-                 buffer: Optional[HostBuffer] = None):
+                 buffer: Optional[HostBuffer] = None, tracer=None):
         self.model = model
         self.layout = layout
         self.link = link
         self.buffer = buffer if buffer is not None else HostBuffer(None)
+        self.tracer = tracer
         self.offload_bytes = 0.0
         self.prefetch_bytes = 0.0
         self.stall_s = 0.0
@@ -147,11 +155,18 @@ class _KVStager:
         else:
             self.prefetch_bytes += b
             t = self.link.prefetch_time(b)
+        obs_metrics.counter("serve.kv_transfer_bytes").inc(b)
         if stall:
             self.stall_s += t
+        if self.tracer is not None and self.tracer.enabled:
+            now = self.tracer.now()
+            op = "Foff" if direction == "offload" else "Prefetch"
+            self.tracer.record(op, j + 1, now, now + t, bytes=b,
+                               extra={"modeled": True})
         return t
 
     def result_stats(self) -> Dict[str, Any]:
+        obs_metrics.histogram("serve.kv_stall_seconds").observe(self.stall_s)
         return {
             "kv_policy": self.policy,
             "kv_offload_bytes": self.offload_bytes,
@@ -194,8 +209,8 @@ class PlannedKV(_KVStager):
 
     def __init__(self, model, layout, host_layers: List[int],
                  link: HostTransferModel,
-                 buffer: Optional[HostBuffer] = None):
-        super().__init__(model, layout, link, buffer)
+                 buffer: Optional[HostBuffer] = None, tracer=None):
+        super().__init__(model, layout, link, buffer, tracer)
         self.host_layers = sorted(host_layers)
         self._staged = set(self.host_layers)
         self._inflight: Dict[int, Any] = {}   # j -> (event, tensors)
@@ -293,8 +308,8 @@ class LRUKV(_KVStager):
 
     def __init__(self, model, layout, budget_bytes: float,
                  link: HostTransferModel,
-                 buffer: Optional[HostBuffer] = None):
-        super().__init__(model, layout, link, buffer)
+                 buffer: Optional[HostBuffer] = None, tracer=None):
+        super().__init__(model, layout, link, buffer, tracer)
         self.budget_bytes = float(budget_bytes)
         self._resident: List[int] = []   # first = least recently used
         self.hits = 0

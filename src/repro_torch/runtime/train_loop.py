@@ -1,6 +1,8 @@
 """Training loop on one device: rotor-planned remat or an eager three-tier
 (host-offload) schedule, AdamW, deterministic synthetic data, and per-step
-time and memory."""
+time and memory.  Every step reports ``train.step_seconds`` and
+``train.loss`` to :mod:`repro_torch.obs.metrics`; tracing (a tracer, or
+``TrainLoopConfig.trace_path``) is opt-in."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..device import resolve_device
 from ..launch.steps import (make_offload_step, make_train_step,
                             measure_chain, plan_training)
 from ..models.lm import StagedLM
+from ..obs import metrics as obs_metrics
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
 from ..tree import tensors_of, tree_bytes
@@ -38,12 +41,14 @@ class TrainLoopConfig:
     solver_impl: Optional[str] = None   # DP fill (dp_kernels.KNOWN_IMPLS)
     grad_accum: int = 1                 # microbatch accumulation factor
     peak_flops: Optional[float] = None  # prices the chain's stage times
+    trace_path: Optional[str] = None    # write a Perfetto trace.json here
 
 
 def run_training(cfg, loop: TrainLoopConfig, device=None,
                  params: Optional[Dict[str, Any]] = None,
                  log_fn: Callable[[str], None] = print,
-                 chain: Optional[Chain] = None) -> Dict[str, Any]:
+                 chain: Optional[Chain] = None,
+                 tracer=None) -> Dict[str, Any]:
     """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
     otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
     seeded initialization.  The plan is solved on ``chain`` if one is given
@@ -63,8 +68,21 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     gradients made by then — what the plan's predicted activation peak
     describes.  Both are ``None`` off CUDA, the host fields ``None``
     without offloads.  A loss that is not finite raises
-    ``FloatingPointError``."""
+    ``FloatingPointError``.
+
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`; one is made when
+    ``loop.trace_path`` is set) is threaded into the plan: every step runs
+    on the op walker, whatever the plan, with one span per schedule op (on
+    CUDA, event pairs on the stream that runs each op); store-all (no plan)
+    gets one ``Step`` span per step.  The spans are written to
+    ``loop.trace_path`` as a Perfetto file, and with a plan the result
+    gains ``drift``, the plan's prediction against the last step's spans
+    (:func:`repro_torch.obs.drift.compare`)."""
     dev = resolve_device(device)
+    if tracer is None and loop.trace_path:
+        from ..obs.trace import Tracer
+        tracer = Tracer(name="train")
+    traced = tracer is not None and tracer.enabled
     model = StagedLM(cfg)
     if params is None:
         params = model.init(loop.seed, dev)
@@ -83,15 +101,19 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                                 impl=loop.solver_impl, device=dev,
                                 chain=chain)
     offload = plan is not None and plan.uses_offload
-    tree = plan.tree if plan is not None and not offload else None
+    walker = plan is not None and (offload or traced)
+    tree = plan.tree if plan is not None and not walker else None
+    if walker and loop.grad_accum != 1:
+        raise NotImplementedError(
+            "grad_accum > 1 with an offload schedule or a tracer")
     if offload:
-        if loop.grad_accum != 1:
-            raise NotImplementedError(
-                "grad_accum > 1 with an offload schedule")
         log_fn(f"[offload] three-tier plan: "
                f"{plan.schedule.count('Foff')} host offloads, predicted "
                f"{plan.expected_time:.4f}s model time/step — eager executor "
                f"engaged\n{plan.summary()}")
+    elif walker:
+        log_fn(f"[trace] two-tier plan on the op walker, one span per op\n"
+               f"{plan.summary()}")
     elif plan is not None:
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
                f"over {model.n_stages()} stages\n{plan.summary()}")
@@ -99,8 +121,9 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     opt_state = adamw_init(leaves)
     opt_cfg = AdamWConfig(lr=loop.lr)
     lr_fn = linear_warmup_cosine(loop.lr, loop.warmup, loop.steps)
-    if offload:
-        step_fn = make_offload_step(model, opt_cfg, plan.schedule, lr_fn)
+    if walker:
+        step_fn = make_offload_step(model, opt_cfg, plan.schedule, lr_fn,
+                                    tracer=tracer)
     else:
         step_fn = make_train_step(model, opt_cfg, tree, lr_fn,
                                   grad_accum=loop.grad_accum)
@@ -127,6 +150,11 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                     metrics["grads_peak"]) - static_bytes if cuda else None)
         if not math.isfinite(loss):
             raise FloatingPointError(f"step {step}: loss {loss}")
+        obs_metrics.histogram("train.step_seconds").observe(seconds)
+        obs_metrics.gauge("train.loss").set(loss)
+        if traced and plan is None:
+            t1 = tracer.now()
+            tracer.record("Step", step, t1 - seconds, t1)
         losses.append(loss)
         rec = {"loss": loss, "seconds": seconds,
                "tokens_per_s": tokens / seconds,
@@ -144,7 +172,19 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                       f" prefetch-wait {rec['prefetch_wait_s']:.4f}s"
                       if offload else ""))
     wall = time.perf_counter() - t_begin
-    return {"losses": losses, "steps": records, "params": params,
-            "opt_state": opt_state, "plan": plan, "chain": chain,
-            "wall_s": wall,
-            "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9)}
+    result = {"losses": losses, "steps": records, "params": params,
+              "opt_state": opt_state, "plan": plan, "chain": chain,
+              "wall_s": wall,
+              "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9)}
+    if traced and tracer.spans:
+        if loop.trace_path:
+            tracer.save(loop.trace_path)
+            log_fn(f"[obs] wrote {len(tracer.spans)} spans to "
+                   f"{loop.trace_path}")
+        if plan is not None:
+            # the last (warmest) step's spans against the prediction
+            from ..obs.drift import compare
+            report = compare(plan, tracer.spans[-len(plan.schedule):])
+            log_fn(f"[obs] {report.summary()}")
+            result["drift"] = report
+    return result

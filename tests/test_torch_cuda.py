@@ -1204,3 +1204,67 @@ def test_conv_chain_isolated_ob_matches_in_chain(dev):
     for iso, got in zip(chain.ob, inchain):
         assert abs(iso - got) <= 0.05 * got + (1 << 20) + 512, (
             list(chain.ob), inchain)
+
+
+def test_traced_walker_on_the_card_spans_every_op(dev):
+    """``bind(..., tracer=)`` on the card: one CUDA-event span per schedule
+    op of a rotor plan, in order, none negative, none waiting for tracing
+    to resolve until the spans are read; gradients equal the untraced
+    nested-checkpoint run's (float32, 1e-4)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.obs.trace import Tracer, validate_perfetto
+
+    cfg = smoke_config("qwen1.5-4b", num_layers=4, layer_kinds=("dense",) * 4,
+                       n_chunks=4, use_flash_attention=True)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    batch = SyntheticLMData(cfg, 2, 64, seed=0).device_batch(0, dev)
+    chain = plan_chain(model, input_specs(cfg, ShapeSpec("t", "train", 64,
+                                                         2)), 1e12)
+    plan = resolve_policy("rotor:x0.6", chain)
+    stages, sp = model.stage_fns(), model.stage_params(params)
+    tr = Tracer()
+    out, grads, _ = plan.bind(stages, tracer=tr).value_and_grad(sp, batch)
+    assert tr._pending                   # nothing resolved while running
+    spans = tr.spans
+    assert [(s.op, s.arg) for s in spans] == list(plan.schedule.ops)
+    assert all(s.duration >= 0 and s.t_start >= 0 for s in spans)
+    validate_perfetto(tr.to_perfetto())
+    ref_out, ref_grads, _ = plan.bind(stages).value_and_grad(sp, batch)
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tensors_of(grads), tensors_of(ref_grads)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_traced_offload_copies_run_on_the_side_stream(dev):
+    """An offload plan traced on the card: the ``Foff``/``Prefetch`` spans
+    are the side stream's copies (their bytes the activation's), every op
+    has its span, and the copies' overlap with compute is a share in
+    [0, 1]."""
+    from repro_torch.obs.trace import Tracer, transfer_overlap
+
+    L = 6
+    ch = Chain.make(uf=[1.0] * L + [0.0], ub=[2.0] * L + [0.0],
+                    wa=[1.0] * (L + 1), wabar=[2.0] * L + [0.0],
+                    host=HostTransferModel(bandwidth_d2h=1.0))
+    plan = resolve_policy("optimal_offload:x0.35:1.0", ch, num_slots=64)
+    assert plan.uses_offload
+    stages = [lambda p, a: torch.tanh(a @ p["w"])] * L + [
+        lambda p, a: torch.mean(a ** 2)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = [{"w": (torch.randn(1024, 1024, device=dev, generator=g)
+                     * 0.03).requires_grad_()} for _ in range(L)] + [{}]
+    x = torch.randn(2048, 1024, device=dev, generator=g)
+    tr = Tracer()
+    _, grads, _ = plan.execute(stages, params, x, tracer=tr)
+    spans = tr.spans
+    assert [(s.op, s.arg) for s in spans] == list(plan.schedule.ops)
+    copies = [s for s in spans if s.op in ("Foff", "Prefetch")]
+    assert copies and all(s.bytes == x.nbytes for s in copies)
+    assert all(s.duration > 0 for s in copies)
+    total, covered = transfer_overlap(spans)
+    assert total > 0 and 0 <= covered <= total + 1e-9
+    _, ref, _ = plan.execute(stages, params, x)
+    for a, b in zip(tensors_of(grads), tensors_of(ref)):
+        torch.testing.assert_close(a, b)

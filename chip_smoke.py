@@ -62,7 +62,11 @@ From phase 6 on, ``REPRO_CHECK=1`` is set: every plan is verified as
 ``build_plan`` returns it and again as it is bound, executed or served
 (``MemoryPlan.verify``, the static verifier of ``repro_torch.check``), and
 a plan that fails raises ``PlanVerificationError`` and fails the phase;
-the count of verifications is printed after phase 19.  Phases 7, 10 and
+the count of verifications is printed after phase 20.  The solver cache,
+plan store and frontiers live in ``build/store`` (``REPRO_STORE``),
+emptied at the start, so a run reads no earlier run's entries; a DP
+kernel's launch count on a path counts cache misses only (a hit launches
+no fill).  Phases 7, 10 and
 15 also run traced steps (``repro_torch.obs``: one span per op, CUDA-event
 pairs on the stream that runs it), each written as a Perfetto file under
 ``build/`` and checked with ``validate_trace_file``; a traced step fails
@@ -72,11 +76,14 @@ store-all's by more than 1e-2.
 
 6. rotor path: the Qwen1.5-4B model at full width, cut to 8 layers, batch
    4 × 2048 tokens, its chain measured on real tensors
-   (``launch.steps.measure_chain``: forward and backward times by CUDA
-   events, the forward's and backward's transient memory by the allocator's
-   peak; printed stage by stage beside the analytic chain's times, its sizes
-   equal to the analytic chain's with each tensor at the CUDA allocator's
-   bound) to set the budget, the midpoint between
+   (``launch.steps.measure_chain``: each stage alone for its sizes and its
+   forward's and backward's transient memory by the allocator's peak, then
+   its forward and backward times inside the chain, the median of 3 traced
+   store-all steps on the walker after a warm-up (CUDA-event spans; the
+   min-memory schedule where store-all does not fit), printed stage by
+   stage beside the isolated times and then beside the analytic chain's,
+   its sizes equal to the analytic chain's with each tensor at the CUDA
+   allocator's bound) to set the budget, the midpoint between
    its min-memory and store-all peaks; then ``repro_torch.launch.train.main``
    trains 3 steps under that rotor budget on the CUDA band-min kernel, the
    launcher measuring its own chain and planning on it (a chain without
@@ -125,9 +132,12 @@ store-all's by more than 1e-2.
 10. the trade-off of paper Figs 3–13 (``launch.tradeoff``) on path 6's
     measured chain: store-all, the best sequential segment count,
     ``revolve:B`` and ``rotor:B`` at 0.45, 0.7 and 1.0 × the measured
-    store-all peak, each through ``MemoryPlan.bind(...).value_and_grad``,
-    predicted against measured time and peak, the time MAPE and rotor's
-    gain over sequential; every point's loss and gradient norm equal
+    store-all peak and at two budgets between the two-tier floor and
+    store-all, each through ``MemoryPlan.bind(...).value_and_grad``,
+    predicted against measured time and peak, the time MAPE (over all
+    points, and over the points whose schedule differs from store-all's,
+    whose steps timed the chain; the points left out are named) and
+    rotor's gain over sequential; every point's loss and gradient norm equal
     store-all's within 1e-2.  Each point also runs one traced step through
     ``bind(stages, tracer=)`` (the op walker), printed beside the untraced
     step, its loss and norm held alike; the rotor points' traces are
@@ -155,14 +165,15 @@ store-all's by more than 1e-2.
 13. the paper's own workload: the heterogeneous conv chain
     (``configs.paper_resnet``, 12 blocks from 224² × 64 down to 14² × 512,
     batch 64, float32, a synthetic input from the seed), its chain measured
-    and printed stage by stage, then the trade-off of path 10 at 0.35, 0.5,
+    (each stage alone, then its times inside the chain, both printed) and
+    printed stage by stage, then the trade-off of path 10 at 0.35, 0.5,
     0.65, 0.8 and 1.0 × store-all (the JAX package's budgets) and at two
     budgets a third and two thirds of the way from the measured two-tier
     floor to store-all, on the CUDA band-min kernel (each stage's backward
     transient measured in isolation, its ``ob``, printed beside the same
     backward inside the chain; past 5 % plus one allocator rounding apart
     it fails): predicted and measured time and peak per point, the MAPE
-    and rotor's gain over
+    (both ways, as path 10) and rotor's gain over
     sequential, measured and predicted; every point's loss and gradient
     norm equal store-all's within 1e-2, the gain must be read at two
     budgets below store-all at least, and K1 must launch;
@@ -215,10 +226,32 @@ store-all's by more than 1e-2.
     image prefix and 1792 tokens, 32 decode steps; MusicGen on 2048 frames,
     32 frame decode steps (each fed the next frame); each against the full
     forward within phase 15's tolerance;
-20. one JSON line describing every kernel (K3's launches also by head
+20. persistence and resume (``persistence``), in the store under
+    ``build/store``: (a) ``build_plan`` on the fused fill on path 6's
+    measured chain, a miss with one K2 launch, then a hit with none and the
+    same schedule (host-clock latency of each); (b) a child process on the
+    same store: a disk hit, no fill launch; (c) the plan saved to a file,
+    loaded and verified in a child with ``CUDA_VISIBLE_DEVICES=''``, then
+    the loaded plan bound and run on the card: loss and gradient norm
+    equal to the original plan's within 1e-2; (d) the file with one byte
+    flipped and the chain with one ``uf`` changed, each refused with what
+    failed named; (e) ``PlanService`` (one worker), tenants alpha and beta,
+    8 concurrent identical requests: one fill (one solver-cache miss, one
+    K2 launch), the ``plan_service.*`` counts printed; (f) ``sweep`` over 5
+    fractions twice through the default store's frontier: the second makes
+    no solve, a query between two points at most one; (g) path 9's Mamba2
+    (8 layers) under rotor on its measured chain: 2 steps with
+    ``ckpt_dir`` (a checkpoint after each step, written on a thread), then
+    a fresh ``run_training`` resumes and takes step 3, its loss equal to 3
+    uninterrupted steps' within 1e-3 relative; ``restore_plan(chain=)``
+    gives the trained plan's schedule; the bytes, host-copy and write
+    seconds of each checkpoint and the time the step-0 write overlapped
+    step 1 printed; the directory removed after.  The time MAPE of paths
+    10 and 13 is then printed again, both ways;
+21. one JSON line describing every kernel (K3's launches also by head
     dim: it must have run at 256 and 64), then the final JSON result line.
 
-Each path (6 to 19) runs with the launch counts set to 0 just before it and
+Each path (6 to 20) runs with the launch counts set to 0 just before it and
 read just after; a kernel launched on none of them fails the run.  Every
 training path's predicted forward+backward activation peak must lie
 within [1, 1.25] of the measured one.
@@ -991,6 +1024,300 @@ def serve_vlm_audio(card) -> dict:
     return launched
 
 
+# one child process of phase 20: argv = (src, the chain's .npz, what, arg);
+# "solve" plans on the fused fill (a disk hit must launch no fill kernel),
+# "load" loads and verifies a saved plan (run with CUDA hidden)
+PERSIST_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from repro_torch import counters
+from repro_torch.core import solver_cache
+from repro_torch.core.chain import Chain
+from repro_torch.plan import Budget, MemoryPlan, PlanRequest, build_plan
+arrays = np.load(sys.argv[2])
+chain = Chain.make(**{k: arrays[k] for k in arrays.files})
+if sys.argv[3] == "solve":
+    plan = build_plan(PlanRequest(strategy="optimal", impl="cuda_fused",
+                                  budget=Budget.bytes(float(sys.argv[4]))),
+                      chain)
+    out = {"stats": solver_cache.stats(), "launches": counters.snapshot()}
+else:
+    import torch
+    plan = MemoryPlan.load(sys.argv[4], chain=chain)
+    out = {"cuda": torch.cuda.is_available(), "verified": plan.verify().ok}
+out["ops"] = [list(op) for op in plan.schedule.ops]
+print(json.dumps(out))
+"""
+
+
+def persistence(card, model, chain, batch, mcfg, mchain) -> dict:
+    """Phase 20: the solver cache, plan store, save/load, plan service,
+    warm-start frontier and checkpoints on the card.  ``model``, ``chain``
+    and ``batch`` are the Qwen path's (phase 6's measured chain), ``mcfg``
+    and ``mchain`` the Mamba path's config and measured chain.  Returns the
+    phase's launch counts."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import counters
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import solver_cache
+    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.kernels.dp_fill import ops as dp_ops
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.plan import (Budget, MemoryPlan, PlanRequest,
+                                  StalePlanError, build_plan, sweep)
+    from repro_torch.runtime import PlanService
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+    from repro_torch.store import default_store
+    from repro_torch.tree import tensors_of
+
+    dev = torch.device("cuda")
+    build = ROOT / "build"
+    fused = dp_ops.NAME_FUSED
+    launched = {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+
+    def child(what, arg, hide_cuda=False):
+        npz = build / "persist_chain.npz"
+        np.savez(npz, **{k: np.asarray(getattr(chain, k)) for k in
+                         ("uf", "ub", "wa", "wabar", "wdelta", "of", "ob")})
+        env = dict(os.environ)
+        if hide_cuda:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", PERSIST_CHILD, str(ROOT / "src"),
+             str(npz), what, arg], env=env, capture_output=True, text=True,
+            timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"child {what} failed: {out.stderr[-2000:]}")
+        return json.loads(out.stdout.strip().splitlines()[-1]), \
+            time.perf_counter() - t0
+
+    peak = chain.store_all_peak()
+    low = solve_min_memory(chain).mem_limit
+    say(f"[persist] store {default_store().uri()} (REPRO_STORE), emptied at "
+        f"the start of the run; Qwen's measured chain L={chain.length}, "
+        f"min-memory {low:.6e} B, store-all {peak:.6e} B on {card}")
+    solver_cache.get_cache().clear()
+
+    # (a) a miss, then a hit, in this process
+    budget = low + (peak - low) * 0.6
+    req = PlanRequest(strategy="optimal", impl="cuda_fused",
+                      budget=Budget.bytes(budget))
+    runs = []
+    for what in ("miss", "hit"):
+        counters.reset()
+        before = solver_cache.stats()
+        t0 = time.perf_counter()
+        plan = build_plan(req, chain)
+        seconds = time.perf_counter() - t0
+        got = counters.snapshot()
+        tally(got)
+        after = solver_cache.stats()
+        runs.append((plan, got, seconds))
+        say(f"[persist] (a) build_plan on cuda_fused, {what}: "
+            f"{seconds * 1e3:.3f} ms host clock, fill launches "
+            f"{json.dumps(got)}, solver cache hits "
+            f"{after['hits'] - before['hits']} / misses "
+            f"{after['misses'] - before['misses']} on {card}")
+    (plan, miss, _), (again, hit, _) = runs
+    if miss != {fused: 1} or hit or again.schedule.ops != plan.schedule.ops:
+        raise AssertionError(f"(a) miss launches {miss}, hit launches {hit}, "
+                             f"same schedule "
+                             f"{again.schedule.ops == plan.schedule.ops}")
+    ops = [list(op) for op in plan.schedule.ops]
+
+    # (b) another process on the same store: a disk hit
+    out, seconds = child("solve", repr(budget))
+    say(f"[persist] (b) a child process on the same store: solver cache "
+        f"{json.dumps(out['stats'])}, fill launches "
+        f"{json.dumps(out['launches'])}, {seconds:.2f} s with its start-up "
+        f"on {card}")
+    if (out["stats"]["disk_hits"] != 1 or out["launches"]
+            or out["ops"] != ops):
+        raise AssertionError(f"(b) not a disk hit without launches: {out}")
+
+    # (c) save here, load with CUDA hidden, execute the loaded plan here
+    path = build / "qwen_rotor.plan"
+    plan.save(str(path))
+    out, seconds = child("load", str(path), hide_cuda=True)
+    say(f"[persist] (c) {path.relative_to(ROOT)} ({path.stat().st_size} B) "
+        f"loaded in a child with CUDA_VISIBLE_DEVICES='' (cuda available: "
+        f"{out['cuda']}): verified {out['verified']}, schedule identical "
+        f"{out['ops'] == ops}")
+    if out["cuda"] or not out["verified"] or out["ops"] != ops:
+        raise AssertionError(f"(c) the child's load: {out}")
+    loaded = MemoryPlan.load(str(path), chain=chain)
+    params = model.init(0, dev)
+    sp = model.stage_params(params)
+    res = {}
+    counters.reset()
+    for name, p in (("original", plan), ("loaded", loaded)):
+        loss, grads, _ = p.bind(model.stage_fns()).value_and_grad(sp, batch)
+        res[name] = (float(loss), float(global_norm(tensors_of(
+            model.combine_stage_grads(grads)))))
+        del loss, grads
+    tally(counters.snapshot())
+    (l0, g0), (l1, g1) = res["original"], res["loaded"]
+    say(f"[persist] (c) executed on the card: loss {l1:.6f} / {l0:.6f}, "
+        f"grad norm {g1:.6f} / {g0:.6f} (loaded / original, rel tol 1e-2)")
+    if not (abs(l1 - l0) <= 1e-2 * abs(l0) and abs(g1 - g0) <= 1e-2 * g0):
+        raise AssertionError("(c) the loaded plan's loss or gradient norm "
+                             "differs from the original's")
+    del params, sp
+    torch.cuda.empty_cache()
+
+    # (d) a byte-tampered file and a stale chain are refused
+    data = bytearray(path.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    bad = build / "qwen_rotor_tampered.plan"
+    bad.write_bytes(bytes(data))
+    stale = chain.calibrate(uf=[chain.uf[0] * 1.01]
+                            + [float("nan")] * chain.length)
+    for tag, target, ch, err in (("byte-tampered file", bad, chain,
+                                  ValueError),
+                                 ("chain with stage 1's uf x1.01", path,
+                                  stale, StalePlanError)):
+        try:
+            MemoryPlan.load(str(target), chain=ch)
+        except err as e:
+            say(f"[persist] (d) {tag}: refused ({type(e).__name__}: {e})")
+        else:
+            raise AssertionError(f"(d) the {tag} was loaded")
+
+    # (e) the plan service: two tenants, 8 concurrent identical requests
+    req_e = PlanRequest(strategy="optimal", impl="cuda_fused",
+                        budget=Budget.bytes(low + (peak - low) * 0.4))
+    snap0 = obs_metrics.snapshot()
+    before = solver_cache.stats()
+    counters.reset()
+    futures, errors = [], []
+    with PlanService(default_store(), workers=1) as svc:
+        def submit(tenant):
+            try:
+                futures.append(svc.submit(chain, req_e, tenant=tenant))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+        threads = [threading.Thread(target=submit, args=(("alpha", "beta")
+                                                         [i % 2],))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        plans = [fut.result(timeout=120) for fut in futures]
+    got = counters.snapshot()
+    tally(got)
+    snap1 = obs_metrics.snapshot()
+    svc_counts = {k: snap1[k]["count"] - snap0.get(k, {}).get("count", 0)
+                  for k in sorted(snap1) if k.startswith("plan_service.")}
+    fills = solver_cache.stats()["misses"] - before["misses"]
+    say(f"[persist] (e) PlanService, tenants alpha and beta, 8 concurrent "
+        f"identical requests: {json.dumps(svc_counts)}; solver cache misses "
+        f"{fills}, fill launches {json.dumps(got)} on {card}")
+    if (errors or len(plans) != 8 or fills != 1 or got != {fused: 1}
+            or any(p.schedule.ops != plans[0].schedule.ops for p in plans)):
+        raise AssertionError(f"(e) not one solve for 8 requests: errors "
+                             f"{errors}, {len(plans)} plans, {fills} fills, "
+                             f"launches {got}")
+
+    # (f) sweep twice through the default store's warm-start frontier
+    lo = low / peak
+    fracs = [lo + (1.0 - lo) * k / 4 for k in range(5)]
+    tmpl = PlanRequest(strategy="optimal", impl="cuda_fused")
+    solves = []
+    for what, fr in (("first sweep", fracs), ("second sweep", fracs),
+                     ("a query between two points",
+                      [(fracs[1] + fracs[2]) / 2])):
+        n0 = obs_metrics.value("frontier.solves")
+        counters.reset()
+        t0 = time.perf_counter()
+        points = sweep(chain, fr, tmpl)
+        seconds = time.perf_counter() - t0
+        got = counters.snapshot()
+        tally(got)
+        solves.append(int(obs_metrics.value("frontier.solves") - n0))
+        say(f"[persist] (f) {what} over {len(fr)} fractions: "
+            f"{solves[-1]} solves, fill launches {json.dumps(got)}, "
+            f"{sum(p.feasible for p in points)} feasible, "
+            f"{seconds * 1e3:.3f} ms host clock on {card}")
+    if solves[1] != 0 or solves[2] > 1:
+        raise AssertionError(f"(f) solves per sweep {solves}")
+
+    # (g) Mamba2's 8 layers under rotor: 2 steps with checkpoints, a
+    # resumed run takes step 3, against 3 uninterrupted steps
+    ckpt = build / "ckpt_mamba"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mbudget = (solve_min_memory(mchain).mem_limit
+               + mchain.store_all_peak()) / 2
+    base = dict(global_batch=BATCH, seq_len=SEQ, log_every=1,
+                policy=f"rotor:{int(mbudget)}", solver_impl="cuda")
+    with_ckpt = dict(base, ckpt_dir=str(ckpt), ckpt_every=1, ckpt_keep=1,
+                     async_ckpt=True)
+    counters.reset()
+    first = run_training(mcfg, TrainLoopConfig(steps=2, **with_ckpt),
+                         device=dev, chain=mchain, log_fn=say)
+    tally(counters.snapshot())
+    saves = first["ckpt_saves"]
+    wrote = sum(s["bytes"] for s in saves)
+    plan_a = first["plan"]
+    s0 = saves[0]
+    step1 = first["steps"][1]
+    overlap = max(0.0, min(s0["t_write_end"], step1["t_end"])
+                  - max(s0["t_write_start"], step1["t_start"]))
+    say(f"[persist] (g) checkpoints of {mcfg.name} ({mcfg.num_layers} "
+        f"layers): " + "; ".join(
+            f"step {s['step']}: {s['bytes']} B, host copy "
+            f"{s['snapshot_s']:.3f} s, write {s['write_s']:.3f} s "
+            f"({'blocking' if s['blocking'] else 'on a thread'})"
+            for s in saves)
+        + f"; the step-0 write overlapped step 1 for {overlap:.3f} s of its "
+        f"{s0['write_s']:.3f} s ({overlap / s0['write_s']:.4f}), step 1 "
+        f"took {step1['seconds']:.3f} s on {card}")
+    del first
+    torch.cuda.empty_cache()
+    counters.reset()
+    resumed = run_training(mcfg, TrainLoopConfig(steps=3, **with_ckpt),
+                           device=dev, chain=mchain, log_fn=say)
+    tally(counters.snapshot())
+    wrote += sum(s["bytes"] for s in resumed["ckpt_saves"])
+    if resumed["start_step"] != 2 or len(resumed["losses"]) != 1:
+        raise AssertionError(f"(g) resumed at {resumed['start_step']} with "
+                             f"{len(resumed['losses'])} steps")
+    restored = CheckpointManager(str(ckpt)).restore_plan(chain=mchain)
+    del resumed["params"], resumed["opt_state"]
+    torch.cuda.empty_cache()
+    counters.reset()
+    straight = run_training(mcfg, TrainLoopConfig(steps=3, **base),
+                            device=dev, chain=mchain, log_fn=say)
+    tally(counters.snapshot())
+    a, b = resumed["losses"][0], straight["losses"][2]
+    say(f"[persist] (g) step 3 resumed from the checkpoint: loss {a:.6f}, "
+        f"uninterrupted {b:.6f} (rel {abs(a - b) / abs(b):.3e}, tol 1e-3); "
+        f"restore_plan(chain=) schedule identical "
+        f"{restored.schedule.ops == plan_a.schedule.ops}; {wrote} B written "
+        f"in {len(saves) + len(resumed['ckpt_saves'])} checkpoints on {card}")
+    if not abs(a - b) <= 1e-3 * abs(b):
+        raise AssertionError("(g) the resumed step's loss differs from the "
+                             "uninterrupted run's")
+    if restored.schedule.ops != plan_a.schedule.ops:
+        raise AssertionError("(g) restore_plan gave another schedule")
+    del straight, resumed
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1007,6 +1334,13 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the solver cache, plan store and frontiers of this run (and of its
+    # child processes) live under build/, emptied first: no run reads an
+    # earlier run's entries
+    store_dir = ROOT / "build" / "store"
+    import shutil
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.environ["REPRO_STORE"] = f"file://{store_dir}"
 
     from repro_torch import counters
     from repro_torch.configs import get_config
@@ -1017,7 +1351,8 @@ def main() -> int:
     from repro_torch.configs import paper_resnet
     from repro_torch.core.planner import (chain_backward_transients,
                                           measure_host_bandwidth,
-                                          profile_stages_measured)
+                                          profile_stages_measured,
+                                          time_stages_in_chain)
     from repro_torch.core.solver import solve_min_memory, solve_optimal
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import _build
@@ -1030,8 +1365,9 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.launch import train
-    from repro_torch.launch.steps import (measure_chain, plan_chain,
-                                          plan_training)
+    from repro_torch.launch.steps import (in_chain_lines, measure_chain,
+                                          plan_chain, plan_training)
+    from repro_torch.launch.tradeoff import BUDGETS as TRADEOFF_BUDGETS
     from repro_torch.launch.tradeoff import run_lm_tradeoff, run_tradeoff
     from repro_torch.models.lm import StagedLM
     from repro_torch.offload.executor import execute_offload_schedule
@@ -1834,10 +2170,12 @@ def main() -> int:
         analytic chain's times; its sizes must equal the analytic chain's
         with each tensor at the allocator's bound (``allocator=True``)."""
         t0 = time.perf_counter()
-        measured = measure_chain(model, params, batch)
+        measured = measure_chain(model, params, batch,
+                                 log_fn=lambda s_: say(f"{s_} on {card}"))
         say(f"[measured] {tag}: chain L={measured.length} measured in "
-            f"{time.perf_counter() - t0:.2f} s (1 warm-up, median of 3) on "
-            f"{card}; analytic times at {peak_flops:.6e} FLOP/s")
+            f"{time.perf_counter() - t0:.2f} s (each stage alone: 1 warm-up, "
+            f"median of 3, then its times inside the chain) on {card}; "
+            f"analytic times at {peak_flops:.6e} FLOP/s")
         analytic = plan_chain(model, input_specs(model.cfg, ShapeSpec(
             "train", "train", SEQ, BATCH)), peak_flops, allocator=True)
         say("[measured] stage: uf s (analytic), ub s (analytic), wa B, "
@@ -2158,6 +2496,8 @@ def main() -> int:
     path_launches["planning"] = counters.snapshot()
 
     # -- 9. Mamba path --------------------------------------------------------------
+    measured_chains = {}  # each rotor path's measured chain, for phase 20
+
     def rotor_path(tag, arch, overrides, pcfg, what, kernels_run,
                    impl="cuda"):
         """Measure the chain of ``arch`` (with ``overrides``) on real tensors
@@ -2188,6 +2528,7 @@ def main() -> int:
                                                                         dev)
         measured = show_measured(f"{arch}, {tag} path", pmodel, params,
                                  pbatch)
+        measured_chains[tag] = measured
         plow = solve_min_memory(measured).mem_limit
         phigh = measured.store_all_peak()
         pbudget = (plow + phigh) / 2
@@ -2250,12 +2591,42 @@ def main() -> int:
     def emit_as(tag):
         return lambda s: say(f"[tradeoff] {tag}: {s} on {card}")
 
+    def floor_budgets(tag, chain, base):
+        """``base`` and two budgets between ``chain``'s two-tier floor and
+        store-all, where the plans must run another schedule than
+        store-all's (the steps that timed the chain)."""
+        floor = solve_min_memory(chain).mem_limit / chain.store_all_peak()
+        budgets = sorted({*base, *(round(floor + (1 - floor) * k / 3, 4)
+                                   for k in (1, 2))})
+        say(f"[{tag}] two-tier floor {floor:.4f} x store-all: budgets "
+            f"{budgets} x store-all")
+        return budgets
+
+    def mape_line(tag, trade):
+        """The MAPE over all points and over those whose schedule differs
+        from store-all's, and the points left out."""
+        say(f"[tradeoff] {tag}: time prediction MAPE "
+            f"{trade['mape_percent']:.2f} % over {len(trade['rows'])} "
+            f"points on the measured chain (its stage times inside the "
+            f"chain, the chain run_training plans on), "
+            f"{trade['mape_out_of_sample_percent']:.2f} % over the "
+            f"{len(trade['out_of_sample'])} whose schedule differs from "
+            f"store-all's ({', '.join(trade['out_of_sample'])}); left out, "
+            f"store-all's schedule: {', '.join(trade['in_sample'])} on {card}")
+        mapes[tag] = (trade["mape_percent"],
+                      trade["mape_out_of_sample_percent"],
+                      len(trade["out_of_sample"]))
+
+    mapes = {}
+
     counters.reset()
     params = model.init(0, dev)
     # each point also runs one traced step on the op walker; the spans give
     # the per-stage drift, and the chain calibrated on them the MAPE beside
     # the uncalibrated one
     trade = run_lm_tradeoff(model, params, batch, impl="cuda", chain=measured,
+                            budgets=floor_budgets("tradeoff", measured,
+                                                  TRADEOFF_BUDGETS),
                             emit=emit_as("per-layer remat"), trace=True)
     check_tradeoff("per-layer remat", trade)
     for r in trade["rows"]:
@@ -2267,8 +2638,8 @@ def main() -> int:
             trace_report("tradeoff", r["plan"], point,
                          f"phase10_rotor_{r['budget_frac']:g}")
     cal = trade["calibration"]
+    mape_line("per-layer remat", trade)
     say(f"[tradeoff] per-layer remat: time prediction MAPE "
-        f"{trade['mape_percent']:.2f} % on the measured chain, "
         f"{cal['mape_percent']:.2f} % on the chain calibrated on the traced "
         f"steps (no limit held) on {card}")
     del params, trade, cal
@@ -2280,9 +2651,14 @@ def main() -> int:
     params = nr_model.init(0, dev)
     nr_measured = show_measured(f"{ARCH}, no per-layer remat", nr_model,
                                 params)
-    check_tradeoff("no per-layer remat", run_lm_tradeoff(
-        nr_model, params, batch, impl="cuda", chain=nr_measured,
-        emit=emit_as("no per-layer remat")))
+    trade = run_lm_tradeoff(nr_model, params, batch, impl="cuda",
+                            chain=nr_measured,
+                            budgets=floor_budgets("tradeoff", nr_measured,
+                                                  TRADEOFF_BUDGETS),
+                            emit=emit_as("no per-layer remat"))
+    check_tradeoff("no per-layer remat", trade)
+    mape_line("no per-layer remat", trade)
+    del trade
     path_launches["measured"] = counters.snapshot()
     launches = path_launches["measured"]
     say(f"[measured] launches: {launches.get(dp_ops.NAME, 0)} dp band-min "
@@ -2321,11 +2697,14 @@ def main() -> int:
     counters.reset()
     cstages, cparams, cx = paper_resnet.resnet_ish_chain(**RESNET, device=dev)
     t0 = time.perf_counter()
-    cchain = profile_stages_measured(cstages, cparams, cx)
+    calone = profile_stages_measured(cstages, cparams, cx)
+    cchain, which = time_stages_in_chain(cstages, cparams, cx, calone)
     say(f"[resnet] the paper's heterogeneous conv chain, {RESNET}: input "
         f"{tuple(cx.shape)} float32, {cchain.length + 1} stages measured in "
-        f"{time.perf_counter() - t0:.2f} s (1 warm-up, median of 3) on "
-        f"{card}")
+        f"{time.perf_counter() - t0:.2f} s (each stage alone: 1 warm-up, "
+        f"median of 3; then inside the chain) on {card}")
+    for line in in_chain_lines(calone, cchain, which):
+        say(f"[resnet] {line} on {card}")
     say("[resnet] stage: uf s, ub s, wa B, wabar B, of B, ob B")
     for i in range(cchain.length + 1):
         say(f"[resnet] {i + 1}: {cchain.uf[i]:.6e}, {cchain.ub[i]:.6e}, "
@@ -2348,19 +2727,18 @@ def main() -> int:
     # the reference's budgets, and two between the measured chain's two-tier
     # floor and store-all (where the floor lies above the reference's lower
     # budgets)
-    cfloor = solve_min_memory(cchain).mem_limit / cchain.store_all_peak()
-    budgets = sorted({*paper_resnet.BUDGETS,
-                      *(round(cfloor + (1 - cfloor) * k / 3, 4) for k in (1, 2))})
-    say(f"[resnet] two-tier floor {cfloor:.4f} x store-all: budgets "
-        f"{budgets} x store-all")
+    budgets = floor_budgets("resnet", cchain, paper_resnet.BUDGETS)
     trade = run_tradeoff(cstages, cparams, cx, items=cx.shape[0],
                          impl="cuda", chain=cchain, budgets=budgets,
                          emit=emit_as("conv chain"))
     check_tradeoff("conv chain", trade)
+    mape_line("conv chain", trade)
     path_launches["resnet"] = counters.snapshot()
     below = sorted(f for f in trade["gain_measured_at"] if f < 1.0)
     say(f"[resnet] rotor over best sequential, measured below store-all at "
-        f"{below} x store-all; MAPE {trade['mape_percent']:.2f} %; "
+        f"{below} x store-all; MAPE {trade['mape_percent']:.2f} %, "
+        f"{trade['mape_out_of_sample_percent']:.2f} % over the points whose "
+        f"schedule differs from store-all's; "
         f"{path_launches['resnet'].get(dp_ops.NAME, 0)} dp band-min launches "
         f"on {card}")
     if len(below) < 2:
@@ -2439,14 +2817,27 @@ def main() -> int:
     # -- 19. serving PaliGemma and MusicGen ---------------------------------
     path_launches.update(serve_vlm_audio(card))
 
+    # -- 20. persistence and resume -----------------------------------------
+    counters.reset()
+    path_launches["persist"] = persistence(card, model, measured, batch,
+                                           mcfg, measured_chains["mamba"])
+    say(f"[persist] phase 20 launches: "
+        f"{json.dumps(path_launches['persist'])}")
+
     fresh_metrics()
     if not verified[0]:
-        raise AssertionError("REPRO_CHECK=1 verified no plan in phases 6-19")
+        raise AssertionError("REPRO_CHECK=1 verified no plan in phases 6-20")
     say(f"[check] REPRO_CHECK=1: {verified[0]} MemoryPlan.verify calls as "
-        f"phases 6-19 built, bound, executed or served their plans, every "
-        f"report ok")
+        f"phases 6-20 built, bound, executed, served, saved or loaded their "
+        f"plans, every report ok")
+    say(f"[mape] time prediction MAPE of the chains the port plans on "
+        f"(stage times inside the chain), all points / the points whose "
+        f"schedule differs from store-all's (their count): " + "; ".join(
+            f"{k} {a:.2f} % / {b:.2f} % ({n})"
+            for k, (a, b, n) in mapes.items())
+        + f" (paper §5.3: 7.8 %; no limit held) on {card}")
 
-    # -- 20. result lines -------------------------------------------------
+    # -- 21. result lines -------------------------------------------------
     # K3's head dim on each path that launches it
     head_dims = {"rotor": cfg.head_dim, "offload": off_cfg.head_dim,
                  "measured": cfg.head_dim,
@@ -2454,11 +2845,14 @@ def main() -> int:
                  "serve": get_config("qwen1.5-4b").head_dim,
                  "serve_archs": zcfg.head_dim, "musicgen": acfg.head_dim,
                  "serve_paligemma": vcfg.head_dim,
-                 "serve_musicgen": acfg.head_dim}
+                 "serve_musicgen": acfg.head_dim, "persist": cfg.head_dim}
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())
-        say(f"[launches] {kern['name']}: {json.dumps(per_path)}")
+        say(f"[launches] {kern['name']}: {json.dumps(per_path)}"
+            + (" (DP fills: solver-cache misses only; a hit launches none)"
+               if kern["name"] in (dp_ops.NAME, dp_ops.NAME_OFFLOAD,
+                                   dp_ops.NAME_FUSED) else ""))
         if kern["launches"] == 0:
             raise AssertionError(f"{kern['name']} never launched on a path")
         del kern["shape"]

@@ -1,7 +1,6 @@
 """Structured violation reports of the static schedule verifier — the port
-of ``repro.check.violations``, with the same closed set of kinds (some,
-such as ``store-corrupt``, name parts of the JAX package the port does not
-have yet).  Stdlib only: nothing here imports back into ``repro_torch``.
+of ``repro.check.violations``, with the same closed set of kinds.  Stdlib
+only: nothing here imports back into ``repro_torch``.
 """
 
 from __future__ import annotations
@@ -101,9 +100,9 @@ class VerificationReport:
 class PlanVerificationError(ValueError):
     """A :class:`~repro_torch.plan.MemoryPlan` failed static verification.
 
-    Raised by ``bind``/``execute`` when ``REPRO_CHECK=1`` and by
-    ``run_serving`` on a kv plan that does not verify.  Carries the full
-    report.
+    Raised by ``MemoryPlan.save``/``load`` and the plan store (always), by
+    ``bind``/``execute`` when ``REPRO_CHECK=1`` and by ``run_serving`` on a
+    kv plan that does not verify.  Carries the full report.
     """
 
     def __init__(self, report: VerificationReport, context: str = ""):

@@ -22,6 +22,7 @@ host tier.
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -468,3 +469,55 @@ def profile_stages_measured(stages: Sequence[Callable],
             wa.append(_tree_size(a, alloc))
     return Chain.make(uf=uf, ub=ub, wa=wa, wabar=wabar, of=of, ob=ob,
                       host=host)
+
+
+def time_stages_in_chain(stages: Sequence[Callable], params: Sequence[Any],
+                         x: Any, chain: Chain, repeats: int = 3
+                         ) -> Tuple[Chain, str]:
+    """``chain`` with its stage times taken inside the chain: after one
+    warm-up step, ``repeats`` traced steps of the walker
+    (``offload.executor.execute_offload_schedule`` with a
+    :class:`~repro_torch.obs.trace.Tracer`: CUDA-event spans on the card,
+    the host clock elsewhere) run every stage's forward and backward in
+    order; per step :func:`~repro_torch.obs.trace.measured_stage_times`
+    reads each stage's ``uf``/``ub`` from the spans, and the median over
+    the steps replaces the chain's (:meth:`Chain.calibrate`), except where
+    the chain's time is 0 (no work to time).  Sizes, ``of``, ``ob`` and
+    the host link are the chain's.
+
+    A stage timed alone (:func:`profile_stages_measured`) runs on an idle
+    card with cold caches and its own launch gaps; inside the chain its
+    kernels queue behind the previous stage's, so its time there is what a
+    training step pays.  The schedule is store-all where its predicted
+    peak fits the card's free memory, else the min-memory schedule (on
+    the host, always store-all); returns the chain and ``"store-all"`` or
+    ``"min-memory"``."""
+    from ..obs.trace import Tracer, measured_stage_times
+    from ..offload.executor import execute_offload_schedule
+    from .schedule import Schedule, simulate
+    from .solver import solve_min_memory
+
+    leaves = tensors_of([list(params), x])
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    L = chain.length
+    schedule, which = Schedule.store_all(L), "store-all"
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        if simulate(chain, schedule).peak_mem > free:
+            schedule, which = solve_min_memory(chain).schedule, "min-memory"
+    samples = []
+    for i in range(repeats + 1):
+        tracer = Tracer(name="in-chain stage times")
+        out = execute_offload_schedule(schedule, stages, params, x,
+                                       tracer=tracer)
+        del out
+        if i:  # the first step is the warm-up
+            samples.append(measured_stage_times(tracer.spans, L))
+    # a time the isolated pass read as exactly 0 has no work behind it (an
+    # embed stage without parameters has no backward): the walker's span
+    # there times only its bookkeeping, so the 0 stays
+    uf, ub = ([math.nan if old[j] == 0 else
+               statistics.median(s[k][j] for s in samples)
+               for j in range(L + 1)]
+              for k, old in ((0, chain.uf), (1, chain.ub)))
+    return chain.calibrate(uf=uf, ub=ub), which

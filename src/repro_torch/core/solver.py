@@ -10,7 +10,9 @@ The fill runs behind ``dp_kernels.fill_tables(impl=...)`` (``"banded"``
 numpy, ``"plain"`` PyTorch, ``"cuda"`` the Hopper band-min kernel); branch
 choices are recomputed at the O(L) cells the reconstruction visits, and the
 published ``expected_time`` is the float64 simulator's makespan of the
-reconstructed schedule.
+reconstructed schedule.  Every entry point memoizes its Solution through
+:mod:`.solver_cache` (``cache=False`` bypasses it, as timings of real fills
+need).
 
 Outputs: the optimal op ``Schedule`` (Algorithm 2) and the equivalent
 recursion *tree* that ``rematerialize.py`` turns into nested
@@ -24,7 +26,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from . import dp_kernels
+from . import dp_kernels, solver_cache
 from .chain import Chain
 from .dp_kernels import INFEASIBLE, _views
 from .schedule import BWD, F_ALL, F_CK, F_NONE, Schedule, simulate
@@ -119,50 +121,66 @@ def _finish(chain: Chain, mem_limit: float, num_slots: int,
 # ---------------------------------------------------------------------------
 
 def solve_optimal(chain: Chain, mem_limit: float, num_slots: int = 500,
-                  allow_fall: bool = True, impl: Optional[str] = None
-                  ) -> Solution:
+                  allow_fall: bool = True, impl: Optional[str] = None,
+                  cache: bool = True) -> Solution:
     """Optimal persistent schedule for ``chain`` under ``mem_limit`` memory.
 
     ``allow_fall=False`` disables the ``C2`` branch for sub-chains of length
     > 1 (the paper's revolve comparator).  ``impl`` picks the fill
-    (``dp_kernels.KNOWN_IMPLS``; default ``"banded"``)."""
+    (``dp_kernels.KNOWN_IMPLS``; default ``"banded"``) and is part of the
+    cache key.  ``cache=False`` bypasses the solver cache (it neither reads
+    nor writes), so the fill always runs."""
     impl = _resolve_impl(impl)
     dchain = chain.discretize(mem_limit, num_slots)
-    L, S = dchain.length, num_slots
-    m_top = S - int(dchain.wa[0])  # Alg. 1: budget excludes the input a^0
-    v = _views(dchain)
-    tab = dp_kernels.fill_tables(dchain, S, impl=impl, allow_fall=allow_fall,
-                                 v=v)
-    if m_top < 0 or not np.isfinite(tab.row(1, L + 1)[m_top]):
-        return Solution(False, INFEASIBLE, None, None, mem_limit,
-                        num_slots, max(m_top, 0), tab.nbytes)
-    return _finish(chain, mem_limit, num_slots, m_top, tab.nbytes,
-                   lambda m: _rebuild_banded(v, tab, 1, L + 1, m, allow_fall))
+
+    def solve() -> Solution:
+        L, S = dchain.length, num_slots
+        m_top = S - int(dchain.wa[0])  # Alg. 1: budget excludes the input a^0
+        v = _views(dchain)
+        tab = dp_kernels.fill_tables(dchain, S, impl=impl,
+                                     allow_fall=allow_fall, v=v)
+        if m_top < 0 or not np.isfinite(tab.row(1, L + 1)[m_top]):
+            return Solution(False, INFEASIBLE, None, None, mem_limit,
+                            num_slots, max(m_top, 0), tab.nbytes)
+        return _finish(chain, mem_limit, num_slots, m_top, tab.nbytes,
+                       lambda m: _rebuild_banded(v, tab, 1, L + 1, m,
+                                                 allow_fall))
+
+    return solver_cache.memoize_solve("solve_optimal", impl, chain, dchain,
+                                      num_slots, allow_fall, cache, solve)
 
 
 def solve_min_memory(chain: Chain, num_slots: int = 500,
-                     allow_fall: bool = True, impl: Optional[str] = None
-                     ) -> Solution:
+                     allow_fall: bool = True, impl: Optional[str] = None,
+                     cache: bool = True) -> Solution:
     """Smallest-memory feasible persistent schedule: run the DP with the
     store-all peak as the limit, then rebuild at the smallest feasible slot
-    count (``mem_limit`` reports the budget it needs, input included)."""
+    count (``mem_limit`` reports the budget it needs, input included).
+    ``cache`` as in :func:`solve_optimal`."""
     impl = _resolve_impl(impl)
     peak = simulate(chain, Schedule.store_all(chain.length)).peak_mem
     dchain = chain.discretize(peak, num_slots)
-    L, S = dchain.length, num_slots
-    w0 = int(dchain.wa[0])
-    v = _views(dchain)
-    tab = dp_kernels.fill_tables(dchain, S, impl=impl, allow_fall=allow_fall,
-                                 v=v)
-    top = tab.row(1, L + 1)
-    feasible = np.where(np.isfinite(top))[0]
-    if len(feasible) == 0:
-        return Solution(False, INFEASIBLE, None, None, peak, num_slots,
-                        0, tab.nbytes)
-    m_min = int(feasible[0])
-    budget = (m_min + w0) * dchain.slot_size  # physical mem incl. a^0
-    return _finish(chain, budget, num_slots, m_min, tab.nbytes,
-                   lambda m: _rebuild_banded(v, tab, 1, L + 1, m, allow_fall))
+
+    def solve() -> Solution:
+        L, S = dchain.length, num_slots
+        w0 = int(dchain.wa[0])
+        v = _views(dchain)
+        tab = dp_kernels.fill_tables(dchain, S, impl=impl,
+                                     allow_fall=allow_fall, v=v)
+        top = tab.row(1, L + 1)
+        feasible = np.where(np.isfinite(top))[0]
+        if len(feasible) == 0:
+            return Solution(False, INFEASIBLE, None, None, peak, num_slots,
+                            0, tab.nbytes)
+        m_min = int(feasible[0])
+        budget = (m_min + w0) * dchain.slot_size  # physical mem incl. a^0
+        return _finish(chain, budget, num_slots, m_min, tab.nbytes,
+                       lambda m: _rebuild_banded(v, tab, 1, L + 1, m,
+                                                 allow_fall))
+
+    return solver_cache.memoize_solve("solve_min_memory", impl, chain,
+                                      dchain, num_slots, allow_fall, cache,
+                                      solve)
 
 
 def tree_to_schedule(tree: Tree, length: int) -> Schedule:

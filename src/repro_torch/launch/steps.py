@@ -5,13 +5,14 @@ plan."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..core import solver_cache
 from ..core.chain import Chain, HostTransferModel
 from ..core.planner import (grad_with_peaks, profile_stages_analytic,
-                            profile_stages_measured)
+                            profile_stages_measured, time_stages_in_chain)
 from ..data.pipeline import sequence_shape
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
@@ -51,15 +52,41 @@ def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
 
 def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
                   host: Optional[HostTransferModel] = None,
-                  repeats: int = 3) -> Chain:
+                  repeats: int = 3,
+                  log_fn: Optional[Callable[[str], None]] = None) -> Chain:
     """Measured rotor chain for (model × batch) on the device ``params``
-    and ``batch`` live on (:func:`profile_stages_measured` on the model's
-    stages): measured times and, on CUDA, each stage's transient memory;
-    the sizes equal :func:`plan_chain`'s (with ``allocator=True`` on
-    CUDA)."""
-    return profile_stages_measured(model.stage_fns(),
-                                   model.stage_params(params), batch,
-                                   repeats=repeats, host=host)
+    and ``batch`` live on: each stage's isolated passes
+    (:func:`profile_stages_measured`) give the sizes, which equal
+    :func:`plan_chain`'s (with ``allocator=True`` on CUDA), and on CUDA each
+    stage's transient memory (``of``/``ob``); the stage times ``uf``/``ub``
+    are then taken inside the chain (:func:`time_stages_in_chain`: the
+    median of ``repeats`` traced store-all steps, or min-memory steps where
+    store-all does not fit).  ``log_fn`` gets which schedule timed the chain
+    and, stage by stage, the isolated and in-chain times side by side."""
+    stages, sp = model.stage_fns(), model.stage_params(params)
+    alone = profile_stages_measured(stages, sp, batch, repeats=repeats,
+                                    host=host)
+    chain, which = time_stages_in_chain(stages, sp, batch, alone, repeats)
+    if log_fn is not None:
+        for line in in_chain_lines(alone, chain, which):
+            log_fn(f"[measured] {line}")
+    return chain
+
+
+def in_chain_lines(alone: Chain, chain: Chain, which: str) -> List[str]:
+    """Stage by stage, the isolated ``uf``/``ub`` beside the in-chain ones
+    and their ratio (in-chain / isolated), headed by the schedule that
+    timed the chain."""
+    lines = [f"stage times inside the chain from {which} steps "
+             f"(median over the traced steps); stage: uf isolated s, in "
+             f"the chain s (ratio); ub the same"]
+    for i in range(chain.length + 1):
+        a, b = alone.uf[i], chain.uf[i]
+        c, d = alone.ub[i], chain.ub[i]
+        lines.append(f"{i + 1}: uf {a:.6e}, {b:.6e} "
+                     f"({b / a if a else float('nan'):.4f}); ub {c:.6e}, "
+                     f"{d:.6e} ({d / c if c else float('nan'):.4f})")
+    return lines
 
 
 def _allocated(leaves) -> Optional[int]:
@@ -75,13 +102,16 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                   impl: Optional[str] = None,
                   device: Optional[torch.device] = None,
                   chain: Optional[Chain] = None,
-                  host: Optional[HostTransferModel] = None
+                  host: Optional[HostTransferModel] = None,
+                  log_fn: Optional[Callable[[str], None]] = None
                   ) -> Tuple[Optional[MemoryPlan], Optional[Chain]]:
     """Resolve the remat policy into a :class:`MemoryPlan` (``None`` =
     store-all, no remat).  The chain is profiled with :func:`plan_chain`
     (priced with ``host``) unless one is given (a measured or calibrated
     chain); an ``optimal_offload:B:BW`` policy prices the host tier with its
-    own ``BW``.  ``auto`` budgets are sized from ``device``'s memory."""
+    own ``BW``.  ``auto`` budgets are sized from ``device``'s memory.
+    ``log_fn`` gets one line with the solver cache's hits and misses for
+    this plan (a hit ran no fill)."""
     policy = policy if policy is not None else model.cfg.remat_policy
     if policy == "none":
         return None, None
@@ -97,8 +127,15 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
         return activation_budget_bytes(
             tree_bytes(model.init(device="meta")), device)
 
+    before = solver_cache.stats()
     plan = resolve_policy(policy, chain, num_slots=num_slots, impl=impl,
                           auto_budget=auto_budget)
+    if log_fn is not None:
+        after = solver_cache.stats()
+        log_fn(f"[plan] solver cache: "
+               f"{after['hits'] - before['hits']} hits / "
+               f"{after['misses'] - before['misses']} misses for this plan "
+               f"({after['hits']} / {after['misses']} in this process)")
     return plan, plan.chain
 
 

@@ -4,7 +4,9 @@ device: ``python -m repro_torch.launch.tradeoff --arch <id> [...]``.
 For one chain of stages — a :class:`StagedLM` at a batch, or the paper's
 heterogeneous conv chain (``--arch paper-resnet``,
 :mod:`repro_torch.configs.paper_resnet`) — the chain is measured once
-(:func:`~repro_torch.core.planner.profile_stages_measured`).  Then, at
+(:func:`~repro_torch.core.planner.profile_stages_measured` for its sizes
+and transients, then its stage times inside the chain,
+:func:`~repro_torch.core.planner.time_stages_in_chain`).  Then, at
 budgets of ``0.45``, ``0.7`` and ``1.0`` times the measured store-all peak
 (for the conv chain the JAX package's list, ``paper_resnet.BUDGETS``), four strategies are planned on that chain and run through
 ``MemoryPlan.bind(...).value_and_grad``:
@@ -24,7 +26,10 @@ predicted time and peak (the simulator on the measured chain) beside the
 measured ones and the items (tokens, images) per second; an infeasible
 point is printed as skipped.  Two summary lines follow: the mean absolute
 percentage error of the predicted against the measured times (paper §5.3:
-7.8 %), and rotor's gain over the best sequential point at equal memory,
+7.8 %), over all points and over the points whose schedule differs from
+store-all's (whose steps timed the chain's stages where it fits; the
+points left out are named), and rotor's gain over the best sequential
+point at equal memory,
 from measured times at each budget and, as the JAX package's benchmark
 computes it, from predicted times with rotor planned at each sequential
 point's own predicted peak (paper §5.4: mean +17.2 %).
@@ -64,7 +69,7 @@ from ..configs import get_config, paper_resnet, smoke_config
 from ..core.baselines import best_periodic
 from ..core.chain import Chain
 from ..core.planner import (_fresh_input, grad_with_peaks,
-                            profile_stages_measured)
+                            profile_stages_measured, time_stages_in_chain)
 from ..core.schedule import simulate
 from ..core.solver import solve_min_memory
 from ..data.pipeline import SyntheticLMData, sequence_shape
@@ -235,16 +240,24 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
                  trace: bool = False) -> Dict[str, Any]:
     """Plan and run the four strategies at ``budgets`` × the store-all peak
     of ``chain`` (measured here on ``stages``, ``params`` and ``x`` when
-    not given); ``items`` (tokens, images) are processed per call, and
+    not given, its stage times inside the chain); ``items`` (tokens, images) are processed per call, and
     ``combine_grads`` turns the per-stage gradients into the tree whose
     norm is reported (e.g. a shared block's parts summed).  Returns the
     chain, the rows, the MAPE, both gains (``nan`` where no point allows
-    one) and the measured gain at each budget where both ran; with
+    one) and the measured gain at each budget where both ran
+    (``mape_percent`` over all points, ``mape_out_of_sample_percent`` over
+    those whose schedule differs from store-all's, ``out_of_sample`` their
+    labels and ``in_sample`` the others'); with
     ``trace``, each row also holds its traced step (``traced_s``,
     ``traced_loss``, ``traced_grad_norm``, ``spans``) and the result the
     :func:`calibration_report` (``calibration``)."""
     if chain is None:
-        chain = profile_stages_measured(stages, params, x, repeats=repeats)
+        from .steps import in_chain_lines
+        alone = profile_stages_measured(stages, params, x, repeats=repeats)
+        chain, which = time_stages_in_chain(stages, params, x, alone,
+                                            repeats)
+        for line in in_chain_lines(alone, chain, which):
+            emit(line)
     peak = chain.store_all_peak()
     rows: List[dict] = []
 
@@ -308,9 +321,21 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
             if plan is not None:
                 at[name, frac] = row(name, frac, plan)
 
-    mape = 100 * statistics.fmean(
-        abs(r["predicted_s"] - r["measured_s"]) / r["measured_s"]
-        for r in rows)
+    def mape_of(points) -> float:
+        errs = [abs(r["predicted_s"] - r["measured_s"]) / r["measured_s"]
+                for r in points]
+        return 100 * statistics.fmean(errs) if errs else math.nan
+
+    def label(r: dict) -> str:
+        return f"{r['strategy']} at {r['budget_frac']:g}"
+
+    mape = mape_of(rows)
+    # a point that runs store-all's schedule ran what timed the chain
+    store_all_ops = rows[0]["plan"].schedule.ops
+    others = [r for r in rows if r["plan"].schedule.ops != store_all_ops]
+    mape_oos = mape_of(others)
+    in_sample = [label(r) for r in rows
+                 if r["plan"].schedule.ops == store_all_ops]
     gain_at = {f: at["sequential", f]["measured_s"]
                / at["rotor", f]["measured_s"] - 1 for f in budgets
                if ("sequential", f) in at and ("rotor", f) in at}
@@ -332,14 +357,19 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
     measured = list(gain_at.values())
     gain_m = statistics.fmean(measured) if measured else math.nan
     gain_p = statistics.fmean(predicted) if predicted else math.nan
-    emit(f"time prediction MAPE {mape:.2f} % over {len(rows)} points "
-         f"(paper §5.3: 7.8 %)")
+    emit(f"time prediction MAPE {mape:.2f} % over {len(rows)} points, "
+         f"{mape_oos:.2f} % over the {len(others)} whose schedule differs "
+         f"from store-all's (left out, store-all's schedule: "
+         f"{', '.join(in_sample)}) (paper §5.3: 7.8 %)")
     emit(f"rotor over best sequential at equal memory: measured "
          f"{100 * gain_m:+.2f} % over {len(measured)} budgets ("
          + ", ".join(f"{f:g}: {100 * g:+.2f} %" for f, g in gain_at.items())
          + f"), predicted {100 * gain_p:+.2f} % over {len(predicted)} points "
          f"(paper §5.4: mean +17.2 %)")
     out = {"chain": chain, "rows": rows, "mape_percent": mape,
+           "mape_out_of_sample_percent": mape_oos,
+           "out_of_sample": [label(r) for r in others],
+           "in_sample": in_sample,
            "gain_measured": gain_m, "gain_predicted": gain_p,
            "gain_measured_at": gain_at}
     if trace:

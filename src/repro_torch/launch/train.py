@@ -23,6 +23,11 @@ and on the CPU at the smoke width::
 ``--policy optimal_offload:BUDGET:BW`` plans three tiers (device, host,
 recompute) with a host link of ``BW`` bytes/s (measure it on the card) and
 trains on the eager offload walker when the plan offloads anything.
+
+``--ckpt-dir DIR`` checkpoints parameters, moments and the plan into
+``DIR`` after every ``--ckpt-every`` steps and at the end, and a run
+started on a directory that holds a checkpoint resumes at the step after
+it (the data and learning rate are functions of the step).
 """
 
 from __future__ import annotations
@@ -63,6 +68,12 @@ def parse(argv=None) -> Tuple[ModelConfig, TrainLoopConfig, str]:
                     help="FLOP/s that price the analytic chain's stages: "
                          "needed off CUDA by every policy but none (on CUDA "
                          "the plan is solved on the measured chain)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint into this directory and resume from "
+                         "its newest checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="save after every this many steps (0: only at "
+                         "the end)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--override", default=None, help="JSON config overrides")
     args = ap.parse_args(argv)
@@ -75,7 +86,9 @@ def parse(argv=None) -> Tuple[ModelConfig, TrainLoopConfig, str]:
                            seq_len=args.seq_len, lr=args.lr,
                            policy=args.policy, num_slots=args.num_slots,
                            solver_impl=args.solver_impl,
-                           peak_flops=args.peak_flops, log_every=1)
+                           peak_flops=args.peak_flops, log_every=1,
+                           ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every)
     return cfg, loop, args.device
 
 

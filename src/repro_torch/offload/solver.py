@@ -30,7 +30,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from ..core import dp_kernels
+from ..core import dp_kernels, solver_cache
 from ..core.chain import Chain
 from ..core.dp_kernels import INFEASIBLE, _views
 from ..core.schedule import (BWD, F_ALL, F_CK, F_NONE, F_OFF, PREFETCH,
@@ -151,14 +151,17 @@ def _solve_offload(chain: Chain, dchain, mem_limit: float, num_slots: int,
 
 def solve_optimal_offload(chain: Chain, mem_limit: float,
                           num_slots: int = 500, allow_fall: bool = True,
-                          impl: Optional[str] = None) -> Solution:
+                          impl: Optional[str] = None,
+                          cache: bool = True) -> Solution:
     """Optimal persistent three-tier schedule under ``mem_limit`` *device*
     memory (host memory is taken as abundant: simulate the schedule with
     ``host_mem_limit`` to check its host peak).  Without a host model, or
-    at zero bandwidth, this is the two-tier ``solve_optimal``."""
+    at zero bandwidth, this is the two-tier ``solve_optimal``.  ``cache``
+    as in ``solve_optimal``: the Solution is memoized per discretized
+    problem, fill and flags."""
     if chain.host is None or not chain.host.enabled:
         return solve_optimal(chain, mem_limit, num_slots=num_slots,
-                             allow_fall=allow_fall, impl=impl)
+                             allow_fall=allow_fall, impl=impl, cache=cache)
     impl = _resolve_impl(impl)
     dchain = chain.discretize(mem_limit, num_slots)
     m_top = num_slots - int(dchain.wa[0])
@@ -168,21 +171,27 @@ def solve_optimal_offload(chain: Chain, mem_limit: float,
             return None
         return m_top, mem_limit
 
-    sol = _solve_offload(chain, dchain, mem_limit, num_slots, allow_fall,
-                         impl, pick)
-    if not sol.feasible:
-        sol = dataclasses.replace(sol, slots_used=max(m_top, 0))
-    return sol
+    def solve() -> Solution:
+        sol = _solve_offload(chain, dchain, mem_limit, num_slots, allow_fall,
+                             impl, pick)
+        if not sol.feasible:
+            sol = dataclasses.replace(sol, slots_used=max(m_top, 0))
+        return sol
+
+    return solver_cache.memoize_solve("solve_optimal_offload", impl, chain,
+                                      dchain, num_slots, allow_fall, cache,
+                                      solve)
 
 
 def solve_min_device_memory(chain: Chain, num_slots: int = 500,
                             allow_fall: bool = True,
-                            impl: Optional[str] = None) -> Solution:
+                            impl: Optional[str] = None,
+                            cache: bool = True) -> Solution:
     """Smallest feasible *device* budget in the three-tier model — the floor
     below the two-tier ``solve_min_memory`` that offloading unlocks."""
     if chain.host is None or not chain.host.enabled:
         return solve_min_memory(chain, num_slots=num_slots,
-                                allow_fall=allow_fall, impl=impl)
+                                allow_fall=allow_fall, impl=impl, cache=cache)
     impl = _resolve_impl(impl)
     peak = simulate(chain, Schedule.store_all(chain.length)).peak_mem
     dchain = chain.discretize(peak, num_slots)
@@ -195,5 +204,8 @@ def solve_min_device_memory(chain: Chain, num_slots: int = 500,
         m_min = int(feasible[0])
         return m_min, (m_min + w0) * dchain.slot_size  # physical incl. a^0
 
-    return _solve_offload(chain, dchain, peak, num_slots, allow_fall, impl,
-                          pick)
+    return solver_cache.memoize_solve(
+        "solve_min_device_memory", impl, chain, dchain, num_slots,
+        allow_fall, cache,
+        lambda: _solve_offload(chain, dchain, peak, num_slots, allow_fall,
+                               impl, pick))

@@ -9,14 +9,18 @@ executor binding (:meth:`MemoryPlan.bind` / :meth:`MemoryPlan.execute`).
 :func:`sweep` gives the time-vs-budget frontier, :func:`min_memory_plan`
 the floor of a tier combination; :mod:`.registry` maps tier combinations
 to solvers.  The policy strings (``"rotor:x0.6"``, ...) map onto requests
-in :mod:`.compat`, the one place they are parsed.
+in :mod:`.compat`, the one place they are parsed.  Plans
+:meth:`~MemoryPlan.save` and :meth:`~MemoryPlan.load` through a path or
+the store (:class:`StalePlanError` names what moved), and :func:`sweep`
+answers its points through the default store's warm-start frontier.
 """
 
 from ..check import PlanVerificationError
 from .api import (SweepPoint, build_plan, min_memory_plan, sweep,
                   two_tier_fallback)
 from .compat import DOCUMENTED_POLICIES, policy_to_request, resolve_policy
-from .plan import BoundPlan, InfeasiblePlanError, MemoryPlan
+from .plan import (BoundPlan, InfeasiblePlanError, MemoryPlan,
+                   StalePlanError, chain_fingerprint)
 from .registry import (SolverEntry, available_solvers, register_solver,
                        solver_for)
 from .request import (DEFAULT_NUM_SLOTS, SOLVER_STRATEGIES,
@@ -24,7 +28,8 @@ from .request import (DEFAULT_NUM_SLOTS, SOLVER_STRATEGIES,
 
 __all__ = [
     "Budget", "PlanRequest", "MemoryPlan", "BoundPlan", "SweepPoint",
-    "SolverEntry", "InfeasiblePlanError", "PlanVerificationError",
+    "SolverEntry", "InfeasiblePlanError", "StalePlanError",
+    "PlanVerificationError", "chain_fingerprint",
     "build_plan", "sweep", "min_memory_plan", "two_tier_fallback",
     "register_solver", "solver_for", "available_solvers",
     "DOCUMENTED_POLICIES", "policy_to_request", "resolve_policy",

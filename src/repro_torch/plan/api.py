@@ -8,9 +8,9 @@ infeasibility policy and wraps the result into a
 numbers.  The policy strings (:mod:`.compat`), the launcher, the train and
 serve paths and the trade-off only ever hand it requests.
 
-The port has no solver cache or plan store yet, so every call solves, and
-:func:`sweep` answers each point by a solve unless a ``frontier`` object is
-passed in.
+Solves are memoized by the solver cache (:mod:`repro_torch.core.
+solver_cache`), and :func:`sweep` answers its points through the warm-start
+frontier of the default store (:class:`repro_torch.store.WarmStartFrontier`).
 """
 
 from __future__ import annotations
@@ -179,21 +179,37 @@ class SweepPoint:
         return self.plan is not None
 
 
+def _default_frontier():
+    """The warm-start frontier over the process default store (None when
+    the store is disabled)."""
+    from ..store.config import default_store
+    from ..store.frontier import WarmStartFrontier
+    store = default_store()
+    return WarmStartFrontier(store) if store is not None else None
+
+
 def sweep(chain: Chain, fractions: Sequence[float],
           request: Optional[PlanRequest] = None, *,
           store_all_peak: Optional[float] = None,
-          frontier: Optional[Any] = None) -> List[SweepPoint]:
+          frontier: Optional[Any] = None,
+          use_frontier: bool = True) -> List[SweepPoint]:
     """The time-vs-budget frontier: one plan per budget fraction of the
     store-all peak (an infeasible point has ``plan=None`` instead of
     raising).  ``request`` is the template — its ``budget`` is replaced per
-    point; it defaults to the two-tier optimal strategy.  ``frontier``, if
-    given, answers points through its ``query(chain, request, budget,
-    solve=)``, as the JAX package's warm-start frontier does; without one,
-    every point solves."""
+    point; it defaults to the two-tier optimal strategy.
+
+    Points are answered through the warm-start frontier (``frontier``, else
+    the default store's; ``use_frontier=False`` opts out): a budget already
+    recorded, bracketed by recorded points of equal time, or at or below a
+    recorded infeasible budget costs no solve, so a sweep over a chain seen
+    before costs none.  An undecided point solves once and densifies the
+    stored frontier."""
     if request is None:
         request = PlanRequest(strategy="optimal")
     if store_all_peak is None:
         store_all_peak = chain.store_all_peak()
+    if frontier is None and use_frontier:
+        frontier = _default_frontier()
 
     def _solve(budget: float) -> Optional[MemoryPlan]:
         req = dataclasses.replace(request, budget=Budget.bytes(budget),

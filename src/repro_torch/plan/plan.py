@@ -1,6 +1,5 @@
 """The :class:`MemoryPlan` artifact and its executor binding
-(:class:`BoundPlan`) — the port of ``repro.plan.plan``, without the store
-(``save``/``load`` come with the plan store).
+(:class:`BoundPlan`) — the port of ``repro.plan.plan``.
 
 A plan carries the op :class:`~repro_torch.core.schedule.Schedule`, the
 recursion tree (run as nested checkpoints, or by the eager walker when it
@@ -11,56 +10,59 @@ predicted makespan, device and host peaks and transfer stall (NaN without
 a profiled chain).  It answers:
 
 - *is it sound?* — :meth:`MemoryPlan.verify`, the static verifier
-  (:mod:`repro_torch.check`); under ``REPRO_CHECK=1``, ``build_plan``
-  runs it on every plan it returns and ``bind``/``execute`` before they
-  run, and each refuses a plan that fails (the JAX package gates only
-  ``bind``/``execute``, and its store's ``save``/``load``);
+  (:mod:`repro_torch.check`); ``save``/``load`` and the plan store
+  always run it, and under ``REPRO_CHECK=1`` ``build_plan`` runs it on
+  every plan it returns and ``bind``/``execute`` before they run, and each
+  refuses a plan that fails (the JAX package gates only ``bind``/
+  ``execute``, ``save``/``load`` and its store);
 - *how do I run it?* — :meth:`MemoryPlan.bind` (nested checkpoints, or the
   walker for offload plans; with ``tracer=`` always the walker, one span
   per op) and :meth:`MemoryPlan.execute` (the walker);
 - *what does it cost, and did it?* — :meth:`summary`, :meth:`stats`,
-  :meth:`timeline`, and :meth:`drift` of a trace against the prediction.
+  :meth:`timeline`, and :meth:`drift` of a trace against the prediction;
+- *can I reuse it?* — :meth:`MemoryPlan.save` / :meth:`MemoryPlan.load`
+  round-trip the plan through a path, ``file://<path>`` or
+  ``store://<namespace>/<key>`` (the process default
+  :mod:`repro_torch.store`).  The :mod:`repro_torch.store.codec` envelope
+  carries the chain × request × code fingerprints, so a load against a
+  diverged chain raises :class:`StalePlanError` naming the component that
+  moved, and both ends verify the schedule.  Only the ``MemoryPlan`` is
+  pickled (its schedule, tree, Solution, request and chain: host objects
+  only), never a :class:`BoundPlan` or its stages, so a plan saved next to
+  the card loads on a host without one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import os
-from typing import Any, Callable, List, Optional, Sequence, Tuple
-
-import numpy as np
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.chain import Chain
 from ..core.schedule import Schedule, simulate, uses_offload
 from ..core.solver import Solution
+from ..core.solver_cache import chain_fingerprint, code_fingerprint
+from ..store.codec import CorruptEntryError, decode, encode
 from .request import PlanRequest
+
+__all__ = ["BoundPlan", "InfeasiblePlanError", "MemoryPlan",
+           "StalePlanError", "chain_fingerprint"]
+
+_PLAN_VERSION = 2
+_PLAN_KIND = "memory-plan"
+#: Envelope key for path-backed saves (store-backed saves use the store
+#: key, which the codec cross-checks against renames).
+_PLAN_FILE_KEY = "plan"
+_STORE_SCHEME = "store://"
+_FILE_SCHEME = "file://"
+
+
+class StalePlanError(ValueError):
+    """A saved plan was loaded against a chain it was not solved for."""
 
 
 class InfeasiblePlanError(MemoryError):
     """No feasible schedule exists for the request (budget too small)."""
-
-
-def chain_fingerprint(chain: Chain) -> str:
-    """Content hash of a chain: every cost and size array and the host link
-    (the JAX package's ``solver_cache.chain_fingerprint``, byte for byte)."""
-    h = hashlib.sha256()
-    h.update(b"repro-chain\0")
-    for arr in (chain.uf, chain.ub, chain.wa, chain.wabar, chain.wdelta,
-                chain.of, chain.ob):
-        h.update(np.ascontiguousarray(arr, dtype=np.float64).tobytes())
-        h.update(b"\0")
-    host = chain.host
-    if host is None:
-        h.update(b"nohost")
-    else:
-        h.update(np.array(
-            [host.bandwidth_d2h,
-             -1.0 if host.bandwidth_h2d is None else host.bandwidth_h2d,
-             host.latency], dtype=np.float64).tobytes())
-    return h.hexdigest()
-
-
 
 
 @dataclasses.dataclass
@@ -285,6 +287,142 @@ class MemoryPlan:
         (:func:`repro_torch.obs.drift.compare`)."""
         from ..obs.drift import compare
         return compare(self, trace)
+
+    # -- persistence -------------------------------------------------------
+
+    def validate_chain(self, chain: Chain) -> None:
+        """Raise :class:`StalePlanError` unless ``chain`` is content-identical
+        to the chain this plan was solved for."""
+        got = chain_fingerprint(chain)
+        if self.chain_hash is None:
+            raise StalePlanError(
+                "plan carries no chain hash (built from a bare length); "
+                "cannot validate it against a profiled chain")
+        if got != self.chain_hash:
+            raise StalePlanError(
+                f"plan was solved for chain {self.chain_hash[:12]}… but the "
+                f"given chain hashes to {got[:12]}… — re-plan (costs, sizes "
+                f"or the host link changed)")
+
+    def to_payload(self) -> Dict[str, Any]:
+        """The serialized form: the plan plus its full content address
+        (chain × request × code fingerprints), so any later load can name
+        exactly which component diverged."""
+        from ..store.keys import request_digest
+        return {
+            "version": _PLAN_VERSION,
+            "chain_hash": self.chain_hash,
+            "request": request_digest(self.request),
+            "code": code_fingerprint(),
+            "plan": self,
+        }
+
+    def save(self, target: str) -> None:
+        """Serialize the plan to ``target`` — a filesystem path,
+        ``file://<path>``, or ``store://<namespace>/<key>`` (written into
+        the process default :mod:`repro_torch.store`).  The codec envelope
+        embeds the chain/request/code fingerprints so :meth:`load` can
+        refuse a mismatched chain and say why.  The plan is statically
+        verified first: an invalid schedule never reaches disk
+        (:class:`~repro_torch.check.PlanVerificationError`).  A path is
+        written atomically (a temporary file, then ``os.replace``)."""
+        self._verify_or_raise(f"refusing to save invalid plan to {target!r}")
+        if target.startswith(_STORE_SCHEME):
+            from ..store.config import default_store
+            key = target[len(_STORE_SCHEME):]
+            store = default_store(required=True)
+            store.backend.put(key, encode(_PLAN_KIND, key, self.to_payload()))
+            return
+        path = (target[len(_FILE_SCHEME):]
+                if target.startswith(_FILE_SCHEME) else target)
+        data = encode(_PLAN_KIND, _PLAN_FILE_KEY, self.to_payload())
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+
+    @staticmethod
+    def load(target: str, chain: Optional[Chain] = None,
+             request: Optional[PlanRequest] = None) -> "MemoryPlan":
+        """Load a saved plan from a path or URI (as :meth:`save`).
+
+        With ``chain`` given, the plan is validated against it — always
+        pass the chain you are about to execute on.  Staleness is reported
+        per fingerprint component: the :class:`StalePlanError` names
+        whether the *chain* (costs/sizes/host link), the *code* (solver
+        sources) or, when ``request`` is given, the *request* diverged.
+        The schedule is statically re-verified (a truncated or hand-edited
+        file fails with :class:`~repro_torch.check.PlanVerificationError`
+        or ``ValueError``, not at execution time)."""
+        if target.startswith(_STORE_SCHEME):
+            from ..store.config import default_store
+            key = target[len(_STORE_SCHEME):]
+            store = default_store(required=True)
+            data = store.backend.get(key)
+            if data is None:
+                raise FileNotFoundError(f"no stored plan at {target!r}")
+            envelope_key = key
+        else:
+            path = (target[len(_FILE_SCHEME):]
+                    if target.startswith(_FILE_SCHEME) else target)
+            with open(path, "rb") as f:
+                data = f.read()
+            envelope_key = _PLAN_FILE_KEY
+        try:
+            _, _, payload = decode(data, kind=_PLAN_KIND, key=envelope_key)
+        except CorruptEntryError as e:
+            raise ValueError(
+                f"{target!r} is not a saved MemoryPlan ({e})") from e
+        if not isinstance(payload, dict) or not isinstance(
+                payload.get("plan"), MemoryPlan):
+            raise ValueError(f"{target!r} does not contain a MemoryPlan")
+        if payload.get("version") != _PLAN_VERSION:
+            raise ValueError(
+                f"saved plan {target!r} has payload version "
+                f"{payload.get('version')!r}, this build reads "
+                f"{_PLAN_VERSION}")
+        plan: MemoryPlan = payload["plan"]
+        if chain is not None:
+            plan._check_staleness(target, payload, chain, request)
+        plan._verify_or_raise(f"loaded plan {target!r} fails verification")
+        return plan
+
+    def _check_staleness(self, target: str, payload: Dict[str, Any],
+                         chain: Chain,
+                         request: Optional[PlanRequest]) -> None:
+        """Component-wise fingerprint comparison: which of chain / code /
+        request moved since the plan was saved."""
+        from ..store.keys import request_digest
+        if self.chain_hash is None:
+            raise StalePlanError(
+                "plan carries no chain hash (built from a bare length); "
+                "cannot validate it against a profiled chain")
+        diverged: List[str] = []
+        if chain_fingerprint(chain) != self.chain_hash:
+            diverged.append(
+                "chain (costs, sizes or the host link changed)")
+        stored_code = payload.get("code")
+        if stored_code is not None and stored_code != code_fingerprint():
+            diverged.append(
+                "code (the solver sources changed since this plan was "
+                "solved)")
+        if request is not None:
+            stored_req = payload.get("request")
+            if stored_req is not None and (
+                    stored_req != request_digest(request)):
+                diverged.append(
+                    "request (strategy/budget/tiers/slots/impl differ)")
+        if diverged:
+            raise StalePlanError(
+                f"plan {target!r} is stale — fingerprint diverged in: "
+                + "; ".join(diverged) + " — re-plan")
 
 
 class BoundPlan:

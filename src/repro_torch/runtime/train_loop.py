@@ -1,6 +1,7 @@
 """Training loop on one device: rotor-planned remat or an eager three-tier
-(host-offload) schedule, AdamW, deterministic synthetic data, and per-step
-time and memory.  Every step reports ``train.step_seconds`` and
+(host-offload) schedule, AdamW, deterministic synthetic data, per-step
+time and memory, checkpoints and resume (:mod:`repro_torch.ckpt`) and the
+straggler watchdog.  Every step reports ``train.step_seconds`` and
 ``train.loss`` to :mod:`repro_torch.obs.metrics`; tracing (a tracer, or
 ``TrainLoopConfig.trace_path``) is opt-in."""
 
@@ -13,11 +14,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..ckpt.manager import CheckpointManager
 from ..configs.shapes import ShapeSpec, input_specs
 from ..core.chain import Chain
 from ..core.rematerialize import count_checkpoint_scopes
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
+from ..distributed.fault_tolerance import StragglerWatchdog
 from ..launch.steps import (make_offload_step, make_train_step,
                             measure_chain, plan_training)
 from ..models.lm import StagedLM
@@ -26,6 +29,8 @@ from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
 from ..tree import tensors_of, tree_bytes
 
+# a step this many times the rolling median is a straggler
+STRAGGLER_THRESHOLD = 3.0
 
 @dataclasses.dataclass
 class TrainLoopConfig:
@@ -35,6 +40,10 @@ class TrainLoopConfig:
     seed: int = 0
     lr: float = 3e-4
     warmup: int = 10
+    ckpt_dir: Optional[str] = None      # checkpoint here and resume from it
+    ckpt_every: int = 50                # save after every this many steps
+    ckpt_keep: int = 3                  # checkpoints retained
+    async_ckpt: bool = True             # periodic saves write on a thread
     log_every: int = 10
     policy: Optional[str] = None        # remat policy override
     num_slots: Optional[int] = None     # DP discretization (None = default)
@@ -54,7 +63,8 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     seeded initialization.  The plan is solved on ``chain`` if one is given
     (e.g. a calibrated one); otherwise, on CUDA, on the chain measured on
     these parameters and the first batch (``launch.steps.measure_chain``,
-    the paper's §5.1 measurement), and elsewhere on the analytic chain
+    the paper's §5.1 measurement, its stage times taken inside the chain),
+    and elsewhere on the analytic chain
     priced at ``loop.peak_flops``.  A plan with host offloads runs on the
     eager offload step (``grad_accum`` must be 1).  Returns the losses, the
     plan and chain, the final state, and per-step records ``{"loss",
@@ -77,7 +87,20 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     gets one ``Step`` span per step.  The spans are written to
     ``loop.trace_path`` as a Perfetto file, and with a plan the result
     gains ``drift``, the plan's prediction against the last step's spans
-    (:func:`repro_torch.obs.drift.compare`)."""
+    (:func:`repro_torch.obs.drift.compare`).
+
+    With ``loop.ckpt_dir`` the run resumes from the newest valid
+    checkpoint there (parameters, moments, the step count) at the step
+    after it — ``batch_at`` and the learning rate are functions of the
+    step, so the resumed steps see what an uninterrupted run would — and
+    saves after every ``ckpt_every`` steps (on a thread with
+    ``async_ckpt``), when the straggler watchdog asks for a restart (then
+    it stops, so the restart resumes there), and at the end; each checkpoint carries the plan
+    (:meth:`CheckpointManager.restore_plan`).  The result adds
+    ``start_step``, ``last_step``, ``straggler_events`` and ``ckpt_saves``
+    (each save's :attr:`CheckpointManager.last_save`).  Without
+    ``ckpt_dir`` the watchdog only logs stragglers: with nothing to resume
+    from, the run takes all ``loop.steps`` steps."""
     dev = resolve_device(device)
     if tracer is None and loop.trace_path:
         from ..obs.trace import Tracer
@@ -91,15 +114,17 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     policy = loop.policy if loop.policy is not None else cfg.remat_policy
     if chain is None and dev.type == "cuda" and policy != "none":
         t0 = time.perf_counter()
-        chain = measure_chain(model, params, data.device_batch(0, dev))
+        chain = measure_chain(model, params, data.device_batch(0, dev),
+                              log_fn=log_fn)
         log_fn(f"[plan] chain of {chain.length + 1} stages measured on "
-               f"{dev} in {time.perf_counter() - t0:.2f}s")
+               f"{dev} in {time.perf_counter() - t0:.2f}s, its stage times "
+               f"inside the chain")
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
     plan, chain = plan_training(model, input_specs(cfg, shape), policy,
                                 peak_flops=loop.peak_flops,
                                 num_slots=loop.num_slots,
                                 impl=loop.solver_impl, device=dev,
-                                chain=chain)
+                                chain=chain, log_fn=log_fn)
     offload = plan is not None and plan.uses_offload
     walker = plan is not None and (offload or traced)
     tree = plan.tree if plan is not None and not walker else None
@@ -117,8 +142,17 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     elif plan is not None:
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
                f"over {model.n_stages()} stages\n{plan.summary()}")
-    leaves = tensors_of(params)
-    opt_state = adamw_init(leaves)
+    opt_state = adamw_init(tensors_of(params))
+    manager = (CheckpointManager(loop.ckpt_dir, keep=loop.ckpt_keep)
+               if loop.ckpt_dir else None)
+    start_step = 0
+    if manager is not None and manager.latest_step() is not None:
+        s, state = manager.restore({"params": params, "opt": opt_state,
+                                    "step": 0})
+        params, opt_state = state["params"], state["opt"]
+        start_step = state["step"] + 1
+        log_fn(f"[ckpt] restored step {s} from {loop.ckpt_dir}; resuming "
+               f"at step {start_step}")
     opt_cfg = AdamWConfig(lr=loop.lr)
     lr_fn = linear_warmup_cosine(loop.lr, loop.warmup, loop.steps)
     if walker:
@@ -132,50 +166,88 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     static_bytes = 2 * param_bytes + tree_bytes(opt_state["mu"]) * 2
     cuda = dev.type == "cuda"
     tokens = loop.global_batch * loop.seq_len
-    losses, records = [], []
+    losses, records, saves = [], [], []
+    watchdog = StragglerWatchdog(threshold=STRAGGLER_THRESHOLD)
+    saved_step = None
+
+    def save(step: int, blocking: bool) -> None:
+        nonlocal saved_step
+        manager.save(step, {"params": params, "opt": opt_state,
+                            "step": step}, blocking=blocking, plan=plan)
+        saves.append(manager.last_save)
+        saved_step = step
+        log_fn(f"[ckpt] step {step}: {manager.last_save['bytes']} B copied "
+               f"to host in {manager.last_save['snapshot_s']:.3f}s, "
+               + ("written" if blocking else "writing on a thread"))
+
     t_begin = time.perf_counter()
-    for step in range(loop.steps):
-        batch = data.device_batch(step, dev)
-        if cuda:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        metrics = step_fn(params, opt_state, batch, step)
-        loss = float(metrics["loss"])  # waits for the step
-        if cuda:
-            torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t0
-        # the forward and backward's spans reset the peak counter
-        peak = (max(torch.cuda.max_memory_allocated(dev),
-                    metrics["grads_peak"]) - static_bytes if cuda else None)
-        if not math.isfinite(loss):
-            raise FloatingPointError(f"step {step}: loss {loss}")
-        obs_metrics.histogram("train.step_seconds").observe(seconds)
-        obs_metrics.gauge("train.loss").set(loss)
-        if traced and plan is None:
-            t1 = tracer.now()
-            tracer.record("Step", step, t1 - seconds, t1)
-        losses.append(loss)
-        rec = {"loss": loss, "seconds": seconds,
-               "tokens_per_s": tokens / seconds,
-               "activation_peak_bytes": peak,
-               "fwd_bwd_peak_bytes": metrics["fwd_bwd_peak"]}
-        for key in ("host_peak_bytes", "host_bytes_after", "prefetch_wait_s"):
-            rec[key] = metrics.get(key)
-        records.append(rec)
-        if step % loop.log_every == 0:
-            log_fn(f"step {step:5d} loss {loss:.4f} "
-                   f"gnorm {float(metrics['grad_norm']):.3f} "
-                   f"{seconds:.3f}s {tokens / seconds:.0f} tok/s"
-                   + (f" act-peak {peak / 2**30:.3f} GiB" if cuda else "")
-                   + (f" host-peak {rec['host_peak_bytes'] / 2**30:.3f} GiB"
-                      f" prefetch-wait {rec['prefetch_wait_s']:.4f}s"
-                      if offload else ""))
+    step = start_step - 1
+    try:
+        for step in range(start_step, loop.steps):
+            batch = data.device_batch(step, dev)
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            watchdog.step_begin()
+            t0 = time.perf_counter()
+            metrics = step_fn(params, opt_state, batch, step)
+            loss = float(metrics["loss"])  # waits for the step
+            if cuda:
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            # the forward and backward's spans reset the peak counter
+            peak = (max(torch.cuda.max_memory_allocated(dev),
+                        metrics["grads_peak"]) - static_bytes
+                    if cuda else None)
+            if not math.isfinite(loss):
+                raise FloatingPointError(f"step {step}: loss {loss}")
+            obs_metrics.histogram("train.step_seconds").observe(seconds)
+            obs_metrics.gauge("train.loss").set(loss)
+            if traced and plan is None:
+                t1 = tracer.now()
+                tracer.record("Step", step, t1 - seconds, t1)
+            losses.append(loss)
+            rec = {"loss": loss, "seconds": seconds,
+                   "tokens_per_s": tokens / seconds,
+                   "activation_peak_bytes": peak,
+                   "fwd_bwd_peak_bytes": metrics["fwd_bwd_peak"],
+                   "t_start": t0, "t_end": t0 + seconds}
+            for key in ("host_peak_bytes", "host_bytes_after",
+                        "prefetch_wait_s"):
+                rec[key] = metrics.get(key)
+            records.append(rec)
+            if step % loop.log_every == 0:
+                log_fn(f"step {step:5d} loss {loss:.4f} "
+                       f"gnorm {float(metrics['grad_norm']):.3f} "
+                       f"{seconds:.3f}s {tokens / seconds:.0f} tok/s"
+                       + (f" act-peak {peak / 2**30:.3f} GiB" if cuda else "")
+                       + (f" host-peak {rec['host_peak_bytes'] / 2**30:.3f} "
+                          f"GiB prefetch-wait {rec['prefetch_wait_s']:.4f}s"
+                          if offload else ""))
+            ev = watchdog.step_end(step)
+            if ev is not None:
+                log_fn(f"[watchdog] straggler at step {ev.step}: "
+                       f"{ev.duration:.2f}s vs median {ev.median:.2f}s")
+            if manager is not None and watchdog.should_restart:
+                log_fn("[watchdog] persistent straggler — checkpointing for "
+                       "restart")
+                save(step, blocking=True)
+                break
+            if (manager is not None and loop.ckpt_every
+                    and (step + 1) % loop.ckpt_every == 0):
+                save(step, blocking=not loop.async_ckpt)
+    finally:
+        if manager is not None:
+            manager.wait()
     wall = time.perf_counter() - t_begin
+    if manager is not None and step >= start_step and saved_step != step:
+        save(step, blocking=True)
     result = {"losses": losses, "steps": records, "params": params,
               "opt_state": opt_state, "plan": plan, "chain": chain,
               "wall_s": wall,
-              "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9)}
+              "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9),
+              "start_step": start_step, "last_step": step,
+              "straggler_events": len(watchdog.events), "ckpt_saves": saves}
     if traced and tracer.spans:
         if loop.trace_path:
             tracer.save(loop.trace_path)

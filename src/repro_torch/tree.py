@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,3 +45,37 @@ def with_tensors(template: Any, leaves: Sequence[Optional[torch.Tensor]],
         return None
 
     return tree_map(pick, template)
+
+
+def leaves_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """Every non-container leaf (tensors and scalars; ``None`` skipped) with
+    its ``/``-joined path of dict keys and list indices, in the order of
+    :func:`tensors_of`."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    elif tree is None:
+        return []
+    else:
+        return [(prefix, tree)]
+    out: List[Tuple[str, Any]] = []
+    for k, v in items:
+        out.extend(leaves_with_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
+                   prefix: str = "") -> Any:
+    """``fn(path, leaf)`` for every non-``None`` leaf (paths as
+    :func:`leaves_with_paths` gives them), dicts, lists and tuples kept."""
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_with_paths(fn, v, f"{prefix}/{i}" if prefix else str(i))
+               for i, v in enumerate(tree)]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    if tree is None:
+        return None
+    return fn(prefix, tree)

@@ -222,6 +222,20 @@ def test_tradeoff_launcher_on_the_cpu():
     assert len(rows) + len(skipped) == points
     assert np.isfinite(out["mape_percent"])
     assert any(s.startswith("time prediction MAPE") for s in lines)
+    # the held-out MAPE leaves out exactly the points that run store-all's
+    # schedule, the one whose steps time the chain
+    ops = rows[0]["plan"].schedule.ops
+    label = {id(r): f"{r['strategy']} at {r['budget_frac']:g}" for r in rows}
+    assert out["in_sample"] == [label[id(r)] for r in rows
+                                if r["plan"].schedule.ops == ops]
+    assert out["out_of_sample"] == [label[id(r)] for r in rows
+                                    if r["plan"].schedule.ops != ops]
+    assert out["in_sample"][0] == "store-all at 1" and out["out_of_sample"]
+    held = [r for r in rows if r["plan"].schedule.ops != ops]
+    want = 100 * np.mean([abs(r["predicted_s"] - r["measured_s"])
+                          / r["measured_s"] for r in held])
+    assert out["mape_out_of_sample_percent"] == pytest.approx(want,
+                                                             rel=1e-12)
 
 
 def _smoke_model():

@@ -1268,3 +1268,77 @@ def test_traced_offload_copies_run_on_the_side_stream(dev):
     _, ref, _ = plan.execute(stages, params, x)
     for a, b in zip(tensors_of(grads), tensors_of(ref)):
         torch.testing.assert_close(a, b)
+
+
+def test_cached_plan_launches_no_fill_kernel(dev):
+    """With the solver cache on, the first plan on ``cuda_fused`` is a miss
+    that launches K2 once; the same plan again is a hit that launches no
+    fill kernel and gives the same schedule."""
+    from repro_torch.core import solver_cache
+    from repro_torch.plan import PlanRequest, Budget, build_plan
+
+    rng = np.random.default_rng(3)
+    n = 10
+    ch = Chain.make(uf=rng.integers(1, 5, n).astype(float),
+                    ub=rng.integers(1, 5, n).astype(float),
+                    wa=rng.integers(1, 4, n).astype(float),
+                    wabar=rng.integers(1, 6, n).astype(float))
+    req = PlanRequest(strategy="optimal", impl="cuda_fused", num_slots=64,
+                      budget=Budget.fraction(0.6))
+    solver_cache.configure(directory=None)
+    try:
+        counters.reset()
+        first = build_plan(req, ch)
+        assert counters.snapshot() == {dp_ops.NAME_FUSED: 1}
+        counters.reset()
+        second = build_plan(req, ch)
+        assert counters.snapshot() == {}
+        assert second.schedule.ops == first.schedule.ops
+        assert solver_cache.stats()["hits"] == 1
+    finally:
+        solver_cache.reset()
+
+
+def test_measure_chain_times_stages_inside_the_chain_on_card(dev):
+    """On the card the in-chain times come from CUDA-event spans of traced
+    store-all steps; sizes, ``of`` and ``ob`` are the isolated passes'."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import measure_chain
+
+    cfg = smoke_config("qwen1.5-4b", use_flash_attention=True,
+                       scan_layer_remat="full", logits_chunk=8)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    batch = SyntheticLMData(cfg, 2, 64, seed=0).device_batch(0, dev)
+    lines = []
+    chain = measure_chain(model, params, batch, log_fn=lines.append)
+    alone = profile_stages_measured(model.stage_fns(),
+                                    model.stage_params(params), batch)
+    for name in ("wa", "wabar", "wdelta"):
+        np.testing.assert_array_equal(getattr(chain, name),
+                                      getattr(alone, name))
+    assert np.all(chain.uf > 0) and np.all(chain.ub > 0)
+    assert "from store-all steps" in lines[0]
+
+
+def test_checkpoint_roundtrip_on_card(dev, tmp_path):
+    """Parameters (bf16) and moments on the card saved on a thread, restored
+    onto the card and onto the CPU bit for bit."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.optim.adamw import adamw_init
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=g, device=dev)
+              .to(torch.bfloat16).requires_grad_()}
+    state = {"params": params, "opt": adamw_init(tensors_of(params)),
+             "step": 5}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, state, blocking=False)
+    mgr.wait()
+    _, on_card = mgr.restore(state)
+    w = on_card["params"]["w"]
+    assert w.is_cuda and w.dtype == torch.bfloat16 and w.requires_grad
+    assert torch.equal(w, params["w"])
+    _, on_cpu = mgr.restore(state, device="cpu")
+    assert torch.equal(on_cpu["params"]["w"], params["w"].cpu())

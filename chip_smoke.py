@@ -248,11 +248,28 @@ store-all's by more than 1e-2.
     seconds of each checkpoint and the time the step-0 write overlapped
     step 1 printed; the directory removed after.  The time MAPE of paths
     10 and 13 is then printed again, both ways;
-21. one JSON line describing every kernel (K3's launches also by head
+21. multi-device (``multi_device``): Qwen1.5-4B at full width cut to 2 layers, batch 4 × 2048 as two host slices, 3
+    steps under ``rotor:`` at the measured chain's midpoint — the plain
+    single-process run, then (a) ``torchrun --nproc-per-node 1 -m
+    repro_torch.launch.train`` on NCCL (losses equal within rtol 1e-3, the
+    plan digest, K3, K4 and K1 counted in that process); (b)
+    ``compressed_psum_mean`` on one step's real gradients through NCCL at
+    world 1 (largest deviation from the plain mean ≤ its scale;
+    ``compression_ratio``); (c) two ranks sharing the card over gloo at
+    mesh (2, 1), each on its host's slice (losses equal (a)'s, rank 0's
+    parameter bytes = Σ bytes / shard factor, the first step's collective
+    bytes), then deepseek-v2-lite's MoE block at full width through
+    expert parallelism at world 2 against its local path (output, aux,
+    gradients within rtol 2e-4 / atol 2e-5; two exchanges forward, two
+    backward); (c) takes the first two steps and
+    checkpoints, (d) restores it at world 1 and takes the third with (a)'s
+    loss; the phase's time;
+22. one JSON line describing every kernel (K3's launches also by head
     dim: it must have run at 256 and 64), then the final JSON result line.
 
-Each path (6 to 20) runs with the launch counts set to 0 just before it and
-read just after; a kernel launched on none of them fails the run.  Every
+Each path (6 to 21) runs with the launch counts set to 0 just before it and
+read just after (phase 21's in its torchrun process); a kernel launched on
+none of them fails the run.  Every
 training path's predicted forward+backward activation peak must lie
 within [1, 1.25] of the measured one.
 
@@ -1316,6 +1333,289 @@ def persistence(card, model, chain, batch, mcfg, mchain) -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     return launched
+
+
+# -- phase 21: multi-device ----------------------------------------------------
+
+# Qwen1.5-4B at full width cut to 2 layers, batch 4 × 2048 over the ranks
+MD_OVERRIDES = {"num_layers": 2, "layer_kinds": ["dense"] * 2, "n_chunks": 2,
+                "use_flash_attention": True}
+EP_ARCH = "deepseek-v2-lite-16b"   # one MoE layer's block, at full width
+EP_BATCH = 2
+
+def _ep_rank(rank, world, seed, count):
+    """deepseek-v2-lite's MoE block at full width (float32 weights and
+    input from ``seed``, identical on every rank): the expert-parallel path
+    on a ``(1, world)`` mesh against the local path on the same input: output,
+    aux, and the gradients of the input, router and this rank's expert
+    blocks, as max |Δ| and the allowance rtol 2e-4 / atol 2e-5 gives
+    each; the exchange counts; the device time of each path's forward and
+    backward (CUDA events, median of ``count``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import axis_rules, make_mesh
+    from repro_torch.models import mlp as mlp_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(EP_ARCH, dtype=torch.float32, param_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = mlp_mod.moe_init(gen, cfg, torch.float32, dev)
+    x = torch.randn((EP_BATCH, SEQ, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+    e_loc = cfg.num_experts // world
+    own = slice(rank * e_loc, (rank + 1) * e_loc)
+    names = ("we_gate", "we_up", "we_down")
+    mesh = make_mesh((1, world), "cuda")
+
+    def run(ep):
+        q = {k: v for k, v in p.items()}
+        if ep:  # this rank's expert blocks only, never gathered
+            q = {**q, **{n: {"kernel": p[n]["kernel"][own].clone()}
+                         for n in names}}
+        leaves = [x, q["router"]["kernel"]] + [q[n]["kernel"] for n in names]
+        for t in leaves:
+            t.requires_grad_()
+        if ep:
+            with axis_rules(mesh):
+                y, aux = mlp_mod.moe_apply(q, cfg, x)
+        else:
+            y, aux = mlp_mod.moe_apply(q, cfg, x)
+        grads = torch.autograd.grad((y * cot).sum() + aux, leaves)
+        return y.detach(), aux.detach(), [g.detach() for g in grads]
+
+    def timed(ep):
+        times = []
+        for _ in range(count):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            run(ep)
+            b.record()
+            torch.cuda.synchronize(dev)
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    y0, aux0, g0 = run(False)
+    mlp_mod.ALL_TO_ALL.update(forward=0, backward=0)
+    y1, aux1, g1 = run(True)
+    exchanges = dict(mlp_mod.ALL_TO_ALL)
+    g0 = g0[:2] + [g[own] for g in g0[2:]]
+
+    def err(a, b):
+        return (float((a - b).abs().max()),
+                float((2e-5 + 2e-4 * b.abs()).min()),
+                bool(torch.allclose(a, b, rtol=2e-4, atol=2e-5)))
+
+    checks = {"y": err(y1, y0), "aux": err(aux1, aux0)}
+    for name, a, b in zip(("x", "router") + names, g1, g0):
+        checks[f"grad {name}"] = err(a, b)
+    return {"checks": checks, "exchanges": exchanges,
+            "ms_local": timed(False), "ms_ep": timed(True)}
+
+
+def _torchrun(n: int, args, tag: str) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc-per-node n -m
+    repro_torch.launch.train args``: its output printed, its ``[train]
+    result`` line returned (raises on a non-zero exit)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("[train] result "):
+            result = json.loads(line[len("[train] result "):])
+        elif not line.startswith("[measured]"):
+            say(f"[{tag}] {line}")
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"{tag}: torchrun exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+    result["wall_s"] = seconds
+    say(f"[{tag}] torchrun with {n} rank(s): {seconds:.3f} s of wall time")
+    return result
+
+
+def multi_device(card: str) -> dict:
+    """Phase 21: Qwen1.5-4B at full width cut to 2 layers, batch 4 × 2048
+    (two hosts' slices of 2), 3 steps under ``rotor:`` at the midpoint of
+    the chain measured here: the plain single-process run; (a) the same
+    through ``torchrun --nproc-per-node 1`` on NCCL (world 1: collectives
+    that move nothing); (b) ``compressed_psum_mean`` on one step's real
+    gradients through NCCL at world 1; (c) two ranks sharing the card over
+    gloo at mesh (2, 1), each on its host's slice, writing checkpoints,
+    then the expert-parallel MoE block at world 2 against its local path;
+    (c) takes the first two steps and checkpoints;
+    (d) that checkpoint restored at world 1 takes the third, with (a)'s
+    loss.  Returns (a)'s launch counts."""
+    import datetime
+    import shutil
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     compression_ratio,
+                                                     ef_init)
+    from repro_torch.distributed.local import free_port, run_local
+    from repro_torch.kernels.dp_fill import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch.steps import axes_at, measure_chain
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+    from repro_torch.tree import leaves_with_paths, tensors_of
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    cfg = get_config(ARCH, **{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in MD_OVERRIDES.items()})
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    data = SyntheticLMData(cfg, BATCH, SEQ, host_count=2, hosts=2)
+    batch = data.device_batch(0, dev)
+    measured = measure_chain(model, params, batch)
+    mid = int((solve_min_memory(measured).mem_limit
+               + measured.store_all_peak()) / 2)
+    n_params = sum(t.numel() for t in tensors_of(params))
+    say(f"[multi] {ARCH} cut to {cfg.num_layers} layers: {n_params} "
+        f"parameters, d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab_size}; batch {BATCH} × {SEQ} as 2 host slices; rotor at "
+        f"the measured chain's midpoint {mid} B on {card}")
+    loop = dict(steps=STEPS, global_batch=BATCH, seq_len=SEQ,
+                policy=f"rotor:{mid}", solver_impl="cuda", log_every=1)
+    plain = run_training(cfg, TrainLoopConfig(**loop, data_hosts_per_process=2),
+                         device=dev, params=params, chain=measured,
+                         log_fn=lambda *_: None)
+    want = plain["losses"]
+    say(f"[multi] plain single-process run: losses {want}, step seconds "
+        f"{[r['seconds'] for r in plain['steps']]} on {card}")
+
+    common = ["--arch", ARCH, "--override", json.dumps(MD_OVERRIDES),
+              "--global-batch", str(BATCH), "--seq-len", str(SEQ),
+              "--steps", str(STEPS), "--policy", f"rotor:{mid}",
+              "--solver-impl", "cuda"]
+
+    def close(tag, got, ref, rtol=1e-3):
+        if len(got) != len(ref) or not np.allclose(got, ref, rtol=rtol,
+                                                   atol=0):
+            raise AssertionError(f"{tag}: losses {got} against {ref} "
+                                 f"(rtol {rtol})")
+
+    # -- (a) world 1 on NCCL through torchrun --------------------------------
+    a = _torchrun(1, common + ["--data-hosts-per-process", "2",
+                               "--dist-backend", "nccl"], "multi a")
+    close("(a)", a["losses"], want)
+    for name in (flash_ops.NAME, rms_ops.NAME, dp_ops.NAME):
+        if not a["launches"].get(name):
+            raise AssertionError(f"(a) never launched {name}")
+    say(f"[multi] (a) world 1, NCCL: losses {a['losses']} = the plain run's "
+        f"within rtol 1e-3; plan digest {a['plan_digest'][:16]} on its one "
+        f"rank; launches {json.dumps(a['launches'])}; step seconds "
+        f"{a['step_seconds']}; first step's collectives "
+        f"{json.dumps(a['collective_bytes'])} (world 1: they move nothing) "
+        f"on {card}")
+
+    # -- (b) compression on one step's real gradients, NCCL at world 1 -------
+    leaves = tensors_of(plain["params"])
+    loss = model.loss_fn(plain["params"], batch, tree=plain["plan"].tree)
+    grads = torch.autograd.grad(loss, leaves)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mean, err = compressed_psum_mean(grads, ef_init(grads),
+                                         dist.group.WORLD, 1)
+        torch.cuda.synchronize()
+        worst, worst_ratio = 0.0, 0.0
+        for g, m, e in zip(grads, mean, err):
+            scale = float(g.float().abs().max()) / 127.0
+            dev_ = float((m.float() - g.float()).abs().max())
+            worst = max(worst, dev_)
+            worst_ratio = max(worst_ratio, dev_ / max(scale, 1e-12))
+        if worst_ratio > 1.0:
+            raise AssertionError(f"(b) a compressed mean off its plain mean "
+                                 f"by {worst_ratio:.4f} of its scale")
+        say(f"[multi] (b) compressed_psum_mean on {len(grads)} real "
+            f"gradients ({sum(g.numel() for g in grads)} values), NCCL at "
+            f"world 1: largest |mean - plain mean| {worst:.6e}, "
+            f"{worst_ratio:.4f} of its tensor's scale (≤ 1 held); "
+            f"compression_ratio {compression_ratio()} (int8 against bf16) on "
+            f"{card}")
+    finally:
+        dist.destroy_process_group()
+    del grads, mean, err, loss, leaves
+    torch.cuda.empty_cache()
+
+    # -- (c) two ranks sharing the card over gloo at mesh (2, 1) ------------
+    ck = ROOT / "build" / "ckpt_multi"
+    shutil.rmtree(ck, ignore_errors=True)
+    # (c) takes the first STEPS - 1 steps and checkpoints after the last
+    common[common.index("--steps") + 1] = str(STEPS - 1)
+    c = _torchrun(2, common + ["--dist-backend", "gloo", "--ckpt-dir",
+                               str(ck), "--ckpt-every", "0"], "multi c")
+    close("(c)", c["losses"], a["losses"][:STEPS - 1])
+    mesh = SimpleNamespace(shape={"data": 2, "model": 1})
+    axes = model.param_axes()
+    with shd.axis_rules(mesh):
+        expect = sum(t.numel() * t.element_size() // shd.shard_factor(
+            *axes_at(axes, k), shape=t.shape)
+            for k, t in leaves_with_paths(model.init(device="meta")))
+    if c["param_bytes_local"] != expect:
+        raise AssertionError(f"(c) rank 0 holds {c['param_bytes_local']} B "
+                             f"of parameters, not {expect}")
+    comm = c["collective_bytes"]
+    say(f"[multi] (c) world 2 over gloo at mesh (2, 1): losses "
+        f"{c['losses']} = (a)'s on the same global batch within rtol 1e-3; "
+        f"rank 0 holds {c['param_bytes_local']} B of the "
+        f"{sum(t.numel() * t.element_size() for t in tensors_of(params))} B "
+        f"of parameters (= Σ bytes / shard factor); step seconds "
+        f"{c['step_seconds']}; collective bytes of the first step "
+        f"{sum(comm['bytes'].values())} ({json.dumps(comm)}) on {card}")
+    ep = run_local(_ep_rank, 2, (0, 5), timeout=300.0)
+    for r, res in enumerate(ep):
+        bad = [k for k, v in res["checks"].items() if not v[2]]
+        if bad or res["exchanges"] != {"forward": 2, "backward": 2}:
+            raise AssertionError(f"(c) EP rank {r}: {bad} off the local "
+                                 f"path, exchanges {res['exchanges']}")
+    say(f"[multi] (c) expert parallelism, {EP_ARCH} MoE block at full width "
+        f"(batch {EP_BATCH} × {SEQ}, float32), world 2 over gloo, mesh (1, 2): output, aux and "
+        f"gradients equal the local path's within rtol 2e-4 / atol 2e-5 "
+        f"(max |Δ|: " + ", ".join(
+            f"{k} {v[0]:.3e}" for k, v in ep[0]["checks"].items())
+        + f"); exchanges {json.dumps(ep[0]['exchanges'])}; forward + "
+        f"backward {ep[0]['ms_ep']:.4f} ms EP against {ep[0]['ms_local']:.4f} "
+        f"ms local (rank 0, CUDA events, median of 5) on {card}")
+
+    # -- (d) (c)'s checkpoint restored at world 1 ----------------------------
+    d = run_training(cfg, TrainLoopConfig(**loop, data_hosts_per_process=2,
+                                          ckpt_dir=str(ck), ckpt_every=0),
+                     device=dev, chain=measured, log_fn=lambda *_: None)
+    if d["start_step"] != STEPS - 1:
+        raise AssertionError(f"(d) resumed at step {d['start_step']}")
+    close("(d)", d["losses"], a["losses"][STEPS - 1:])
+    shutil.rmtree(ck, ignore_errors=True)
+    say(f"[multi] (d) world 2's step-{STEPS - 2} checkpoint restored "
+        f"at world 1: step {STEPS - 1} loss {d['losses']} = the "
+        f"uninterrupted run's {a['losses'][STEPS - 1:]} within rtol 1e-3")
+    say(f"[multi] phase 21: {time.perf_counter() - t_phase:.3f} s on {card}")
+    del plain, d, params, measured
+    torch.cuda.empty_cache()
+    return a["launches"]
+
 
 
 def main() -> int:
@@ -2837,7 +3137,10 @@ def main() -> int:
             for k, (a, b, n) in mapes.items())
         + f" (paper §5.3: 7.8 %; no limit held) on {card}")
 
-    # -- 21. result lines -------------------------------------------------
+    # -- 21. multi-device -----------------------------------------------------
+    path_launches["multi_device"] = multi_device(card)
+
+    # -- 22. result lines -------------------------------------------------
     # K3's head dim on each path that launches it
     head_dims = {"rotor": cfg.head_dim, "offload": off_cfg.head_dim,
                  "measured": cfg.head_dim,
@@ -2845,7 +3148,8 @@ def main() -> int:
                  "serve": get_config("qwen1.5-4b").head_dim,
                  "serve_archs": zcfg.head_dim, "musicgen": acfg.head_dim,
                  "serve_paligemma": vcfg.head_dim,
-                 "serve_musicgen": acfg.head_dim, "persist": cfg.head_dim}
+                 "serve_musicgen": acfg.head_dim, "persist": cfg.head_dim,
+                 "multi_device": cfg.head_dim}
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

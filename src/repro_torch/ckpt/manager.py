@@ -16,13 +16,18 @@ Its guarantees are the JAX package's:
   checkpoint that fails its checksums (a torn write);
 - ``restore(target, device=)`` puts each leaf back on the device and in
   the dtype of ``target``'s leaf (or on ``device``), so a checkpoint written
-  on the card restores on the CPU and back.
+  on the card restores on the CPU and back;
+- **elastic**: a checkpoint stores every leaf unsharded — a DTensor leaf is
+  gathered (``full_tensor``, a collective every rank joins) and one rank,
+  the ``writer``, writes — and ``restore`` places each leaf on the target's
+  mesh and placements (a DTensor target leaf's, or ``shardings=``), so a
+  checkpoint written at one world size loads at another
+  (:func:`restore_to_sharding`).
 
 bfloat16 has no numpy dtype: such a leaf is stored as its raw 16 bits
 (``int16``) and the manifest records the tensor's dtype.  Python scalars in
 the tree (the optimizer's step count) are stored as 0-d arrays and restored
-as the target's type.  Placing leaves on a mesh of devices
-(``restore_to_sharding``) waits for the multi-device slice.
+as the target's type.
 
 The embedded :class:`~repro_torch.plan.MemoryPlan` (``save(..., plan=...)``
 / :meth:`CheckpointManager.restore_plan`) persists through
@@ -43,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import distribute, full_value
 from ..tree import leaves_with_paths, map_with_paths
 
 _PLAN_FILE = "memory.plan"
@@ -52,7 +58,7 @@ _MANIFEST = "manifest.json"
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf as numpy, and the dtype to restore it in."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = full_value(leaf.detach()).to("cpu", copy=True)
         dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -77,11 +83,16 @@ class CheckpointManager:
     ``keep`` of them retained.  ``last_save`` describes the newest write:
     its step, bytes, the seconds spent copying to host memory
     (``snapshot_s``) and writing (``write_s``), and the host-clock
-    (``time.perf_counter``) start and end of the write."""
+    (``time.perf_counter``) start and end of the write.  In a run over
+    several processes every rank makes a manager on the same directory and
+    calls :meth:`save` (its DTensor leaves are gathered collectively), and
+    only the ``writer`` copies them to host memory and writes
+    (``last_save["bytes"]`` is 0 on the others)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.dir = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -99,6 +110,15 @@ class CheckpointManager:
         :meth:`wait` joins it and raises what it raised."""
         self.wait()  # one async save in flight at a time
         t0 = time.perf_counter()
+        if not self.writer:
+            # join the gathers of the DTensor leaves; only the writer
+            # copies them to host memory
+            for _, leaf in leaves_with_paths(state):
+                if isinstance(leaf, torch.Tensor):
+                    full_value(leaf.detach())
+            self.last_save = {"step": step, "blocking": blocking, "bytes": 0,
+                              "snapshot_s": time.perf_counter() - t0}
+            return
         leaves = [(key,) + _to_host(leaf)
                   for key, leaf in leaves_with_paths(state)]
         info = {"step": step, "blocking": blocking,
@@ -197,13 +217,26 @@ class CheckpointManager:
             return None
 
     def restore(self, target: Any, step: Optional[int] = None,
-                device: Any = None) -> Tuple[int, Any]:
+                device: Any = None, shardings: Any = None) -> Tuple[int, Any]:
         """Restore into the structure of ``target`` (a tree like the saved
         one: tensors, on any device including ``meta``, and scalars).
         Walks back through the retained checkpoints, newest first, until one
         passes its checksums; returns ``(step, state)``.  Each tensor comes
         back in its target leaf's dtype, on ``device`` if given, else on the
-        target leaf's device; each scalar as its target's type."""
+        target leaf's device; each scalar as its target's type.  A leaf
+        whose sharding — ``shardings``' leaf at the same path (a
+        :class:`~repro_torch.distributed.sharding.MeshSharding`), else the
+        target leaf's own if it is a DTensor — is known comes back as a
+        DTensor on that mesh and placements, each rank keeping its shards
+        (every rank reads the files)."""
+        from torch.distributed.tensor import DTensor
+
+        from ..distributed.sharding import MeshSharding
+
+        where_of = {}
+        if shardings is not None:
+            where_of = {k: v for k, v in leaves_with_paths(shardings)
+                        if isinstance(v, MeshSharding)}
         candidates = ([step] if step is not None
                       else list(reversed(self.all_steps())))
         for s in candidates:
@@ -215,11 +248,24 @@ class CheckpointManager:
                 if key not in leaves:
                     raise KeyError(f"checkpoint step {s} missing leaf {key}")
                 arr, dtype = leaves[key]
-                if isinstance(leaf, torch.Tensor):
+                if not isinstance(leaf, torch.Tensor):
+                    return type(leaf)(arr.item())
+                sharding = where_of.get(key)
+                if sharding is None and isinstance(leaf, DTensor):
+                    sharding = MeshSharding(leaf.device_mesh,
+                                            tuple(leaf.placements))
+                t = _from_host(arr, dtype)
+                if sharding is None:
                     where = device if device is not None else leaf.device
-                    return _from_host(arr, dtype).to(
-                        where, leaf.dtype).requires_grad_(leaf.requires_grad)
-                return type(leaf)(arr.item())
+                    return t.to(where, leaf.dtype).requires_grad_(
+                        leaf.requires_grad)
+                where = (device if device is not None
+                         else sharding.mesh.device_type)
+                if str(where) == "cuda":
+                    where = torch.device("cuda", torch.cuda.current_device())
+                return distribute(
+                    t.to(where, leaf.dtype).requires_grad_(leaf.requires_grad),
+                    sharding.mesh, sharding.placements)
 
             return s, map_with_paths(put, target)
         raise FileNotFoundError(
@@ -241,3 +287,13 @@ class CheckpointManager:
             if os.path.exists(path):
                 return MemoryPlan.load(path, chain)
         return None
+
+
+def restore_to_sharding(manager: CheckpointManager, target: Any,
+                        shardings: Any, step: Optional[int] = None
+                        ) -> Tuple[int, Any]:
+    """:meth:`CheckpointManager.restore` onto the current mesh: each leaf of
+    ``target`` placed by ``shardings``' leaf at its path (a
+    :class:`~repro_torch.distributed.sharding.MeshSharding`, or ``None``
+    for a leaf left whole)."""
+    return manager.restore(target, step=step, shardings=shardings)

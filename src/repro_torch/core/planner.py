@@ -185,23 +185,27 @@ def profile_stages_analytic(stages: Sequence[Callable], params: Sequence[Any],
                             flops_bwd: Sequence[float],
                             peak_flops: float,
                             host: Optional[HostTransferModel] = None,
-                            allocator: bool = False) -> Chain:
+                            allocator: bool = False,
+                            activation_shard_factor: float = 1.0) -> Chain:
     """Build the chain cost model from a forward on ``meta`` tensors:
     ``params`` and ``x`` should live on the meta device (parameters with
     ``requires_grad``).  ``uf``/``ub`` are ``flops / peak_flops`` seconds;
     ``host`` prices the host tier (a measured link, or ``None``); with
     ``allocator`` each tensor counts at :func:`allocator_bytes`, as the
-    measured chain counts it on CUDA."""
+    measured chain counts it on CUDA.  ``activation_shard_factor`` divides
+    every activation and residual size (the mesh axes the batch is sharded
+    over), so the DP sees one device's bytes."""
     if peak_flops <= 0:
         raise ValueError("peak_flops must be positive")
     n = len(stages)
-    wa, wabar = [_tree_size(x, allocator)], []
+    f = activation_shard_factor
+    wa, wabar = [_tree_size(x, allocator) / f], []
     a = x
     for i, (fn, p) in enumerate(zip(stages, params)):
         out, res = residual_bytes(fn, p, _fresh_input(a), allocator)
-        wabar.append(res)
+        wabar.append(res / f)
         if i < n - 1:
-            wa.append(_tree_size(out, allocator))
+            wa.append(_tree_size(out, allocator) / f)
         a = out
     return Chain.make(uf=[f / peak_flops for f in flops_fwd],
                       ub=[f / peak_flops for f in flops_bwd],

@@ -17,9 +17,12 @@ Correspondence (per node, as in ``repro.core.rematerialize``):
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 from torch.utils.checkpoint import checkpoint
 
 from .solver import AllNode, CkNode, Leaf, Tree
@@ -27,11 +30,53 @@ from .solver import AllNode, CkNode, Leaf, Tree
 StageFn = Callable  # (stage_params, activation) -> activation
 
 
-def remat(fn: Callable, *args):
+class _Kept:
+    """The values a ``remat(..., keep=True)`` region passed through
+    :func:`kept` on its first run, handed back in order on its recompute."""
+
+    def __init__(self):
+        self.values: list = []
+        self.replay = False
+        self.pos = 0
+
+
+_region = threading.local()
+
+
+def kept(compute: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``compute()``; inside a ``remat(..., keep=True)`` region its first
+    run keeps the result, and its recompute in the backward gets that
+    result back instead of computing it again (the port's
+    ``save_only_these_names``: the expert exchange marks its outputs so)."""
+    tape = getattr(_region, "tape", None)
+    if tape is None:
+        return compute()
+    if tape.replay:
+        tape.pos += 1
+        return tape.values[tape.pos - 1]
+    out = compute()
+    tape.values.append(out.detach())
+    return out
+
+
+def remat(fn: Callable, *args, keep: bool = False):
     """``fn(*args)`` keeping only its inputs: the repo's one checkpoint call
     (non-reentrant, so the inputs may be dicts of tensors; no RNG state is
-    saved because no stage draws random numbers)."""
+    saved because no stage draws random numbers).  With ``keep``, also
+    what ``fn`` passes through :func:`kept`; a region without such values
+    is a plain checkpoint."""
+    if keep:
+        fn = functools.partial(_keeping, fn, _Kept())
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _keeping(fn: Callable, tape: _Kept, *args):
+    outer = getattr(_region, "tape", None)
+    _region.tape, tape.pos = tape, 0
+    try:
+        return fn(*args)
+    finally:
+        _region.tape, tape.replay = outer, True
 
 
 def build_remat_fn(tree: Tree, stages: Sequence[StageFn]) -> Callable:

@@ -1,7 +1,9 @@
 """Deterministic synthetic LM data: ``batch_at`` is a copy of the JAX
 package's numpy generator, so both packages see the same tokens, frame
 embeddings (audio) and image embeddings (VLM) for a given (seed, host,
-step)."""
+step).  Each of ``host_count`` hosts makes only its slice of the global
+batch; a process may read several consecutive hosts' slices (``hosts``),
+as a run restored on fewer processes does to keep the global batch."""
 
 from __future__ import annotations
 
@@ -15,20 +17,34 @@ class SyntheticLMData:
     """Markov-ish synthetic token stream (structured enough that loss drops)."""
 
     def __init__(self, cfg, global_batch: int, seq_len: int, seed: int = 0,
-                 host_index: int = 0, host_count: int = 1):
+                 host_index: int = 0, host_count: int = 1, hosts: int = 1):
         if global_batch % host_count:
             raise ValueError("global_batch must divide evenly over hosts")
+        if not 0 <= host_index <= host_count - hosts:
+            raise ValueError(f"hosts {host_index}..{host_index + hosts - 1} "
+                             f"of {host_count}")
         self.cfg = cfg
-        self.local_batch = global_batch // host_count
+        self.host_batch = global_batch // host_count
+        self.local_batch = self.host_batch * hosts
         self.seq = seq_len
         self.seed = seed
         self.host = host_index
+        self.hosts = hosts
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """This process's batch of ``step``: its host's slice, or its hosts'
+        slices concatenated along the batch."""
+        parts = [self.host_batch_at(h, step)
+                 for h in range(self.host, self.host + self.hosts)]
+        if len(parts) == 1:
+            return parts[0]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def host_batch_at(self, host: int, step: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, self.host, step]))
-        B, S, V = self.local_batch, self.seq, cfg.vocab_size
+            np.random.SeedSequence([self.seed, host, step]))
+        B, S, V = self.host_batch, self.seq, cfg.vocab_size
         # tokens with local structure: next token = (tok*a + b) % V w/ noise
         a = rng.integers(2, 7)
         toks = np.empty((B, S + 1), np.int64)

@@ -17,3 +17,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def rank_device(device: Union[str, torch.device], local_rank: int
+                ) -> torch.device:
+    """The device of local rank ``local_rank``: on CUDA the card
+    ``local_rank`` modulo the cards this process sees (ranks share cards
+    when there are more ranks than cards), elsewhere ``device`` itself."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", local_rank % torch.cuda.device_count())

@@ -1,6 +1,20 @@
-"""What runs across devices, and the fault tolerance of a run (one process
-for now: :class:`StragglerWatchdog`)."""
+"""What runs across devices: the logical-axis sharding rules on a
+``DeviceMesh`` (ZeRO-3 parameters and moments as DTensors), int8 gradient
+compression with error feedback, and the fault tolerance of a run (the
+straggler watchdog, heartbeats, the elastic re-mesh plan)."""
 
-from .fault_tolerance import StragglerEvent, StragglerWatchdog
+from .compression import (compressed_psum_mean, compression_ratio, ef_init,
+                          quantize_int8)
+from .fault_tolerance import (HeartbeatRegistry, StragglerEvent,
+                              StragglerWatchdog, elastic_plan)
+from .sharding import (DECODE_RULES, DEFAULT_RULES, LONG_CONTEXT_RULES,
+                       AxisRules, MeshSharding, axis_rules, constrain,
+                       current_mesh, current_rules, placements_for,
+                       shard_factor, sharding_for, spec_for)
 
-__all__ = ["StragglerEvent", "StragglerWatchdog"]
+__all__ = ["AxisRules", "DECODE_RULES", "DEFAULT_RULES", "HeartbeatRegistry",
+           "LONG_CONTEXT_RULES", "MeshSharding", "StragglerEvent",
+           "StragglerWatchdog", "axis_rules", "compressed_psum_mean",
+           "compression_ratio", "constrain", "current_mesh", "current_rules",
+           "ef_init", "elastic_plan", "placements_for", "quantize_int8",
+           "shard_factor", "sharding_for", "spec_for"]

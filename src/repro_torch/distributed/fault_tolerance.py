@@ -1,12 +1,14 @@
-"""Fault tolerance on one process: the straggler watchdog (the port of
-``StragglerWatchdog`` / ``StragglerEvent`` from
-``repro.distributed.fault_tolerance``; the heartbeat registry and the
-elastic re-mesh plan wait for the multi-device slice).
+"""Fault tolerance of a run (the port of
+``repro.distributed.fault_tolerance``):
 
-:class:`StragglerWatchdog` tracks per-step durations; a step longer than
-``threshold`` × the rolling median flags a straggler, and after
-``max_flags`` consecutive flags the train loop checkpoints and stops, so a
-restart resumes from that step.
+- :class:`StragglerWatchdog` tracks per-step durations; a step longer than
+  ``threshold`` × the rolling median flags a straggler, and after
+  ``max_flags`` consecutive flags the train loop checkpoints and stops, so
+  a restart resumes from that step;
+- :class:`HeartbeatRegistry` — liveness bookkeeping for hosts; ``dead()``
+  lists those silent for more than ``timeout`` seconds;
+- :func:`elastic_plan` — the ``(data, model)`` mesh a restart on fewer
+  devices builds (``launch.train`` sizes its mesh with it).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -68,3 +70,38 @@ class StragglerWatchdog:
     @property
     def should_restart(self) -> bool:
         return self.consecutive_flags >= self.max_flags
+
+
+class HeartbeatRegistry:
+    """The last beat of each of ``hosts`` hosts; ``clock`` is injectable
+    for tests."""
+
+    def __init__(self, hosts: int, timeout: float = 60.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout = timeout
+        self.clock = clock
+        self.last: Dict[int, float] = {h: clock() for h in range(hosts)}
+
+    def beat(self, host: int) -> None:
+        self.last[host] = self.clock()
+
+    def dead(self) -> List[int]:
+        now = self.clock()
+        return [h for h, t in self.last.items() if now - t > self.timeout]
+
+
+def elastic_plan(n_chips: int, model_parallel: int,
+                 global_batch: int) -> Tuple[Tuple[int, ...], Tuple[str, ...], int]:
+    """The largest ``(data, model)`` mesh on ``n_chips`` devices:
+    ``(mesh_shape, axis_names, grad_accum_factor)``.  The model-parallel
+    width is kept (the weights were sharded that way), the data axis takes
+    what remains, shrunk until it divides the global batch; the
+    accumulation factor is 1, as the reference's.  Raises ``ValueError``
+    with fewer devices than the model-parallel width."""
+    if n_chips < model_parallel:
+        raise ValueError("fewer chips than the model-parallel width; "
+                         "cannot restore this sharding")
+    data = n_chips // model_parallel
+    while global_batch % data:
+        data -= 1  # the data axis must divide the global batch
+    return (data, model_parallel), ("data", "model"), 1

@@ -1,10 +1,14 @@
-"""Planning for a (model × shape) on one device — on the analytic chain or
-on a chain measured on real tensors — and the train steps: the
-nested-checkpoint step of a two-tier plan and the eager step of an offload
-plan."""
+"""Planning for a (model × shape × mesh) — on the analytic chain or on a
+chain measured on real tensors — the train steps (the nested-checkpoint
+step of a two-tier plan, the eager step of an offload plan), and the
+sharding trees of a mesh run: parameters and moments placed by their
+logical axes (:func:`shard_tree`), the batch's axes, and the mesh terms of
+planning (per-device activation sizes and budget)."""
 
 from __future__ import annotations
 
+import hashlib
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -14,40 +18,143 @@ from ..core.chain import Chain, HostTransferModel
 from ..core.planner import (grad_with_peaks, profile_stages_analytic,
                             profile_stages_measured, time_stages_in_chain)
 from ..data.pipeline import sequence_shape
+from ..distributed import sharding as shd
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
 from ..offload.host_buffer import HostBuffer
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..plan import MemoryPlan, resolve_policy
-from ..tree import tensors_of, tree_bytes
+from ..tree import map_with_paths, tensors_of, tree_bytes
 
+
+# ---------------------------------------------------------------------------
+# sharding trees
+# ---------------------------------------------------------------------------
+
+def axes_at(axes_tree: Any, path: str) -> Tuple[Any, ...]:
+    """The logical axes of the leaf at ``path`` (as
+    :func:`repro_torch.tree.leaves_with_paths` names it) in an axes tree
+    (dicts and lists down to one tuple per leaf)."""
+    node = axes_tree
+    for key in path.split("/") if path else []:
+        node = node[int(key)] if isinstance(node, list) else node[key]
+    if not isinstance(node, tuple):
+        raise ValueError(f"no logical axes at {path!r}")
+    return node
+
+
+def shard_tree(tree: Any, axes_tree: Any, mesh, rules=None) -> Any:
+    """Every tensor of ``tree`` (the same full value on every rank) as a
+    DTensor on ``mesh`` with its logical axes' placements; each rank keeps
+    its shards.  Other leaves (the optimizer's step count) stay as they
+    are."""
+
+    def place(path, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return shd.distribute(t, mesh, shd.placements_for(
+            axes_at(axes_tree, path), t.shape, mesh, rules))
+
+    return map_with_paths(place, tree)
+
+
+def sharding_of(tree: Any) -> Any:
+    """The :class:`~repro_torch.distributed.sharding.MeshSharding` of every
+    DTensor leaf (``None`` for the others)."""
+    from torch.distributed.tensor import DTensor
+
+    return map_with_paths(
+        lambda _, t: (shd.MeshSharding(t.device_mesh, tuple(t.placements))
+                      if isinstance(t, DTensor) else None), tree)
+
+
+def batch_axes(cfg, kind: str) -> Dict[str, tuple]:
+    """Logical axes of a batch's arrays (``kind``: train, prefill or
+    decode)."""
+    if kind == "decode":
+        tok = (("act_batch", None, None) if cfg.modality == "audio_embed"
+               else ("act_batch", None))
+        return {"tokens": tok}
+    ax: Dict[str, tuple] = {}
+    if cfg.modality == "text":
+        ax["tokens"] = ("act_batch", "act_seq")
+    elif cfg.modality == "audio_embed":
+        ax["embeds"] = ("act_batch", "act_seq", None)
+    else:
+        ax["image_embeds"] = ("act_batch", None, None)
+        ax["tokens"] = ("act_batch", "act_seq")
+    if kind == "train":
+        ax["labels"] = ("act_batch", "act_seq")
+        ax["loss_mask"] = ("act_batch", "act_seq")
+    return ax
+
+
+def opt_axes(param_axes: Any) -> Dict[str, Any]:
+    """Logical axes of the AdamW state: the moments as the parameters."""
+    return {"mu": param_axes, "nu": param_axes, "count": ()}
+
+
+def local_bytes(tree: Any) -> int:
+    """The bytes this rank holds of ``tree``'s tensors (a DTensor's
+    shard)."""
+    return tree_bytes([shd.local_tensor(t) for t in tensors_of(tree)])
+
+
+# ---------------------------------------------------------------------------
+# planning
+# ---------------------------------------------------------------------------
 
 def activation_budget_bytes(param_bytes: int, device: torch.device,
-                            slack: float = 0.9) -> float:
+                            slack: float = 0.9, n_devices: int = 1) -> float:
     """Activation budget of one device: its memory less parameters, gradients
     (both in the parameter dtype) and the two float32 AdamW moments, which
-    for bf16 parameters is ``param_bytes * (1 + 1 + 4)``."""
+    for bf16 parameters is ``param_bytes * (1 + 1 + 4)``, the three sharded
+    over ``n_devices`` (ZeRO-3)."""
     total = torch.cuda.get_device_properties(device).total_memory
-    return max(total * slack - param_bytes * (1 + 1 + 4), total * 0.05)
+    return max(total * slack - param_bytes * (1 + 1 + 4) / n_devices,
+               total * 0.05)
 
 
 def plan_chain(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                peak_flops: float,
                host: Optional[HostTransferModel] = None,
-               allocator: bool = False) -> Chain:
-    """Analytic rotor chain for (model × shape): activation and residual
-    sizes from a forward on ``meta`` tensors (each tensor at the CUDA
-    allocator's bound with ``allocator``, as :func:`measure_chain` counts
-    on CUDA), times from analytic FLOPs over ``peak_flops``, the host tier
-    priced by ``host`` (a measured link)."""
+               allocator: bool = False, mesh=None) -> Chain:
+    """Analytic rotor chain for (model × shape × mesh): activation and
+    residual sizes from a forward on ``meta`` tensors (each tensor at the
+    CUDA allocator's bound with ``allocator``, as :func:`measure_chain`
+    counts on CUDA), times from analytic FLOPs over ``peak_flops``, the
+    host tier priced by ``host`` (a measured link).  ``batch_specs`` hold
+    the global batch; on a ``mesh`` (anything :func:`..distributed.sharding.
+    mesh_shape` reads) the sizes are one device's: divided by the
+    data-parallel factor when it divides the batch, and the head's
+    residuals (the logits) also by the model axis when it divides the
+    vocabulary, as ``repro.launch.steps.plan_chain`` has them."""
     B, S = sequence_shape(batch_specs)
     fwd, bwd = stage_flops(model.cfg, B, S)
     params = model.init(device="meta")
-    return profile_stages_analytic(
+    sizes = shd.mesh_shape(mesh) if mesh is not None else {}
+    dp = math.prod(sizes.get(a, 1) for a in (shd.POD, shd.DATA))
+    chain = profile_stages_analytic(
         model.stage_fns(), model.stage_params(params), batch_specs,
         flops_fwd=fwd, flops_bwd=bwd, peak_flops=peak_flops, host=host,
-        allocator=allocator)
+        allocator=allocator,
+        activation_shard_factor=dp if B % dp == 0 else 1)
+    tp = sizes.get(shd.MODEL, 1)
+    if tp > 1 and model.cfg.vocab_size % tp == 0:
+        chain.wabar[-1] /= tp
+    return chain
+
+
+def plan_digest(plan: Optional[MemoryPlan]) -> str:
+    """What every rank of a mesh run must agree on: the chain's content
+    hash, the schedule and its predicted time (``"store-all"`` without a
+    plan)."""
+    if plan is None:
+        return "store-all"
+    h = hashlib.sha256(solver_cache.chain_fingerprint(plan.chain).encode())
+    h.update(repr((list(plan.schedule.ops), plan.expected_time)).encode())
+    return h.hexdigest()
 
 
 def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
@@ -103,13 +210,15 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                   device: Optional[torch.device] = None,
                   chain: Optional[Chain] = None,
                   host: Optional[HostTransferModel] = None,
-                  log_fn: Optional[Callable[[str], None]] = None
+                  log_fn: Optional[Callable[[str], None]] = None,
+                  mesh=None
                   ) -> Tuple[Optional[MemoryPlan], Optional[Chain]]:
     """Resolve the remat policy into a :class:`MemoryPlan` (``None`` =
     store-all, no remat).  The chain is profiled with :func:`plan_chain`
-    (priced with ``host``) unless one is given (a measured or calibrated
-    chain); an ``optimal_offload:B:BW`` policy prices the host tier with its
-    own ``BW``.  ``auto`` budgets are sized from ``device``'s memory.
+    (priced with ``host``, one device's sizes on ``mesh``) unless one is
+    given (a measured or calibrated chain); an ``optimal_offload:B:BW``
+    policy prices the host tier with its own ``BW``.  ``auto`` budgets are
+    sized from ``device``'s memory (the states sharded over the mesh).
     ``log_fn`` gets one line with the solver cache's hits and misses for
     this plan (a hit ran no fill)."""
     policy = policy if policy is not None else model.cfg.remat_policy
@@ -119,13 +228,16 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
         if peak_flops is None:
             raise ValueError(f"policy {policy!r} needs peak_flops to price "
                              f"the analytic chain's stages, or a chain")
-        chain = plan_chain(model, batch_specs, peak_flops, host=host)
+        chain = plan_chain(model, batch_specs, peak_flops, host=host,
+                           mesh=mesh)
 
     def auto_budget() -> float:
         if device is None or device.type != "cuda":
             raise ValueError("an 'auto' budget needs a CUDA device")
         return activation_budget_bytes(
-            tree_bytes(model.init(device="meta")), device)
+            tree_bytes(model.init(device="meta")), device,
+            n_devices=math.prod(shd.mesh_shape(mesh).values())
+            if mesh is not None else 1)
 
     before = solver_cache.stats()
     plan = resolve_policy(policy, chain, num_slots=num_slots, impl=impl,
@@ -141,12 +253,16 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
 
 def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
                     lr_fn: Optional[Callable[[int], float]] = None,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh=None):
     """``train_step(params, opt_state, batch, step) -> metrics``: loss and
     gradients through the plan's tree, then one AdamW step in place.
     ``grad_accum > 1`` splits the batch along its leading axis into
-    microbatches and accumulates float32 gradients before the step.  On
-    CUDA, ``metrics["grads_peak"]`` is the allocator's peak before the
+    microbatches and accumulates float32 gradients before the step.  On a
+    ``mesh`` the parameters and moments are DTensors (ZeRO-3, the model's
+    stages gathering theirs): each rank runs its own slice of the batch and
+    backpropagates its loss over the data-parallel factor, so that the
+    gradients, summed over the batch-sharded mesh dimensions, are the global
+    batch's; ``loss`` is the ranks' mean.  On CUDA, ``metrics["grads_peak"]`` is the allocator's peak before the
     optimizer runs and ``metrics["fwd_bwd_peak"]`` the largest, over the
     microbatches, of each one's peak less the memory at its start and less
     the parameter gradients it has made by then
@@ -154,9 +270,16 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     of the memory at its start); both ``None`` off CUDA.  The caller
     resets the peak counter before the step."""
 
+    dp, dp_group = 1, None
+    if mesh is not None:
+        if grad_accum != 1:
+            raise NotImplementedError("grad_accum > 1 on a mesh")
+        dp = shd.data_position(mesh)[0]
+        dp_group = shd.mesh_group(mesh, shd.batch_mesh_dims(mesh))
+
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
-        dev = leaves[0].device
+        dev = shd.local_tensor(leaves[0]).device
         cuda = dev.type == "cuda"
         peaks = {"all": 0, "fwd_bwd": 0}
 
@@ -169,7 +292,8 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
                 start = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
             loss = model.loss_fn(params, micro, tree=tree)
-            grads, peak, act = grad_with_peaks([loss], leaves, params=leaves)
+            grads, peak, act = grad_with_peaks(
+                [loss / dp if dp > 1 else loss], leaves, params=leaves)
             if cuda:
                 peaks["all"] = max(peaks["all"], peak)
                 peaks["fwd_bwd"] = max(peaks["fwd_bwd"], act - start)
@@ -204,7 +328,10 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
             fwd_bwd = peaks["fwd_bwd"]
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
-        metrics.update(loss=loss.detach(), grads_peak=grads_peak,
+        loss = loss.detach()
+        if dp_group is not None:
+            loss = shd.all_reduce(loss.clone(), dp_group) / dp
+        metrics.update(loss=loss, grads_peak=grads_peak,
                        fwd_bwd_peak=fwd_bwd)
         return metrics
 

@@ -110,6 +110,18 @@ def gqa_init(gen: torch.Generator, cfg, dtype, device) -> Params:
     }
 
 
+
+def gqa_param_axes(cfg) -> Params:
+    """Logical axes of :func:`gqa_init`'s tree (``distributed.sharding``)."""
+    qb = {"bias": ("heads", None)} if cfg.qkv_bias else {}
+    kb = {"bias": ("kv", None)} if cfg.qkv_bias else {}
+    return {
+        "wq": {"kernel": ("embed", "heads", None), **qb},
+        "wk": {"kernel": ("embed", "kv", None), **kb},
+        "wv": {"kernel": ("embed", "kv", None), **kb},
+        "wo": {"kernel": ("heads_merged", "embed")},
+    }
+
 def _gqa_qkv(p, cfg, x, positions):
     q = dense_apply(p["wq"], x)            # (B,S,H,Dh)
     k = dense_apply(p["wk"], x)            # (B,S,K,Dh)
@@ -188,6 +200,18 @@ def mla_init(gen: torch.Generator, cfg, dtype, device) -> Params:
             H * dv * max(cfg.num_layers, 1))),
     }
 
+
+
+def mla_param_axes(cfg) -> Params:
+    """Logical axes of :func:`mla_init`'s tree."""
+    return {
+        "wq": {"kernel": ("embed", "heads", None)},
+        "wkv_a": {"kernel": ("embed", "kv_lora")},
+        "kv_norm": {"scale": (None,)},
+        "wk_b": {"kernel": ("kv_lora", "heads", None)},
+        "wv_b": {"kernel": ("kv_lora", "heads", None)},
+        "wo": {"kernel": ("heads_merged", "embed")},
+    }
 
 def _mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank

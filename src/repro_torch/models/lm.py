@@ -17,6 +17,20 @@ checkpoint.  Layer kinds:
   set of parameters every such chunk stage holds, so its gradient is the
   sum over the chunks.
 
+``scan_layer_remat``: ``none``, ``full`` (each layer under its own
+checkpoint) or ``save_moe`` (as ``full``, but the checkpoint also keeps the
+outputs of the expert-parallel exchanges, so its recompute never runs the
+all-to-alls again; on the local MoE path there is no exchange and it is
+``full``).  The reference pins the layer's routed output (``moe_out``);
+the port keeps the two exchanges' outputs, ``2·E·cap`` rows of ``d`` per
+MoE layer, which the recompute needs to rerun the expert products without
+the exchange.
+
+Multi-device (:mod:`..distributed.sharding`): :meth:`StagedLM.param_axes`
+names every parameter's dimensions with logical axes; with
+:attr:`StagedLM.gather` set, every stage function first turns its DTensor
+parameters into plain tensors (ZeRO-3).
+
 Serving: :meth:`StagedLM.prefill` runs a prompt and fills the decode cache,
 :meth:`StagedLM.decode_step` runs one token against it.  The cache is one
 dict of tensors *per model layer* (``{"k", "v"}``, MLA's ``{"c_kv",
@@ -52,6 +66,7 @@ import torch.nn.functional as F
 
 from ..core.rematerialize import build_remat_fn, remat
 from ..device import resolve_device
+from ..distributed.sharding import gather as gather_tree
 from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from . import attention as attn
 from . import mamba2 as m2
@@ -149,7 +164,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.bfloat16
     n_chunks: int = 8
-    scan_layer_remat: str = "none"       # none | full  (inner per-layer remat)
+    scan_layer_remat: str = "none"       # none | full | save_moe (per layer)
     remat_policy: str = "none"           # none|full|periodic:K|rotor:B
     use_flash_attention: bool = False
     use_ssd_kernel: bool = False
@@ -243,6 +258,31 @@ def _block_init(gen: torch.Generator, cfg, kind: str, device) -> Params:
                             mla=cfg.attention_kind == "mla")
 
 
+def _attn_block_axes(cfg, ffn: str = "mlp") -> Params:
+    a_axes = (attn.mla_param_axes(cfg) if cfg.attention_kind == "mla"
+              else attn.gqa_param_axes(cfg))
+    p = {"ln1": {"scale": (None,)}, "attn": a_axes, "ln2": {"scale": (None,)}}
+    if ffn == "moe":
+        p["moe"] = mlp_mod.moe_param_axes(cfg)
+    else:
+        p["mlp"] = mlp_mod.mlp_param_axes(cfg.mlp_kind)
+    return p
+
+
+def _block_axes(cfg, kind: str) -> Params:
+    """Logical axes of one layer's parameters (``_block_init``'s tree)."""
+    if kind in ("mamba", "zamba"):
+        return {"ln": {"scale": (None,)}, "mixer": m2.mamba2_param_axes(cfg)}
+    return _attn_block_axes(cfg, "moe" if kind == "moe" else "mlp")
+
+
+def _stacked(axes: Any) -> Any:
+    """``axes`` with the stacked-layer dimension in front of every leaf."""
+    if isinstance(axes, dict):
+        return {k: _stacked(v) for k, v in axes.items()}
+    return ("stack",) + tuple(axes)
+
+
 def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
                  positions=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer: ``(h, aux)`` — aux is the MoE's aux loss, ``None`` for
@@ -287,7 +327,7 @@ def _check_supported(cfg) -> None:
     if (cfg.modality not in ("text", "vlm", "audio_embed")
             or cfg.attention_kind not in ("gqa", "mla")
             or not kinds <= allowed
-            or cfg.scan_layer_remat not in ("none", "full")):
+            or cfg.scan_layer_remat not in ("none", "full", "save_moe")):
         raise NotImplementedError(
             f"{cfg.name}: only text models with dense, MoE, Mamba2 and "
             f"Zamba2 layers on GQA attention, dense and MoE layers on MLA, "
@@ -311,6 +351,11 @@ def _scale_embeddings(cfg, h: torch.Tensor) -> torch.Tensor:
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
 
 
+def _gathering(fn, keep_local, p, a):
+    """``fn`` on its parameters gathered out of DTensors (ZeRO-3)."""
+    return fn(gather_tree(p, keep_local), a)
+
+
 # ---------------------------------------------------------------------------
 # the staged model
 # ---------------------------------------------------------------------------
@@ -321,6 +366,11 @@ class StagedLM:
     def __init__(self, cfg: ModelConfig):
         _check_supported(cfg)
         self.cfg = cfg
+        #: ``None``, or ``keep_local(path) -> bool``: then each stage gathers
+        #: its DTensor parameters into plain tensors before it runs, but
+        #: those ``keep_local`` accepts (a stage-parameter path such as
+        #: ``chunk/moe/we_up/kernel``), which stay this rank's shards
+        self.gather = None
 
     # -- parameters -------------------------------------------------------
 
@@ -346,6 +396,20 @@ class StagedLM:
         params["final_norm"] = rms_norm_init(cfg.d_model, dt, dev)
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
         return tree_map(lambda t: t.requires_grad_(), params)
+
+    def param_axes(self) -> Params:
+        """Logical axes of every parameter, in :meth:`init`'s tree: a tuple
+        of names (or ``None``) per leaf, one per dimension."""
+        cfg = self.cfg
+        axes: Params = {"embed": {} if cfg.modality == "audio_embed" else {
+            "table": ("vocab", "embed")}}
+        axes["chunks"] = [_stacked(_block_axes(cfg, kind))
+                          for kind, start, length in cfg.chunks]
+        if cfg.hybrid_period and "zamba" in cfg.layer_kinds:
+            axes["shared_attn"] = _attn_block_axes(cfg)
+        axes["final_norm"] = {"scale": (None,)}
+        axes["head"] = {"kernel": ("embed", "vocab")}
+        return axes
 
     # -- stage functions (the rotor chain) ---------------------------------
 
@@ -406,9 +470,11 @@ class StagedLM:
             h = _apply_block(p["shared"], h, cfg, "dense", mask, positions)[0]
         fn = functools.partial(_apply_block, cfg=cfg, kind=kind, mask=mask,
                                positions=positions)
+        per_layer = cfg.scan_layer_remat != "none"
+        keep = cfg.scan_layer_remat == "save_moe"
         for j in range(length):
             lp = tree_map(lambda t: t[j], p["chunk"])
-            h, layer_aux = (remat(fn, lp, h) if cfg.scan_layer_remat == "full"
+            h, layer_aux = (remat(fn, lp, h, keep=keep) if per_layer
                             else fn(lp, h))
             if layer_aux is not None:
                 aux = aux + layer_aux
@@ -434,6 +500,9 @@ class StagedLM:
         fns.extend(functools.partial(self._chunk_stage, i)
                    for i in range(len(self.cfg.chunks)))
         fns.append(self._head_stage)
+        if self.gather is not None:
+            keep = self.gather
+            fns = [functools.partial(_gathering, fn, keep) for fn in fns]
         return fns
 
     # -- plain & rotor forward ---------------------------------------------

@@ -56,6 +56,20 @@ def mamba2_init(gen: torch.Generator, cfg, dtype, device) -> Params:
     }
 
 
+
+def mamba2_param_axes(cfg) -> Params:
+    """Logical axes of :func:`mamba2_init`'s tree."""
+    return {
+        "in_proj": {"kernel": ("embed", "mlp")},
+        "conv_w": ("conv", None),
+        "conv_b": (None,),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": {"scale": ("mlp",)},
+        "out_proj": {"kernel": ("mlp", "embed")},
+    }
+
 def _split_proj(cfg, proj: torch.Tensor):
     d_inner, H, G, N = _dims(cfg)
     z, xBC, dt = torch.split(proj, [d_inner, d_inner + 2 * G * N, H], dim=-1)

@@ -1,17 +1,21 @@
 """Feed-forward variants: SwiGLU, GeGLU, the plain GELU MLP, and the
 capacity-based top-k MoE (shared + routed experts, DeepSeek-V2/Moonlight
-style) on one device — the local path of ``repro.models.mlp.moe_apply``.
-The expert-parallel path (``moe_apply_ep``) belongs to multi-device work and
-is not ported."""
+style): the local path, and the expert-parallel one (:func:`moe_apply_ep`,
+``dist.all_to_all_single`` over the model axis' process group), which
+:func:`moe_apply` takes under a mesh whose model axis divides the experts,
+as ``repro.models.mlp.moe_apply`` does."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..core.rematerialize import kept
+from ..distributed.sharding import all_reduce, all_to_all
 from .common import dense_apply, dense_init, truncated_normal_init
 
 Params = Dict[str, Any]
@@ -32,6 +36,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
         "wo": dense_init(gen, d_ff, d_model, dtype, device, scale=out_scale),
     }
 
+
+
+def mlp_param_axes(kind: str = "swiglu") -> Params:
+    """Logical axes of :func:`mlp_init`'s tree."""
+    if kind in ("swiglu", "geglu"):
+        return {"wi_gate": {"kernel": ("embed", "mlp")},
+                "wi_up": {"kernel": ("embed", "mlp")},
+                "wo": {"kernel": ("mlp", "embed")}}
+    return {"wi": {"kernel": ("embed", "mlp")},
+            "wo": {"kernel": ("mlp", "embed")}}
 
 def mlp_apply(p: Params, x: torch.Tensor, kind: str = "swiglu"
               ) -> torch.Tensor:
@@ -69,6 +83,21 @@ def moe_init(gen: torch.Generator, cfg, dtype, device) -> Params:
     return p
 
 
+
+def moe_param_axes(cfg) -> Params:
+    """Logical axes of :func:`moe_init`'s tree: the router replicated
+    (tiny), the expert stacks sharded on the expert (EP) axis only — the
+    expert-parallel path takes them as each rank's ``(E/M, d, f)`` block."""
+    p: Params = {
+        "router": {"kernel": (None, None)},
+        "we_gate": {"kernel": ("experts", None, None)},
+        "we_up": {"kernel": ("experts", None, None)},
+        "we_down": {"kernel": ("experts", None, None)},
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_param_axes("swiglu")
+    return p
+
 def _route(p: Params, cfg, xt: torch.Tensor):
     """Top-k routing in float32: ``(probs (T, E), gate_vals (T, k),
     expert_idx (T, k))``."""
@@ -89,47 +118,202 @@ def moe_capacity(cfg, tokens: int) -> int:
     return -(-cap // 8) * 8
 
 
-def moe_apply(p: Params, cfg, x: torch.Tensor):
-    """``(y, aux_loss)`` for x (B, S, d): each token's top-k (token, expert)
-    pairs queue in token-major order; a pair whose queue position reaches
-    the capacity is dropped (its slot is the overflow row ``E·cap``), the
-    kept ones run through their expert as one batched product over
-    ``(E, cap, d)``, and come back weighted by their gate.  The aux loss is
-    Switch's load-balancing term, ``aux_coef · E · Σ_e mean_prob_e ·
-    frac_e``."""
-    B, S, d = x.shape
+def _dispatch(p: Params, cfg, xt: torch.Tensor):
+    """Route the tokens ``xt`` (T, d) and lay the kept (token, expert) pairs
+    out by expert: ``(probs, gate_vals, eidx, slot, keep, buf (E·cap, d))``.
+    Each token's top-k pairs queue in token-major order; a pair whose queue
+    position reaches the capacity is dropped (its slot is the overflow row
+    ``E·cap``, cut off ``buf``)."""
+    T, d = xt.shape
     E, k = cfg.num_experts, cfg.moe_top_k
-    T = B * S
-    xt = x.reshape(T, d)
     probs, gate_vals, expert_idx = _route(p, cfg, xt)
     cap = moe_capacity(cfg, T)
-
     eidx = expert_idx.reshape(T * k)
     # the position of each (token, choice) in its expert's queue: a running
     # count along the token-major order, laid out (E, T·k) so that the scan
     # runs along the inner axis (along the outer axis of a (T·k, E) one-hot
     # it took 13 ms a call on an H100 at T·k = 49152, E = 64)
-    onehot = (torch.arange(E, device=x.device)[:, None]
+    onehot = (torch.arange(E, device=xt.device)[:, None]
               == eidx[None, :]).to(torch.int32)
     pos = torch.cumsum(onehot, dim=1).gather(0, eidx[None])[0] - 1
     keep = pos < cap
     slot = torch.where(keep, eidx * cap + pos, E * cap)    # overflow row
-    token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-    buf = x.new_zeros((E * cap + 1, d)).index_put((slot,), xt[token_idx])
-    xs = buf[:E * cap].reshape(E, cap, d)
-    h = torch.matmul(xs, p["we_gate"]["kernel"].to(x.dtype))
-    u = torch.matmul(xs, p["we_up"]["kernel"].to(x.dtype))
-    ys = torch.matmul(F.silu(h) * u, p["we_down"]["kernel"].to(x.dtype))
+    token_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
+    buf = xt.new_zeros((E * cap + 1, d)).index_put((slot,), xt[token_idx])
+    return probs, gate_vals, eidx, slot, keep, buf[:E * cap]
 
-    picked = ys.reshape(E * cap, d)[torch.clamp(slot, max=E * cap - 1)]
+
+def _experts(xs: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """The SwiGLU experts on their rows: xs (E, rows, d) → (E, rows, d)."""
+    dt = xs.dtype
+    h = torch.matmul(xs, wg.to(dt))
+    u = torch.matmul(xs, wu.to(dt))
+    return torch.matmul(F.silu(h) * u, wd.to(dt))
+
+
+def _combine(rows: torch.Tensor, slot, keep, gate_vals, k: int
+             ) -> torch.Tensor:
+    """Each pair's expert output, read back from ``rows`` (E·cap, d) (0 for
+    a dropped pair) and summed over a token's pairs by gate: (T, d)."""
+    d = rows.shape[1]
+    picked = rows[torch.clamp(slot, max=rows.shape[0] - 1)]
     picked = torch.where(keep[:, None], picked, 0.0)
-    y = (picked.reshape(T, k, d)
-         * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+    return (picked.reshape(-1, k, d)
+            * gate_vals[..., None].to(rows.dtype)).sum(dim=1)
+
+
+def _aux(cfg, probs: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
+    """Switch's load-balancing term, ``aux_coef · E · Σ_e mean_prob_e ·
+    frac_e``."""
+    E, n = cfg.num_experts, eidx.shape[0]
+    me = probs.mean(dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=probs.device
+                     ).index_add_(0, eidx, torch.full(
+                         (n,), 1.0 / n, device=probs.device))
+    return cfg.moe_aux_loss * E * torch.sum(me * ce)
+
+
+def is_routed_expert(path: str) -> bool:
+    """Whether a stage-parameter path (``chunk/moe/we_up/kernel``) names a
+    routed expert stack: under expert parallelism each rank keeps its own
+    experts and never gathers them."""
+    return path.endswith(("moe/we_gate/kernel", "moe/we_up/kernel",
+                          "moe/we_down/kernel"))
+
+
+def ep_width(cfg, mesh: Any) -> int:
+    """The model axis' size when :func:`moe_apply` takes the
+    expert-parallel path under ``mesh`` (it has more than one member and
+    divides the experts), else 1."""
+    if mesh is None or not cfg.num_experts:
+        return 1
+    from ..distributed.sharding import mesh_shape
+
+    m = mesh_shape(mesh).get("model", 1)
+    return m if m > 1 and cfg.num_experts % m == 0 else 1
+
+
+def moe_apply(p: Params, cfg, x: torch.Tensor):
+    """``(y, aux_loss)`` for x (B, S, d): the kept (token, expert) pairs
+    (:func:`_dispatch`) run through their expert as one batched product
+    over ``(E, cap, d)`` and come back weighted by their gate; the aux loss
+    is Switch's load-balancing term.  Under an active mesh
+    (:func:`..distributed.sharding.axis_rules`) whose model axis divides the
+    experts, the expert-parallel path (:func:`moe_apply_ep`) runs instead."""
+    from ..distributed.sharding import (batch_mesh_dims, current_mesh,
+                                        mesh_group)
+
+    mesh = current_mesh()
+    if ep_width(cfg, mesh) > 1:
+        return moe_apply_ep(p, cfg, x, mesh.get_group("model"),
+                            mesh_group(mesh, batch_mesh_dims(mesh)))
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    xt = x.reshape(B * S, d)
+    probs, gate_vals, eidx, slot, keep, buf = _dispatch(p, cfg, xt)
+    ys = _experts(buf.reshape(E, -1, d), p["we_gate"]["kernel"],
+                  p["we_up"]["kernel"], p["we_down"]["kernel"])
+    y = _combine(ys.reshape(-1, d), slot, keep, gate_vals, k)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt, "swiglu")
+    return y.reshape(B, S, d), _aux(cfg, probs, eidx)
 
-    me = probs.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, eidx, torch.full((T * k,), 1.0 / (T * k), device=x.device))
-    aux = cfg.moe_aux_loss * E * torch.sum(me * ce)
+
+# -- expert parallelism ----------------------------------------------------------
+
+#: exchanges of the expert-parallel path: ``forward`` (dispatch and return,
+#: two per MoE layer per forward) and ``backward`` (their reverse exchanges)
+ALL_TO_ALL: Dict[str, int] = {"forward": 0, "backward": 0}
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`..distributed.sharding.all_to_all`, whose backward is the
+    reverse exchange (the same operation).  Its output is kept by a
+    ``remat(..., keep=True)`` region (``scan_layer_remat="save_moe"``), so
+    that region's recompute does not exchange again."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+
+        def exchange():
+            ALL_TO_ALL["forward"] += 1
+            return all_to_all(x, group)
+
+        return kept(exchange)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ALL_TO_ALL["backward"] += 1
+        return all_to_all(grad, ctx.group), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward multiplies the gradient by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+class _MeanValue(torch.autograd.Function):
+    """The value of the group's mean, the gradient of the member's own
+    term: each member backpropagates its share, as the data-parallel loss
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.detach().clone(), group) / dist.get_world_size(
+            group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def moe_apply_ep(p: Params, cfg, x: torch.Tensor, group,
+                 dp_group: Optional[Any] = None):
+    """Expert parallelism over ``group`` (the model axis, M members, each
+    holding ``E/M`` experts; the members share their tokens, as the model
+    axis replicates the batch): local capacity dispatch of the member's
+    tokens, an exchange of ``(M, E/M·cap, d)`` row blocks so that each
+    member gets every member's rows for its own experts, the expert
+    products on the member's ``E/M`` experts (never gathered), the reverse
+    exchange and the local combine — ``repro.models.mlp.moe_apply_ep``'s
+    schedule on ``all_to_all_single``.  The expert kernels are the member's
+    ``(E/M, ...)`` blocks.
+    Every member sends the same rows, so each expert sees them M times in
+    the backward: its weights' gradient is scaled by 1/M.  The aux loss is
+    this member's, valued at its mean over ``dp_group`` (the batch-sharded
+    ranks; ``None``: no other)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    M = dist.get_world_size(group)
+    e_loc = E // M
+    if p["we_up"]["kernel"].shape[0] != e_loc:
+        raise ValueError(f"expert parallelism over {M} members takes each "
+                         f"member's {e_loc} experts, not "
+                         f"{p['we_up']['kernel'].shape[0]}")
+    xt = x.reshape(B * S, d)
+    probs, gate_vals, eidx, slot, keep, buf = _dispatch(p, cfg, xt)
+    cap = buf.shape[0] // E
+    recv = _AllToAll.apply(buf.reshape(M, e_loc * cap, d), group)
+    xs = recv.reshape(M, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, M * cap, d)
+    ys = _experts(xs, *(_ScaleGrad.apply(p[name]["kernel"], 1.0 / M)
+                        for name in ("we_gate", "we_up", "we_down")))
+    back = ys.reshape(e_loc, M, cap, d).transpose(0, 1).reshape(
+        M, e_loc * cap, d)
+    rows = _AllToAll.apply(back, group).reshape(E * cap, d)
+    y = _combine(rows, slot, keep, gate_vals, k)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xt, "swiglu")
+    aux = _aux(cfg, probs, eidx)
+    if dp_group is not None:
+        aux = _MeanValue.apply(aux, dp_group)
     return y.reshape(B, S, d), aux

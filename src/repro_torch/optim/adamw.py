@@ -4,6 +4,11 @@ Moments are float32 whatever the parameter dtype; weight decay applies to
 tensors with ``ndim >= 2`` only (matrices, not norms or biases).  The update
 is in place (parameters and moments are overwritten), which keeps one copy of
 the optimizer state on the device.
+
+Parameters, gradients and moments may be DTensors with the same placements
+(a ZeRO-3 run): the update then runs on each rank's shards, and the global
+norms are an all-reduce of the shards' squared sums, each shard counted once
+however many ranks hold it, so clipping is the unsharded run's.
 """
 
 from __future__ import annotations
@@ -12,6 +17,9 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import all_reduce, local_tensor, replication
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,15 +33,22 @@ class AdamWConfig:
 
 
 def adamw_init(params: Sequence[torch.Tensor]) -> dict:
-    return {"mu": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in params],
-            "nu": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in params],
-            "count": 0}
+    """Zero moments shaped (and, for DTensors, placed) like ``params``."""
+    with torch.no_grad():
+        return {"mu": [torch.zeros_like(p, dtype=torch.float32)
+                       for p in params],
+                "nu": [torch.zeros_like(p, dtype=torch.float32)
+                       for p in params],
+                "count": 0}
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    if not any(isinstance(x, DTensor) for x in tensors):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tensors))
+    total = sum(torch.sum(torch.square(local_tensor(x).float()))
+                / replication(x) for x in tensors)
+    return torch.sqrt(all_reduce(total))
 
 
 @torch.no_grad()
@@ -47,13 +62,14 @@ def adamw_update(cfg: AdamWConfig, grads: Sequence[torch.Tensor],
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
-        grads = [g * scale.to(g.dtype) for g in grads]
+        grads = [local_tensor(g) * scale.to(g.dtype) for g in grads]
     state["count"] += 1
     count = torch.tensor(float(state["count"]), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count)
     bc2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count)
     lr = cfg.lr if lr is None else lr
     for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
+        p, g, m, v = (local_tensor(t) for t in (p, g, m, v))
         gf = g.float()
         m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)

@@ -1,18 +1,21 @@
-"""Training loop on one device: rotor-planned remat or an eager three-tier
-(host-offload) schedule, AdamW, deterministic synthetic data, per-step
-time and memory, checkpoints and resume (:mod:`repro_torch.ckpt`) and the
-straggler watchdog.  Every step reports ``train.step_seconds`` and
-``train.loss`` to :mod:`repro_torch.obs.metrics`; tracing (a tracer, or
+"""Training loop on one device or on a mesh of processes: rotor-planned
+remat or an eager three-tier (host-offload) schedule, AdamW, deterministic
+synthetic data (each host its slice of the global batch), per-step time and
+memory, checkpoints and resume (:mod:`repro_torch.ckpt`) and the straggler
+watchdog.  Every step reports ``train.step_seconds`` and ``train.loss`` to
+:mod:`repro_torch.obs.metrics`; tracing (a tracer, or
 ``TrainLoopConfig.trace_path``) is opt-in."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt.manager import CheckpointManager
 from ..configs.shapes import ShapeSpec, input_specs
@@ -20,14 +23,17 @@ from ..core.chain import Chain
 from ..core.rematerialize import count_checkpoint_scopes
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
+from ..distributed import sharding as shd
 from ..distributed.fault_tolerance import StragglerWatchdog
-from ..launch.steps import (make_offload_step, make_train_step,
-                            measure_chain, plan_training)
+from ..launch.steps import (local_bytes, make_offload_step, make_train_step,
+                            measure_chain, plan_digest, plan_training,
+                            shard_tree)
 from ..models.lm import StagedLM
+from ..models.mlp import ep_width, is_routed_expert
 from ..obs import metrics as obs_metrics
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
-from ..tree import tensors_of, tree_bytes
+from ..tree import tensors_of
 
 # a step this many times the rolling median is a straggler
 STRAGGLER_THRESHOLD = 3.0
@@ -51,13 +57,28 @@ class TrainLoopConfig:
     grad_accum: int = 1                 # microbatch accumulation factor
     peak_flops: Optional[float] = None  # prices the chain's stage times
     trace_path: Optional[str] = None    # write a Perfetto trace.json here
+    # this host's slice of the global batch and how many consecutive slices
+    # from it this process reads (None: from the rank's place on the mesh's
+    # batch axes, each rank reading data_hosts_per_process slices; 1 and 0
+    # without a mesh); a run resumed on fewer processes keeps the global
+    # batch of the run that wrote its checkpoint by reading more slices
+    data_host_count: Optional[int] = None
+    data_host_index: Optional[int] = None
+    data_hosts_per_process: int = 1
+
+
+def _agree(flag: bool, device) -> bool:
+    """``flag`` on any rank of the default process group."""
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def run_training(cfg, loop: TrainLoopConfig, device=None,
                  params: Optional[Dict[str, Any]] = None,
                  log_fn: Callable[[str], None] = print,
                  chain: Optional[Chain] = None,
-                 tracer=None) -> Dict[str, Any]:
+                 tracer=None, mesh=None) -> Dict[str, Any]:
     """Train a :class:`StagedLM` on ``device`` (CUDA unless the caller says
     otherwise).  ``params`` (e.g. bridged from the JAX package) replaces the
     seeded initialization.  The plan is solved on ``chain`` if one is given
@@ -100,8 +121,26 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     ``start_step``, ``last_step``, ``straggler_events`` and ``ckpt_saves``
     (each save's :attr:`CheckpointManager.last_save`).  Without
     ``ckpt_dir`` the watchdog only logs stragglers: with nothing to resume
-    from, the run takes all ``loop.steps`` steps."""
+    from, the run takes all ``loop.steps`` steps.
+
+    ``mesh`` (a ``(data, model)`` ``DeviceMesh`` over the default process
+    group, every rank calling ``run_training`` alike; ``None``: one device)
+    runs ZeRO-3 (:mod:`repro_torch.distributed.sharding`): parameters and
+    moments as DTensors placed by ``StagedLM.param_axes``, each stage
+    gathering its own (a MoE's routed experts stay local under expert
+    parallelism), each rank on its slice of the global batch.  All ranks
+    run one plan: rank 0 measures the chain on CUDA (on its slice of the
+    batch) and sends it to the others, every rank solves on it, and the
+    plans' digests must agree.  Rank 0 alone logs and writes checkpoints.
+    A two-tier plan only (no offload walker, no tracer).  The result adds
+    ``plan_digest``, ``param_bytes_local`` (this rank's parameter bytes)
+    and ``collective_bytes``: the collectives of the first step, counted
+    by the helpers of :mod:`repro_torch.distributed.sharding` (calls and
+    bytes by op, :func:`~repro_torch.distributed.sharding.collectives`)."""
     dev = resolve_device(device)
+    rank = dist.get_rank() if mesh is not None else 0
+    if rank:
+        log_fn = lambda *_: None  # noqa: E731
     if tracer is None and loop.trace_path:
         from ..obs.trace import Tracer
         tracer = Tracer(name="train")
@@ -109,28 +148,57 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     model = StagedLM(cfg)
     if params is None:
         params = model.init(loop.seed, dev)
-    data = SyntheticLMData(cfg, loop.global_batch, loop.seq_len,
-                           seed=loop.seed)
+    per = loop.data_hosts_per_process
+    hosts = shd.data_position(mesh) if mesh is not None else (1, 0)
+    data = SyntheticLMData(
+        cfg, loop.global_batch, loop.seq_len, seed=loop.seed,
+        host_count=(hosts[0] * per if loop.data_host_count is None
+                    else loop.data_host_count),
+        host_index=(hosts[1] * per if loop.data_host_index is None
+                    else loop.data_host_index),
+        hosts=per)
     policy = loop.policy if loop.policy is not None else cfg.remat_policy
-    if chain is None and dev.type == "cuda" and policy != "none":
+    if chain is None and dev.type == "cuda" and policy != "none" and rank == 0:
         t0 = time.perf_counter()
         chain = measure_chain(model, params, data.device_batch(0, dev),
                               log_fn=log_fn)
         log_fn(f"[plan] chain of {chain.length + 1} stages measured on "
                f"{dev} in {time.perf_counter() - t0:.2f}s, its stage times "
                f"inside the chain")
+    if mesh is not None and dev.type == "cuda" and policy != "none":
+        sent = [chain]
+        dist.broadcast_object_list(sent, src=0)
+        chain = sent[0]
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
     plan, chain = plan_training(model, input_specs(cfg, shape), policy,
                                 peak_flops=loop.peak_flops,
                                 num_slots=loop.num_slots,
                                 impl=loop.solver_impl, device=dev,
-                                chain=chain, log_fn=log_fn)
+                                chain=chain, log_fn=log_fn, mesh=mesh)
     offload = plan is not None and plan.uses_offload
     walker = plan is not None and (offload or traced)
     tree = plan.tree if plan is not None and not walker else None
     if walker and loop.grad_accum != 1:
         raise NotImplementedError(
             "grad_accum > 1 with an offload schedule or a tracer")
+    digest = plan_digest(plan)
+    if mesh is not None:
+        if walker or traced:
+            raise NotImplementedError(
+                "on a mesh only a two-tier plan runs (no offload walker, no "
+                "tracer)")
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, digest)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks planned differently: plan "
+                               f"digests {digests}")
+        log_fn(f"[mesh] {shd.mesh_shape(mesh)}: {len(digests)} ranks run "
+               f"one plan (digest {digest[:16]}); rank 0 reads {data.hosts} "
+               f"of {loop.global_batch // data.host_batch} batch slices from "
+               f"slice {data.host}")
+        params = shard_tree(params, model.param_axes(), mesh)
+        ep = ep_width(cfg, mesh) > 1
+        model.gather = lambda path: ep and is_routed_expert(path)
     if offload:
         log_fn(f"[offload] three-tier plan: "
                f"{plan.schedule.count('Foff')} host offloads, predicted "
@@ -143,7 +211,8 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
                f"over {model.n_stages()} stages\n{plan.summary()}")
     opt_state = adamw_init(tensors_of(params))
-    manager = (CheckpointManager(loop.ckpt_dir, keep=loop.ckpt_keep)
+    manager = (CheckpointManager(loop.ckpt_dir, keep=loop.ckpt_keep,
+                                 writer=rank == 0)
                if loop.ckpt_dir else None)
     start_step = 0
     if manager is not None and manager.latest_step() is not None:
@@ -160,10 +229,10 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                                     tracer=tracer)
     else:
         step_fn = make_train_step(model, opt_cfg, tree, lr_fn,
-                                  grad_accum=loop.grad_accum)
-    # parameters + gradients + the two float32 moments
-    param_bytes = tree_bytes(params)
-    static_bytes = 2 * param_bytes + tree_bytes(opt_state["mu"]) * 2
+                                  grad_accum=loop.grad_accum, mesh=mesh)
+    # parameters + gradients + the two float32 moments (this rank's shards)
+    param_bytes = local_bytes(params)
+    static_bytes = 2 * param_bytes + local_bytes(opt_state["mu"]) * 2
     cuda = dev.type == "cuda"
     tokens = loop.global_batch * loop.seq_len
     losses, records, saves = [], [], []
@@ -180,6 +249,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                f"to host in {manager.last_save['snapshot_s']:.3f}s, "
                + ("written" if blocking else "writing on a thread"))
 
+    comm = None
     t_begin = time.perf_counter()
     step = start_step - 1
     try:
@@ -190,7 +260,12 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                 torch.cuda.reset_peak_memory_stats(dev)
             watchdog.step_begin()
             t0 = time.perf_counter()
-            metrics = step_fn(params, opt_state, batch, step)
+            shd.reset_collectives()
+            with (shd.axis_rules(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                metrics = step_fn(params, opt_state, batch, step)
+            if mesh is not None and comm is None:
+                comm = shd.collectives()
             loss = float(metrics["loss"])  # waits for the step
             if cuda:
                 torch.cuda.synchronize(dev)
@@ -208,6 +283,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                 tracer.record("Step", step, t1 - seconds, t1)
             losses.append(loss)
             rec = {"loss": loss, "seconds": seconds,
+                   "grad_norm": float(metrics["grad_norm"]),
                    "tokens_per_s": tokens / seconds,
                    "activation_peak_bytes": peak,
                    "fwd_bwd_peak_bytes": metrics["fwd_bwd_peak"],
@@ -228,7 +304,10 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
             if ev is not None:
                 log_fn(f"[watchdog] straggler at step {ev.step}: "
                        f"{ev.duration:.2f}s vs median {ev.median:.2f}s")
-            if manager is not None and watchdog.should_restart:
+            restart = watchdog.should_restart
+            if manager is not None and mesh is not None:
+                restart = _agree(restart, dev)
+            if manager is not None and restart:
                 log_fn("[watchdog] persistent straggler — checkpointing for "
                        "restart")
                 save(step, blocking=True)
@@ -247,7 +326,10 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
               "wall_s": wall,
               "tokens_per_s": tokens * max(len(losses), 1) / max(wall, 1e-9),
               "start_step": start_step, "last_step": step,
-              "straggler_events": len(watchdog.events), "ckpt_saves": saves}
+              "straggler_events": len(watchdog.events), "ckpt_saves": saves,
+              "plan_digest": digest, "param_bytes_local": param_bytes,
+              "data_slices": (data.host, data.hosts),
+              "collective_bytes": comm}
     if traced and tracer.spans:
         if loop.trace_path:
             tracer.save(loop.trace_path)

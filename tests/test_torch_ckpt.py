@@ -358,6 +358,19 @@ def test_launcher_checkpoint_flags(tmp_path):
     assert loop.ckpt_dir is None
 
 
+def test_launcher_defaults_match_the_reference(capsys):
+    """``--ckpt-every`` defaults to 25 and ``--model-parallel`` to 1, as in
+    ``repro.launch.train``."""
+    _, loop, _ = train.parse(["--arch", "qwen1.5-4b"])
+    assert loop.ckpt_every == 25
+    args = train._parser().parse_args(["--arch", "qwen1.5-4b"])
+    assert args.model_parallel == 1 and args.dist_backend == "auto"
+    with pytest.raises(SystemExit):
+        train.parse(["--help"])
+    text = capsys.readouterr().out
+    assert "default: 25" in text and "default: 1" in text
+
+
 # -- stage times inside the chain ------------------------------------------------
 
 

@@ -1342,3 +1342,59 @@ def test_checkpoint_roundtrip_on_card(dev, tmp_path):
     assert torch.equal(w, params["w"])
     _, on_cpu = mgr.restore(state, device="cpu")
     assert torch.equal(on_cpu["params"]["w"], params["w"].cpu())
+
+
+def _nccl_world1_rank(rank, world):
+    """One NCCL rank on the card: the ZeRO-3 gather and reduction of a
+    DTensor, the compressed mean, and the expert exchange of
+    ``moe_apply_ep`` on a one-member group against the local MoE path."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     ef_init)
+    from repro_torch.distributed.sharding import (distribute, gather_one,
+                                                  make_mesh, placements_for)
+    from repro_torch.models import mlp as mlp_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((1, 1), "cuda")
+    w = torch.randn(8, 6, device=dev).requires_grad_()
+    d = distribute(w, mesh, placements_for(("embed", "mlp"), w.shape, mesh))
+    g, = torch.autograd.grad((gather_one(d) * 3).sum(), [d])
+    assert torch.equal(g.full_tensor(), torch.full_like(w, 3.0))
+    grads = [torch.randn(1000, device=dev), torch.randn(7, 9, device=dev)]
+    mean, err = compressed_psum_mean(grads, ef_init(grads), dist.group.WORLD,
+                                     1)
+    for a, m, e in zip(grads, mean, err):
+        scale = float(a.abs().max()) / 127
+        assert float((m - a).abs().max()) <= scale / 2 + 1e-6
+        torch.testing.assert_close(m + e, a, rtol=1e-6, atol=1e-6)
+    cfg = get_config("deepseek-v2-lite-16b", num_experts=8, moe_top_k=2,
+                     moe_d_ff=64, d_model=128, num_shared_experts=1,
+                     dtype=torch.float32, param_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = mlp_mod.moe_init(gen, cfg, torch.float32, dev)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev)
+    mlp_mod.ALL_TO_ALL.update(forward=0, backward=0)
+    xe = x.clone().requires_grad_()
+    y_ep, aux_ep = mlp_mod.moe_apply_ep(p, cfg, xe, dist.group.WORLD)
+    gx_ep, = torch.autograd.grad(y_ep.sum() + aux_ep, [xe])
+    xl = x.clone().requires_grad_()
+    y, aux = mlp_mod.moe_apply(p, cfg, xl)
+    gx, = torch.autograd.grad(y.sum() + aux, [xl])
+    torch.testing.assert_close(y_ep, y, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(aux_ep, aux, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(gx_ep, gx, rtol=2e-4, atol=2e-5)
+    return dict(mlp_mod.ALL_TO_ALL)
+
+
+def test_nccl_world1_group_and_expert_exchange(dev):
+    """A world-1 NCCL process group on the card (spawned, with a timeout):
+    DTensor's gather and Partial reduction, the compressed mean, and the
+    expert-parallel path's all-to-alls on CUDA tensors."""
+    from repro_torch.distributed.local import run_local
+
+    exchanges, = run_local(_nccl_world1_rank, 1, backend="nccl",
+                           timeout=180.0)
+    assert exchanges == {"forward": 2, "backward": 2}

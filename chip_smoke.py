@@ -1612,10 +1612,396 @@ def multi_device(card: str) -> dict:
         f"at world 1: step {STEPS - 1} loss {d['losses']} = the "
         f"uninterrupted run's {a['losses'][STEPS - 1:]} within rtol 1e-3")
     say(f"[multi] phase 21: {time.perf_counter() - t_phase:.3f} s on {card}")
+    summary = {"losses": want, "predicted": plain["plan"].peak_device_mem,
+               "fwd_bwd": [r["fwd_bwd_peak_bytes"] for r in plain["steps"]]}
     del plain, d, params, measured
     torch.cuda.empty_cache()
-    return a["launches"]
+    return a["launches"], summary
 
+
+
+# -- phase 22: model-axis tensor parallelism and serving on a mesh -------------
+
+TP = 2          # the model axis: two ranks sharing the card over gloo
+# Zamba2-2.7B at full width cut to its first 2 layers: one chunk, opening
+# with the shared attention block
+TP_ZAMBA_OVERRIDES = {"num_layers": 2, "layer_kinds": ["zamba"] * 2,
+                      "use_flash_attention": True, "use_ssd_kernel": True}
+# Qwen1.5-4B at full width cut to 4 layers, served at batch 8 × 2048
+TP_SERVE_OVERRIDES = {"num_layers": 4, "layer_kinds": ["dense"] * 4,
+                      "n_chunks": 4, "use_flash_attention": True}
+TP_NEW = 8      # new tokens of the served batch (prefill's + 7 decode steps)
+
+
+def _config(arch, overrides):
+    from repro_torch.configs import get_config
+
+    return get_config(arch, **{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in overrides.items()})
+
+
+class _KernelShapes:
+    """While active, the q shape of every K3 launch and the x shape of
+    every K6 launch (the wrappers' kernel entry points, wrapped)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+
+        self.seen = {"flash": set(), "ssd": set()}
+        self.saved = (flash_ops.attention_fwd, ssd_ops.ssd_chunk_blocks)
+        fa, sc = self.saved
+
+        def flash(q, k, v):
+            if q.is_cuda:
+                self.seen["flash"].add(tuple(q.shape))
+            return fa(q, k, v)
+
+        def ssd(x, *rest):
+            if x.is_cuda:
+                self.seen["ssd"].add(tuple(x.shape))
+            return sc(x, *rest)
+
+        flash_ops.attention_fwd, ssd_ops.ssd_chunk_blocks = flash, ssd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+
+        flash_ops.attention_fwd, ssd_ops.ssd_chunk_blocks = self.saved
+        return False
+
+
+def _tp_train_rank(rank, world, arch, overrides, rotor):
+    """One rank of a tensor-parallel training run at mesh (1, world) on the
+    card: 3 steps of ``run_training(mesh=)``, the kernels' launches and
+    shapes counted (store-all without ``rotor``).  With ``rotor`` a first
+    one-step run under ``rotor:x1`` has ``run_training`` measure the chain
+    on the split stages (every rank in lockstep, rank 0's sent to all), and
+    the 3 steps run on that chain under ``rotor:`` at its midpoint.  The
+    solver cache is this process's memory, so the plan's fill launches."""
+    os.environ["REPRO_STORE"] = "memory://"
+    import torch
+
+    from repro_torch import counters
+    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = _config(arch, overrides)
+    mesh = shd.make_mesh((1, world), "cuda")
+
+    def train(steps, policy, chain=None):
+        return run_training(cfg, TrainLoopConfig(
+            steps=steps, global_batch=BATCH, seq_len=SEQ, policy=policy,
+            solver_impl="cuda", log_every=1, data_hosts_per_process=2),
+            device=dev, params=StagedLM(cfg).init(0, dev), chain=chain,
+            mesh=mesh, log_fn=lambda *_: None)
+
+    chain, policy, budget, first = None, "none", None, None
+    t0 = time.perf_counter()
+    if rotor:
+        first = train(1, "rotor:x1")
+        chain = first["chain"]
+        low = solve_min_memory(chain, impl="plain", cache=False).mem_limit
+        budget = int((low + chain.store_all_peak()) / 2)
+        policy = f"rotor:{budget}"
+        first = {"loss": first["losses"][0], "digest": first["plan_digest"]}
+        torch.cuda.empty_cache()
+    measured_s = time.perf_counter() - t0
+    counters.reset()
+    with _KernelShapes() as shapes:
+        out = train(STEPS, policy, chain)
+    return {"losses": out["losses"], "digest": out["plan_digest"],
+            "launches": counters.snapshot(), "shapes": shapes.seen,
+            "predicted": (out["plan"].peak_device_mem if out["plan"]
+                          is not None else None),
+            "fwd_bwd": [r["fwd_bwd_peak_bytes"] for r in out["steps"]],
+            "seconds": [r["seconds"] for r in out["steps"]],
+            "comm": out["collective_bytes"], "budget": budget,
+            "first": first, "chain": None if chain is None else {
+                "floor": float(low), "store_all": float(
+                    chain.store_all_peak())},
+            "measured_s": measured_s,
+            "param_bytes_local": out["param_bytes_local"]}
+
+
+def _teacher_forced(model, params, prompts, tokens, max_len, prefill=None,
+                    step=None):
+    """The first two sequences' logits (2, n, V) float32 on the host:
+    prefill's last position, then one decode step per column of
+    ``tokens`` but the last, each fed that column (the reference's
+    greedy tokens)."""
+    import torch
+
+    prefill = prefill or (lambda p, b, m: model.prefill(p, b, max_len=m))
+    step = step or model.decode_step
+    logits, cache = prefill(params, {"tokens": torch.as_tensor(
+        prompts, device="cuda")}, max_len)
+    seen = [logits[:2, 0].float().cpu()]
+    for i in range(tokens.shape[1] - 1):
+        logits, cache = step(params, cache, torch.as_tensor(
+            tokens[:, i:i + 1], device="cuda"))
+        seen.append(logits[:2, 0].float().cpu())
+    del logits, cache
+    return torch.stack(seen, 1)
+
+
+def _tp_serve_rank(rank, world, prompts, tokens):
+    """One rank of serving on the mesh (1, world) under ``DECODE_RULES``:
+    ``run_serving(mesh=)`` (greedy tokens, this rank's cache bytes), then
+    the same prefill and decode steps fed ``tokens`` (the single-process
+    run's), keeping the first two sequences' logits."""
+    import torch
+
+    from repro_torch import counters
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          serving_params)
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.runtime.serve_loop import ServeLoopConfig, run_serving
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = _config(ARCH, TP_SERVE_OVERRIDES)
+    mesh = shd.make_mesh((1, world), "cuda")
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    max_len = SERVE_PROMPT + TP_NEW
+    counters.reset()
+    shd.reset_collectives()
+    with _KernelShapes() as shapes:
+        served = run_serving(cfg, params, prompts, ServeLoopConfig(
+            max_new_tokens=TP_NEW, max_len=max_len), model=model,
+            device=dev, mesh=mesh, rules=shd.DECODE_RULES)
+    launches, comm = counters.snapshot(), shd.collectives()
+    local = serving_params(model, params, mesh)
+    del params
+    seen = _teacher_forced(model, local, prompts, tokens, max_len,
+                           make_prefill_step(model, mesh, shd.DECODE_RULES),
+                           make_serve_step(model, mesh, shd.DECODE_RULES))
+    return {"generations": served["generations"],
+            "kv_bytes_local": served["kv_bytes_local"],
+            "prefill_s": served["prefill_s"],
+            "decode_tokens_per_s": served["decode_tokens_per_s"],
+            "seen": seen.numpy(), "launches": launches, "comm": comm,
+            "shapes": shapes.seen}
+
+
+def tensor_parallel(card: str, plain21: dict) -> dict:
+    """Phase 22: model-axis tensor parallelism and serving on a mesh, two
+    ranks sharing the card over gloo at mesh (1, 2).  (a) Qwen1.5-4B at
+    full width, 2 layers, batch 4 × 2048, 3 steps under ``rotor:`` at the
+    midpoint of the chain measured on the split stages: losses equal phase
+    21's plain run (rtol 2e-3), the plan digests agree, K3 runs on each
+    rank's 10 heads, K4 and a DP fill launch, and each rank's
+    forward+backward activation peak, predicted / measured, lies in [1,
+    1.25].  (b) Zamba2-2.7B at full width, its first 2 layers, 3 steps:
+    losses equal the single-process run's (rtol 2e-3), K6 on 40 SSM heads
+    and K3 on 16 heads of 80 per rank.  (c) Qwen1.5-4B at full width, 4
+    layers, served at batch 8 × 2048 for 8 new tokens under
+    ``DECODE_RULES``: each rank's cache is half the whole one, and fed the
+    single-process tokens the mesh decode's logits lie within phase 15's
+    bf16 tolerance of the single-process decode's (max |Δ| ≤ 0.5, mean ≤
+    0.01 beyond the floor, the same decode on the plain versions).
+    (a') is (a) through the launcher under ``torchrun --nproc-per-node 2``
+    with ``--model-parallel 2 --dist-backend gloo`` at (a)'s budget: losses
+    against phase 21's, K3, K4 and a DP fill launched on rank 0.
+    Returns each part's launches, summed over the ranks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.local import run_local
+    from repro_torch.kernels.dp_fill import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {}
+
+    def summed(ranks):
+        out = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def close(tag, got, ref, rtol=2e-3):
+        if len(got) != len(ref) or not np.allclose(got, ref, rtol=rtol,
+                                                   atol=0):
+            raise AssertionError(f"{tag}: losses {got} against {ref} "
+                                 f"(rtol {rtol})")
+
+    def comm_line(comm):
+        return (f"first step's collectives {sum(comm['bytes'].values())} B: "
+                + ", ".join(f"{k} {comm['bytes'][k]} B ({comm['calls'][k]} "
+                            f"calls)" for k in sorted(comm['calls'])))
+
+    # -- (a) Qwen1.5-4B, rotor on the chain measured on the split stages -----
+    t0 = time.perf_counter()
+    qa = run_local(_tp_train_rank, TP, (ARCH, MD_OVERRIDES, True),
+                   timeout=600.0)
+    qcfg = _config(ARCH, MD_OVERRIDES)
+    want_q = (BATCH, SEQ, qcfg.n_heads // TP, qcfg.head_dim)
+    for r, res in enumerate(qa):
+        close(f"(a) rank {r}", res["losses"], plain21["losses"])
+        close(f"(a) rank {r}'s first run", [res["first"]["loss"]],
+              plain21["losses"][:1])
+        for name in (flash_ops.NAME, rms_ops.NAME, dp_ops.NAME):
+            if not res["launches"].get(name):
+                raise AssertionError(f"(a) rank {r} never launched {name}")
+        if res["shapes"]["flash"] != {want_q}:
+            raise AssertionError(f"(a) rank {r}: K3 ran at "
+                                 f"{res['shapes']['flash']}, not {want_q}")
+        ratios = [res["predicted"] / fb for fb in res["fwd_bwd"]]
+        say(f"[tp] (a) rank {r}: losses {res['losses']}; the first run "
+            f"(run_training measuring the chain on the split stages in "
+            f"lockstep, then one step at rotor:x1, loss "
+            f"{res['first']['loss']}, digest {res['first']['digest'][:16]}) "
+            f"{res['measured_s']:.3f} s; floor {res['chain']['floor']:.6e} B, store-all "
+            f"{res['chain']['store_all']:.6e} B, rotor at {res['budget']} B; "
+            f"activation peak over the forward and backward predicted "
+            f"{res['predicted']:.6e} B, measured {res['fwd_bwd']} B "
+            f"(predicted / measured {[round(x, 4) for x in ratios]}); the "
+            f"single-process run (phase 21, same batch, its own midpoint): "
+            f"predicted {plain21['predicted']:.6e} B, measured "
+            f"{plain21['fwd_bwd']} B; step seconds {res['seconds']}; "
+            f"{res['param_bytes_local']} B of parameters held; K3 at "
+            f"{sorted(res['shapes']['flash'])}; launches "
+            f"{json.dumps(res['launches'])}; {comm_line(res['comm'])} on "
+            f"{card}")
+        if not all(1.0 <= x <= 1.25 for x in ratios):
+            raise AssertionError(f"(a) rank {r}: predicted / measured "
+                                 f"activation peak {ratios} outside [1, 1.25]")
+    if len({r["digest"] for r in qa}) != 1:
+        raise AssertionError(f"(a) the ranks planned differently: "
+                             f"{[r['digest'][:16] for r in qa]}")
+    if len({r["first"]["digest"] for r in qa}) != 1:
+        raise AssertionError("(a) the ranks' first runs planned differently")
+    launches["tp_qwen"] = summed(qa)
+    say(f"[tp] (a) {ARCH} at full width, {qcfg.num_layers} layers, batch "
+        f"{BATCH} × {SEQ}, mesh (1, {TP}) over gloo on one card: losses "
+        f"{qa[0]['losses']} = phase 21's plain run {plain21['losses']} "
+        f"within rtol 2e-3; one plan (digest {qa[0]['digest'][:16]}); "
+        f"{time.perf_counter() - t0:.3f} s on {card}")
+
+    # -- (a') the same through the launcher under torchrun --------------------
+    ta = _torchrun(TP, [
+        "--arch", ARCH, "--override", json.dumps(MD_OVERRIDES),
+        "--global-batch", str(BATCH), "--seq-len", str(SEQ), "--steps",
+        str(STEPS), "--policy", f"rotor:{qa[0]['budget']}", "--solver-impl",
+        "cuda", "--model-parallel", str(TP), "--dist-backend", "gloo",
+        "--data-hosts-per-process", "2"], "tp a'")
+    close("(a')", ta["losses"], plain21["losses"])
+    for name in (flash_ops.NAME, rms_ops.NAME, dp_ops.NAME):
+        if not ta["launches"].get(name):
+            raise AssertionError(f"(a') rank 0 never launched {name}")
+    if not ta["collective_bytes"]["calls"].get("tp_all_reduce"):
+        raise AssertionError("(a') the blocks did not run tensor-parallel")
+    launches["tp_launcher"] = ta["launches"]
+    say(f"[tp] (a') the launcher under torchrun, --model-parallel {TP} "
+        f"--dist-backend gloo --policy rotor:{qa[0]['budget']} (the chain "
+        f"measured by run_training on the split stages): losses "
+        f"{ta['losses']} = phase 21's plain run within rtol 2e-3; plan digest "
+        f"{ta['plan_digest'][:16]}; rank 0's launches "
+        f"{json.dumps(ta['launches'])}; step seconds {ta['step_seconds']}; "
+        f"{comm_line(ta['collective_bytes'])} on {card}")
+
+    # -- (b) Zamba2-2.7B, its first 2 layers ---------------------------------
+    t0 = time.perf_counter()
+    zcfg2 = _config(ZAMBA_ARCH, TP_ZAMBA_OVERRIDES)
+    zmodel = StagedLM(zcfg2)
+    zplain = run_training(zcfg2, TrainLoopConfig(
+        steps=STEPS, global_batch=BATCH, seq_len=SEQ, policy="none",
+        log_every=1, data_hosts_per_process=2), device=dev,
+        params=zmodel.init(0, dev), log_fn=lambda *_: None)
+    zwant = zplain["losses"]
+    zsteps = [r["seconds"] for r in zplain["steps"]]
+    del zplain
+    torch.cuda.empty_cache()
+    zb = run_local(_tp_train_rank, TP, (ZAMBA_ARCH, TP_ZAMBA_OVERRIDES,
+                                        False), timeout=600.0)
+    heads = zcfg2.ssm_expand * zcfg2.d_model // zcfg2.ssm_head_dim // TP
+    want_x = (BATCH, SEQ, heads, zcfg2.ssm_head_dim)
+    want_zq = (BATCH, SEQ, zcfg2.n_heads // TP, zcfg2.head_dim)
+    for r, res in enumerate(zb):
+        close(f"(b) rank {r}", res["losses"], zwant)
+        if res["shapes"]["ssd"] != {want_x} or res["shapes"]["flash"] != {
+                want_zq}:
+            raise AssertionError(f"(b) rank {r}: K6 at {res['shapes']['ssd']}"
+                                 f", K3 at {res['shapes']['flash']}; wanted "
+                                 f"{want_x} and {want_zq}")
+        for name in (flash_ops.NAME, rms_ops.NAME, ssd_ops.NAME):
+            if not res["launches"].get(name):
+                raise AssertionError(f"(b) rank {r} never launched {name}")
+        say(f"[tp] (b) rank {r}: losses {res['losses']}; K6 at "
+            f"{sorted(res['shapes']['ssd'])}, K3 at "
+            f"{sorted(res['shapes']['flash'])}; step seconds "
+            f"{res['seconds']}; launches {json.dumps(res['launches'])}; "
+            f"{comm_line(res['comm'])} on {card}")
+    launches["tp_zamba"] = summed(zb)
+    say(f"[tp] (b) {ZAMBA_ARCH} at full width, its first "
+        f"{zcfg2.num_layers} layers (one shared block), store-all: losses "
+        f"{zb[0]['losses']} = the single-process run's {zwant} within rtol "
+        f"2e-3 (its steps {zsteps} s); "
+        f"{time.perf_counter() - t0:.3f} s on {card}")
+
+    # -- (c) serving Qwen1.5-4B on the mesh ----------------------------------
+    t0 = time.perf_counter()
+    scfg = _config(ARCH, TP_SERVE_OVERRIDES)
+    smodel = StagedLM(scfg)
+    sparams = smodel.init(0, dev)
+    prompts = np.random.default_rng(22).integers(
+        0, scfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    max_len = SERVE_PROMPT + TP_NEW
+    tokens, seen, _, _ = uncounted(lambda: decode_run(
+        "tp serve (single process)", smodel, sparams, {"tokens": prompts},
+        TP_NEW - 1, max_len, card))
+    plain = StagedLM(dataclasses.replace(scfg, use_flash_attention=False))
+    floor_seen = _teacher_forced(plain, sparams, prompts, tokens, max_len)
+    floor = float((floor_seen - seen.cpu()).abs().mean())
+    whole = smodel.cache_layout(SERVE_BATCH, max_len).allocated_bytes - 4
+    del sparams, floor_seen
+    torch.cuda.empty_cache()
+    sc = run_local(_tp_serve_rank, TP, (prompts, tokens), timeout=600.0)
+    ref = seen.cpu().numpy()
+    for r, res in enumerate(sc):
+        err = np.abs(res["seen"] - ref)
+        worst, mean = float(err.max()), float(err.mean())
+        agree = float((res["generations"] == tokens).mean())
+        say(f"[tp] (c) rank {r}: cache {res['kv_bytes_local']} B of the "
+            f"whole {whole} B; fed the single-process tokens, logits "
+            f"against its decode's: max |Δ| {worst:.4f} (tol "
+            f"{SERVE_MAX_ERR}), mean |Δ| {mean:.6f} (tol {SERVE_MEAN_ERR} + "
+            f"the floor {floor:.6f}, its decode on the plain versions); "
+            f"greedy tokens equal to the single-process run's: {agree:.4f} "
+            f"of {tokens.size}; prefill {res['prefill_s']:.3f} s, decode "
+            f"{res['decode_tokens_per_s']:.1f} tokens/s; K3 at "
+            f"{sorted(res['shapes']['flash'])}; launches "
+            f"{json.dumps(res['launches'])}; collectives "
+            f"{json.dumps(res['comm'])} on {card}")
+        if 2 * res["kv_bytes_local"] != whole:
+            raise AssertionError(f"(c) rank {r} holds {res['kv_bytes_local']}"
+                                 f" B of the cache, not half of {whole}")
+        if not (worst <= SERVE_MAX_ERR and mean <= SERVE_MEAN_ERR + floor):
+            raise AssertionError(f"(c) rank {r}: the mesh decode differs "
+                                 f"from the single-process one")
+    launches["tp_serve"] = summed(sc)
+    say(f"[tp] (c) {ARCH} at full width, {scfg.num_layers} layers, batch "
+        f"{SERVE_BATCH} × {SERVE_PROMPT} + {TP_NEW} tokens, DECODE_RULES at "
+        f"mesh (1, {TP}): {time.perf_counter() - t0:.3f} s on {card}")
+    say(f"[tp] phase 22: {time.perf_counter() - t_phase:.3f} s on {card}")
+    return launches
 
 
 def main() -> int:
@@ -1980,6 +2366,10 @@ def main() -> int:
                      vcfg.n_kv_heads, vcfg.head_dim),
                     (BATCH, SEQ, acfg.n_heads, acfg.n_kv_heads,
                      acfg.head_dim)]
+    # phase 22's per-rank shapes at model axis 2: Qwen's 10 heads of 128,
+    # the Zamba2 shared block's 16 of 80
+    path_shapes += [(BATCH, SEQ, c.n_heads // TP, c.n_kv_heads // TP,
+                     c.head_dim) for c in (cfg, zcfg)]
     for (B, S, H, K, D) in ((2, 200, 8, 2, 16), (1, 300, 4, 1, 64),
                             (2, 333, 8, 2, 80), (2, 333, 8, 1, 256),
                             (1, 1000, 4, 2, 256), *path_shapes):
@@ -2091,7 +2481,8 @@ def main() -> int:
     # bf16 the tensor-core kernel too, 80 heads in slices of 8)
     for (B, S, H, G_, N_) in ((BATCH, SEQ, Hs, G, N), (2, 1000, 8, G, N),
                               (1, 512, 8, 4, N), (1, 512, 12, 1, N),
-                              (BATCH, SEQ, zHs, zG, zN)):
+                              (BATCH, SEQ, zHs, zG, zN),
+                              (BATCH, SEQ, zHs // TP, zG, zN)):
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, A, Bm, Cm = ssd_inputs(B, S, H, G_, dtype, N_)
             xp, dtp, Bp, Cp = ssd_ref.pad_to_chunks(Q, x, dt, Bm, Cm)
@@ -2116,8 +2507,8 @@ def main() -> int:
             del x, dt, A, Bm, Cm, xp, dtp, Bp, Cp, y, st, wy, wst
     # the Mamba and Zamba2 paths' layout: x, B and C are strided views into
     # the mixer's one (B, S, d_inner + 2·G·N) tensor, split as the mixer
-    # splits it
-    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN)):
+    # splits it (phase 22's split mixer: its heads' x beside B and C)
+    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN), (zHs // TP, zG, zN)):
         d_inner = H_ * P
         for dtype in (torch.float32, torch.bfloat16):
             xbc = randn(BATCH, SEQ, d_inner + 2 * G_ * N_, dtype=dtype)
@@ -2382,12 +2773,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
         **rms_rows[0], "other_shapes": rms_rows[1:]})
 
-    # K6 at the Mamba path's shape (the row of the kernels line) and at the
-    # Zamba2 path's (state 64), both on the tensor-core kernel
+    # K6 at the Mamba path's shape (the row of the kernels line), at the
+    # Zamba2 path's (state 64) and at its per-rank 40 heads under phase 22's
+    # model axis of 2, all on the tensor-core kernel
     B, S = BATCH, SEQ
     nc = S // Q
     ssd_rows = []
-    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN)):
+    for H_, G_, N_ in ((Hs, G, N), (zHs, zG, zN), (zHs // TP, zG, zN)):
         x, dt, A, Bm, Cm = ssd_inputs(B, S, H_, G_, torch.bfloat16, N_)
         nbytes = (2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
                   + 2 * (Bm.numel() + Cm.numel())        # inputs, read once
@@ -3138,9 +3530,12 @@ def main() -> int:
         + f" (paper §5.3: 7.8 %; no limit held) on {card}")
 
     # -- 21. multi-device -----------------------------------------------------
-    path_launches["multi_device"] = multi_device(card)
+    path_launches["multi_device"], plain21 = multi_device(card)
 
-    # -- 22. result lines -------------------------------------------------
+    # -- 22. model-axis tensor parallelism and serving on a mesh --------------
+    path_launches.update(tensor_parallel(card, plain21))
+
+    # -- result lines -----------------------------------------------------
     # K3's head dim on each path that launches it
     head_dims = {"rotor": cfg.head_dim, "offload": off_cfg.head_dim,
                  "measured": cfg.head_dim,
@@ -3149,7 +3544,9 @@ def main() -> int:
                  "serve_archs": zcfg.head_dim, "musicgen": acfg.head_dim,
                  "serve_paligemma": vcfg.head_dim,
                  "serve_musicgen": acfg.head_dim, "persist": cfg.head_dim,
-                 "multi_device": cfg.head_dim}
+                 "multi_device": cfg.head_dim, "tp_qwen": cfg.head_dim,
+                 "tp_launcher": cfg.head_dim,
+                 "tp_zamba": zcfg.head_dim, "tp_serve": cfg.head_dim}
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

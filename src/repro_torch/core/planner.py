@@ -235,6 +235,12 @@ def _grad_consumers(outputs: Sequence[torch.Tensor],
     return found
 
 
+def _held_bytes(t: torch.Tensor) -> int:
+    """The bytes this process holds of ``t``: a DTensor's shard."""
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return t.numel() * t.element_size()
+
+
 def grad_with_peaks(outputs: Sequence[torch.Tensor],
                     inputs: Sequence[torch.Tensor],
                     grad_outputs: Optional[Sequence[torch.Tensor]] = None,
@@ -256,7 +262,7 @@ def grad_with_peaks(outputs: Sequence[torch.Tensor],
     if dev.type != "cuda":
         return (torch.autograd.grad(outputs, inputs, grad_outputs,
                                     allow_unused=allow_unused), None, None)
-    sizes = [p.numel() * p.element_size() for p in params]
+    sizes = [_held_bytes(p) for p in params]
     formed, state = set(), {"grads": 0, "peak": 0, "act": 0}
 
     def close_span():
@@ -368,7 +374,7 @@ def chain_backward_transients(stages: Sequence[Callable],
     n = len(stages)
     got = [0] * n
     ps = [t for t in tensors_of(list(params)) if t.requires_grad]
-    sizes = [t.numel() * t.element_size() for t in ps]
+    sizes = [_held_bytes(t) for t in ps]
     formed: set = set()
     st = {"stage": n, "start": 0, "act": 0, "grads": 0}
 

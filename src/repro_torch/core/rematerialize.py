@@ -17,6 +17,7 @@ Correspondence (per node, as in ``repro.core.rematerialize``):
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Callable, Sequence
@@ -65,9 +66,14 @@ def remat(fn: Callable, *args, keep: bool = False):
     saved because no stage draws random numbers).  With ``keep``, also
     what ``fn`` passes through :func:`kept`; a region without such values
     is a plain checkpoint."""
+    from ..distributed.sharding import reentered
+
     if keep:
         fn = functools.partial(_keeping, fn, _Kept())
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    # the recompute runs under the meshes and rules of the first run
+    context = reentered()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), context))
 
 
 def _keeping(fn: Callable, tape: _Kept, *args):

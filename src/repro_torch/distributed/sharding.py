@@ -24,7 +24,9 @@ Execution is ZeRO-3 style (what ``"embed" → (pod, data)`` means): parameters
 and moments live as DTensors, each rank holding its shards, and a stage
 gathers its parameters (:func:`gather`) before it runs, so the kernels see
 plain tensors; the gradient comes back summed over the batch-sharded mesh
-dimensions, as the parameter's shard.  The gathers and reductions are
+dimensions, as the parameter's shard.  Under model-axis tensor parallelism
+(:mod:`.tensor_parallel`) a stage gathers a weight over the batch-sharded
+dimensions only and keeps its model shard (:data:`GATHER_MODES`).  The gathers and reductions are
 explicit ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` /
 ``all_reduce`` calls on the mesh's groups (gradients summed in float32):
 DTensor's own redistribution kills the ranks of a gloo group on CUDA
@@ -128,6 +130,26 @@ def axis_rules(mesh: Any, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
         yield
     finally:
         _stack().pop()
+
+
+class reentered:
+    """A context manager that activates, on whatever thread and as often as
+    it is entered, the meshes and rules active where it was made: a
+    checkpoint's recompute runs the split blocks again on autograd's
+    backward thread (its own on CUDA), whose stack is empty
+    (``core.rematerialize.remat``)."""
+
+    def __init__(self):
+        self.frozen, self.depths = list(_stack()), []
+
+    def __enter__(self):
+        st = _stack()
+        self.depths.append(len(st))
+        st.extend(self.frozen)
+
+    def __exit__(self, *exc):
+        del _stack()[self.depths.pop():]
+        return False
 
 
 def current_mesh() -> Any:
@@ -315,6 +337,9 @@ COLLECTIVE_BYTES: Dict[str, int] = {}
 
 
 def _count(op: str, x: torch.Tensor) -> None:
+    """Count one call of ``op`` handing in ``x``; the model-axis
+    tensor-parallel operators (:mod:`.tensor_parallel`) count theirs as
+    ``tp_<op>``."""
     COLLECTIVE_CALLS[op] = COLLECTIVE_CALLS.get(op, 0) + 1
     COLLECTIVE_BYTES[op] = (COLLECTIVE_BYTES.get(op, 0)
                             + x.numel() * x.element_size())
@@ -330,13 +355,14 @@ def collectives() -> Dict[str, Dict[str, int]]:
     return {"calls": dict(COLLECTIVE_CALLS), "bytes": dict(COLLECTIVE_BYTES)}
 
 
-def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, dim: int, group, n: int,
+                prefix: str = "") -> torch.Tensor:
     """The ``n`` members' ``x`` concatenated along ``dim``."""
     import torch.distributed as dist
 
     x0 = x.movedim(dim, 0).contiguous()
     out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
-    _count("all_gather", x0)
+    _count(prefix + "all_gather", x0)
     dist.all_gather_into_tensor(out, x0, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -353,14 +379,15 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out.movedim(0, dim).to(x.dtype).contiguous()
 
 
-def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group=None, op: str = "sum",
+               prefix: str = "") -> torch.Tensor:
     """The members' sum (``op="max"``: maximum) of ``x``, reduced in
     float32 (in place when ``x`` is a contiguous float32 tensor); ``group``
     ``None`` is the default group."""
     import torch.distributed as dist
 
     out = x.float().contiguous()
-    _count("all_reduce", out)
+    _count(prefix + "all_reduce", out)
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op], group=group)
     return out.to(x.dtype)
@@ -378,34 +405,63 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _gather_local(local: torch.Tensor, mesh: Any, placements: Sequence[Any]
-                  ) -> torch.Tensor:
-    """The full value of a DTensor from its shard: gathered along each
-    sharded mesh dimension, the last first (a DTensor is cut in mesh
-    dimension order)."""
+#: how a stage takes a DTensor parameter (:func:`gather`): ``full`` its
+#: whole value; ``local`` this rank's shard (a MoE's routed experts under
+#: expert parallelism); ``data`` gathered over the batch-sharded mesh
+#: dimensions only, keeping its model-axis shard (a tensor-parallel block's
+#: weights); ``partial`` whole, its gradient summed over the model axis as
+#: well (a weight that each model rank uses only in part, Mamba2's fused
+#: ``in_proj`` under tensor parallelism)
+GATHER_MODES = ("full", "local", "data", "partial")
+
+
+def _gather_local(local: torch.Tensor, mesh: Any, placements: Sequence[Any],
+                  dims: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The full value of a DTensor from its shard (or its value gathered
+    along the mesh dimensions ``dims`` only): gathered along each sharded
+    mesh dimension, the last first (a DTensor is cut in mesh dimension
+    order)."""
     from torch.distributed.tensor import Shard
 
     out = local
     for i in reversed(range(mesh.ndim)):
+        if dims is not None and i not in dims:
+            continue
         if isinstance(placements[i], Shard) and mesh.size(i) > 1:
             out = _all_gather(out, placements[i].dim, mesh.get_group(i),
                               mesh.size(i))
     return out
 
 
+def _gathered_dims(mesh: Any, mode: str, batch: Sequence[str]) -> Tuple[int, ...]:
+    """The mesh dimensions a :data:`GATHER_MODES` mode gathers along."""
+    if mode not in GATHER_MODES:
+        raise ValueError(f"gather mode {mode!r}: expected one of "
+                         f"{GATHER_MODES}")
+    names = mesh.mesh_dim_names
+    if mode == "local":
+        return ()
+    if mode == "data":
+        return tuple(i for i, a in enumerate(names) if a in batch)
+    return tuple(range(mesh.ndim))
+
+
 class _Gathered(torch.autograd.Function):
-    """A DTensor's shard → its full value (``gather``) or the shard itself;
-    the backward sums the gradient over the batch-sharded mesh dimensions
-    and cuts this rank's shard out of it, with explicit collectives
-    (``reduce_scatter_tensor``, ``all_reduce``) on the mesh's groups."""
+    """A DTensor's shard → its value gathered along the mesh dimensions of
+    ``mode`` (:data:`GATHER_MODES`); the backward sums the gradient over
+    the batch-sharded mesh dimensions (and over the model axis in the
+    ``partial`` mode) and cuts this rank's shard out of it, with explicit
+    collectives (``reduce_scatter_tensor``, ``all_reduce``) on the mesh's
+    groups."""
 
     @staticmethod
-    def forward(ctx, local_t, mesh, placements, gather, batch):
-        ctx.mesh, ctx.placements = mesh, placements
-        ctx.gather, ctx.batch = gather, batch
-        if not gather:
+    def forward(ctx, local_t, mesh, placements, mode, batch):
+        ctx.mesh, ctx.placements, ctx.batch = mesh, placements, batch
+        ctx.dims = _gathered_dims(mesh, mode, batch)
+        ctx.partial = mode == "partial"
+        if not ctx.dims:
             return local_t.view_as(local_t)
-        return _gather_local(local_t, mesh, placements)
+        return _gather_local(local_t, mesh, placements, ctx.dims)
 
     @staticmethod
     def backward(ctx, grad):
@@ -416,25 +472,26 @@ class _Gathered(torch.autograd.Function):
             n = mesh.size(i)
             if n == 1:
                 continue
-            shard = isinstance(p, Shard)
-            if ctx.mesh.mesh_dim_names[i] in ctx.batch:
+            shard, gathered = isinstance(p, Shard), i in ctx.dims
+            if ctx.mesh.mesh_dim_names[i] in ctx.batch or ctx.partial:
                 if not shard:
                     g = all_reduce(g, mesh.get_group(i))
-                elif ctx.gather:
+                elif gathered:
                     g = _reduce_scatter(g, p.dim, mesh.get_group(i), n)
-            elif shard and ctx.gather:
+            elif shard and gathered:
                 g = g.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
         return g.contiguous(), None, None, None, None
 
 
-def gather_one(t: Any) -> Any:
-    """A plain tensor of a DTensor's full value (other leaves as they are);
-    its gradient comes back summed over the batch-sharded mesh dimensions
-    as the DTensor's shard."""
+def gather_one(t: Any, mode: str = "full") -> Any:
+    """A plain tensor of a DTensor's value as ``mode`` takes it
+    (:data:`GATHER_MODES`; ``full``: the whole value); its gradient comes
+    back summed over the batch-sharded mesh dimensions as the DTensor's
+    shard.  Other leaves as they are."""
     if not _is_dtensor(t):
         return t
     mesh = t.device_mesh
-    return _Gathered.apply(t.to_local(), mesh, tuple(t.placements), True,
+    return _Gathered.apply(t.to_local(), mesh, tuple(t.placements), mode,
                            batch_mesh_dims(mesh))
 
 
@@ -442,22 +499,16 @@ def local(t: Any) -> Any:
     """This rank's shard of a DTensor as a plain tensor (its gradient summed
     over the batch-sharded mesh dimensions that replicate it); other
     leaves as they are."""
-    if not _is_dtensor(t):
-        return t
-    mesh = t.device_mesh
-    return _Gathered.apply(t.to_local(), mesh, tuple(t.placements), False,
-                           batch_mesh_dims(mesh))
+    return gather_one(t, "local")
 
 
-def gather(tree: Any, keep_local: Callable[[str], bool] = lambda _: False
+def gather(tree: Any, mode_of: Callable[[str], str] = lambda _: "full"
            ) -> Any:
-    """Every DTensor leaf of ``tree`` as a plain tensor of its full value
-    (:func:`gather_one`), but those whose path ``keep_local`` accepts,
-    which stay this rank's shards (:func:`local`)."""
+    """Every DTensor leaf of ``tree`` as a plain tensor, taken as
+    ``mode_of(path)`` says (:data:`GATHER_MODES`)."""
     from ..tree import map_with_paths
 
-    return map_with_paths(
-        lambda path, t: local(t) if keep_local(path) else gather_one(t), tree)
+    return map_with_paths(lambda path, t: gather_one(t, mode_of(path)), tree)
 
 
 def distribute(t: torch.Tensor, mesh: Any, placements: Sequence[Any]) -> Any:

@@ -1,6 +1,7 @@
 """Planning for a (model × shape × mesh) — on the analytic chain or on a
 chain measured on real tensors — the train steps (the nested-checkpoint
-step of a two-tier plan, the eager step of an offload plan), and the
+step of a two-tier plan, the eager step of an offload plan), the serving
+steps (prefill and decode, on a mesh under ``DECODE_RULES``), and the
 sharding trees of a mesh run: parameters and moments placed by their
 logical axes (:func:`shard_tree`), the batch's axes, and the mesh terms of
 planning (per-device activation sizes and budget)."""
@@ -336,6 +337,72 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
         return metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps (prefill, decode) on one device or a mesh
+# ---------------------------------------------------------------------------
+
+def serving_params(model: StagedLM, params: Any, mesh) -> Any:
+    """This rank's parameters for serving on ``mesh`` (plain tensors, no
+    collective): every leaf whole, but for the model shard that a
+    tensor-parallel block keeps (``StagedLM.gather_modes`` ``data``, and a
+    routed expert stack's ``local``), cut out of it as ``spec_for``'s
+    ``Shard`` on the model axis cuts it."""
+    from ..distributed import tensor_parallel as tp
+
+    mode_of, axes = model.gather_modes(mesh), model.param_axes()
+
+    def one(path, t):
+        if not isinstance(t, torch.Tensor) or mode_of(path) in ("full",
+                                                                "partial"):
+            return t
+        spec = shd.spec_for(axes_at(axes, path), t.shape, mesh)
+        for dim, entry in enumerate(spec):
+            if entry == shd.MODEL:
+                a, b = tp.model_slice(t.shape[dim], mesh)
+                t = t.narrow(dim, a, b - a)
+        return t.contiguous()
+
+    with torch.no_grad():
+        return map_with_paths(one, params)
+
+
+def _on_mesh(mesh, rules):
+    import contextlib
+
+    return (shd.axis_rules(mesh, rules) if mesh is not None
+            else contextlib.nullcontext())
+
+
+def make_prefill_step(model: StagedLM, mesh=None, rules=None):
+    """``prefill_step(params, batch, max_len=None) -> (logits, cache)``:
+    :meth:`StagedLM.prefill`, on ``mesh`` under ``rules``
+    (``DECODE_RULES`` by default) with :func:`serving_params`' parameters:
+    the blocks split over the model axis, each rank keeping its shard of
+    the cache."""
+    rules = rules or shd.DECODE_RULES
+
+    def prefill_step(params, batch, max_len=None):
+        with _on_mesh(mesh, rules):
+            return model.prefill(params, batch, max_len=max_len)
+
+    return prefill_step
+
+
+def make_serve_step(model: StagedLM, mesh=None, rules=None):
+    """``serve_step(params, cache, tokens) -> (logits, cache)``: one
+    :meth:`StagedLM.decode_step` on ``mesh`` under ``rules``
+    (``DECODE_RULES`` by default): this rank's rows of ``tokens``, its shard
+    of the cache written in place."""
+    rules = rules or shd.DECODE_RULES
+
+    def serve_step(params, cache, tokens, residency=None):
+        with _on_mesh(mesh, rules):
+            return model.decode_step(params, cache, tokens,
+                                     residency=residency)
+
+    return serve_step
 
 
 def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,

@@ -11,6 +11,19 @@ block under its own checkpoint when a gradient is wanted, so the scores'
 memory is O(block × S).  Decode attends one new token to the cache with
 plain float32 scores, as the JAX package does; the cache may be stored in
 ``cfg.kv_cache_dtype`` (fp8 allowed) and is read in the model's dtype.
+
+Model-axis tensor parallelism (:mod:`..distributed.tensor_parallel`): a
+block whose query-head weights are this rank's share runs split by heads —
+*f* on its input, ``wq``/``wk``/``wv`` column-parallel (K3 on the rank's
+``H/M`` query heads and their KV heads), ``wo`` row-parallel and *g*.
+Where the model axis does not divide the KV heads (MQA) the KV weights are
+replicated: the rank slices the heads its query heads read, through *f* so
+that their gradient is summed.  MLA splits ``wq``, ``wk_b``, ``wv_b`` and
+``wo`` by heads; every rank computes the replicated latent, whose weights
+pass through *f*.  Decode over a cache cut along the sequence
+(``DECODE_RULES``) gathers the query heads, attends the rank's positions
+and merges the ranks' partial results by their log-sum-exp; the new
+position is written by the rank that holds it.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import tensor_parallel as tp
 from ..kernels.flash_attention import ops as flash_ops
 from .common import apply_rope, dense_apply, dense_init, rms_norm
 
@@ -122,16 +136,77 @@ def gqa_param_axes(cfg) -> Params:
         "wo": {"kernel": ("heads_merged", "embed")},
     }
 
-def _gqa_qkv(p, cfg, x, positions):
-    q = dense_apply(p["wq"], x)            # (B,S,H,Dh)
-    k = dense_apply(p["wk"], x)            # (B,S,K,Dh)
-    v = dense_apply(p["wv"], x)
+def _kv_heads(cfg, axis: tp.ModelAxis) -> Tuple[int, int]:
+    """The KV heads ``[kv0, kv1)`` that this rank's query heads read, where
+    the model axis splits the query heads but not the (replicated) KV
+    heads: each rank's heads must read whole groups, or one KV head."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    q0, q1 = axis.slice(H)
+    g = H // K
+    kv0, kv1 = q0 // g, (q1 - 1) // g + 1
+    if (q1 - q0) % g and g % (q1 - q0):
+        raise NotImplementedError(
+            f"{H} query heads over {K} KV heads on a model axis of "
+            f"{axis.size}: a rank's {q1 - q0} query heads do not read whole "
+            f"KV groups of {g}")
+    return kv0, kv1
+
+
+def _kv_weights(p: Params, cfg, axis: Optional[tp.ModelAxis]):
+    """``wk``, ``wv`` as this rank computes them: its shards, or (KV heads
+    replicated on a split block) the slice of heads its query heads read,
+    through *f*."""
+    wk, wv = p["wk"], p["wv"]
+    if axis is None or wk["kernel"].shape[1] != cfg.n_kv_heads:
+        return wk, wv
+    kv0, kv1 = _kv_heads(cfg, axis)
+
+    def cut(w):
+        out = {"kernel": tp.copy_to_model(w["kernel"], axis)[:, kv0:kv1]}
+        if "bias" in w:
+            out["bias"] = tp.copy_to_model(w["bias"], axis)[kv0:kv1]
+        return out
+
+    return cut(wk), cut(wv)
+
+
+def _rope_scale(cfg, q, k, positions):
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.query_scale is not None:
         q = q * cfg.query_scale
-    return q, k, v
+    return q, k
+
+
+def _gqa_qkv(p, cfg, x, positions):
+    """``(q, k, v, axis)``: the rank's query heads and the KV heads they
+    read; ``axis`` the model axis when the block runs split."""
+    axis = tp.split_by(p["wq"]["kernel"].shape[1], cfg.n_heads)
+    x = tp.copy_to_model(x, axis)
+    wk, wv = _kv_weights(p, cfg, axis)
+    q = dense_apply(p["wq"], x)            # (B,S,H,Dh)
+    k = dense_apply(wk, x)                 # (B,S,K,Dh)
+    v = dense_apply(wv, x)
+    q, k = _rope_scale(cfg, q, k, positions)
+    return q, k, v, axis
+
+
+def _whole_kv(p, cfg, x, positions, k, v, axis):
+    """All ``n_kv_heads`` of this position range's keys and values, from
+    the rank's (no gradient: the decode cache's content): gathered where
+    the model axis splits them, else computed with the replicated
+    weights."""
+    if axis is None or k.shape[2] == cfg.n_kv_heads:
+        return k, v
+    if p["wk"]["kernel"].shape[1] < cfg.n_kv_heads:
+        return (tp.gather_from_model(k, 2, axis),
+                tp.gather_from_model(v, 2, axis))
+    k = dense_apply(p["wk"], x)
+    v = dense_apply(p["wv"], x)
+    if cfg.use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
 
 
 def gqa_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -140,15 +215,21 @@ def gqa_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 
 def gqa_prefill(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
-                spec: MaskSpec
+                spec: MaskSpec, whole_kv: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full-sequence forward and its keys and values ``{"k", "v"}``
-    (B, S, K, Dh), on the flash kernel where ``gqa_apply`` takes it."""
+    (B, S, K, Dh), on the flash kernel where ``gqa_apply`` takes it.  On a
+    split block the keys and values are the rank's heads, or all of them
+    with ``whole_kv``."""
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    q, k, v, axis = _gqa_qkv(p, cfg, x, positions)
     out = _attend(q, k, v, spec, block_q=cfg.attn_block_q,
                   use_flash=cfg.use_flash_attention)
-    return dense_apply(p["wo"], out.reshape(B, S, -1)), {"k": k, "v": v}
+    y = tp.reduce_from_model(dense_apply(p["wo"], out.reshape(B, S, -1)),
+                             axis)
+    if whole_kv:
+        k, v = _whole_kv(p, cfg, x, positions, k, v, axis)
+    return y, {"k": k, "v": v}
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
@@ -158,13 +239,20 @@ def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
 
 
 def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               pos: int, shard: Optional[tp.SeqShard] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  x: (B, 1, d); cache k/v: (B, S_max, K, Dh), written
     at ``pos`` in place; attends to positions ``<= pos`` (and the sliding
-    window).  Returns ``(y, cache)``."""
+    window).  Returns ``(y, cache)``.  On a mesh the cache holds this
+    rank's block of positions (``shard``: which one) of all KV heads, or
+    of the rank's KV heads where the model axis splits them, and the block
+    runs split as in training (:func:`_sharded_decode`)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _gqa_qkv(p, cfg, x, positions)
+    q, k_new, v_new, axis = _gqa_qkv(p, cfg, x, positions)
+    if axis is not None or shard is not None:
+        return _sharded_decode(p, cfg, x, cache, pos, shard, positions, q,
+                               k_new, v_new, axis), cache
     _write(cache["k"], k_new, pos)
     _write(cache["v"], v_new, pos)
     lo = max(pos - cfg.sliding_window + 1, 0) if cfg.sliding_window else 0
@@ -177,6 +265,67 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     probs = torch.softmax(logits, dim=-1).to(vc.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, vc).reshape(B, 1, -1)
     return dense_apply(p["wo"], out), cache
+
+
+def _own_range(cache_len: int, shard: Optional[tp.SeqShard], lo: int,
+               pos: int) -> Tuple[int, int, int]:
+    """``(start, a, b)``: the first position of this rank's cache block and
+    the allowed positions ``[a, b)`` of it (empty when ``a >= b``)."""
+    start = shard.index * cache_len if shard is not None else 0
+    return start, max(lo, start), min(pos + 1, start + cache_len)
+
+
+def _write_own(cache: torch.Tensor, new: torch.Tensor, pos: int,
+               start: int) -> None:
+    """Store ``new`` at ``pos`` if this rank's block holds it."""
+    if start <= pos < start + cache.shape[1]:
+        _write(cache, new, pos - start)
+
+
+def _partial_attend(logits: torch.Tensor, values: torch.Tensor,
+                    spec: str, shard: Optional[tp.SeqShard]) -> torch.Tensor:
+    """Attention from float32 ``logits`` (..., n) over this rank's ``n``
+    allowed positions (n may be 0) and their ``values``: the rank's row
+    maximum, sum of exponentials and weighted values, merged over the
+    ranks that hold the other positions; ``spec`` the einsum of
+    probabilities and values.  Float32."""
+    if logits.shape[-1]:
+        m = logits.amax(dim=-1)
+    else:
+        m = torch.full(logits.shape[:-1], NEG, device=logits.device)
+    e = torch.exp(logits - m[..., None])
+    o = torch.einsum(spec, e, values.float())
+    return tp.merge_partial_attention(m, e.sum(dim=-1), o, shard)
+
+
+def _sharded_decode(p, cfg, x, cache, pos, shard, positions, q, k_new, v_new,
+                    axis):
+    """GQA decode on a mesh: the cache's heads all or this rank's (the
+    model axis on ``act_kv``), its positions all or a block
+    (``act_kv_seq``); whole heads gather the query heads first and cut the
+    rank's back out of the output for the row-parallel ``wo``."""
+    B, H, D = x.shape[0], cfg.n_heads, cfg.head_dim
+    whole = cache["k"].shape[2] == cfg.n_kv_heads
+    if whole and axis is not None:
+        q = tp.gather_from_model(q, 2, axis)
+        k_new, v_new = _whole_kv(p, cfg, x, positions, k_new, v_new, axis)
+    lo = max(pos - cfg.sliding_window + 1, 0) if cfg.sliding_window else 0
+    start, a, b = _own_range(cache["k"].shape[1], shard, lo, pos)
+    _write_own(cache["k"], k_new, pos, start)
+    _write_own(cache["v"], v_new, pos, start)
+    kc = cache["k"][:, max(a - start, 0):max(b - start, 0)].to(q.dtype)
+    vc = cache["v"][:, max(a - start, 0):max(b - start, 0)].to(q.dtype)
+    Hq, K = q.shape[2], kc.shape[2]
+    qg = q.reshape(B, 1, K, Hq // K, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          kc.float()) / math.sqrt(D)
+    out = _partial_attend(logits, vc, "bkgqs,bskd->bkgqd", shard)
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, 1, Hq, D)
+    if whole and axis is not None:
+        h0, h1 = axis.slice(H)
+        out = out[:, :, h0:h1]
+    return tp.reduce_from_model(dense_apply(p["wo"], out.reshape(B, 1, -1)),
+                                axis)
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +363,21 @@ def mla_param_axes(cfg) -> Params:
     }
 
 def _mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """``(q_nope, q_rope, c_kv, k_rope, axis)``: the rank's query heads,
+    the latent and the shared rotary key (every rank computes them, their
+    replicated weights through *f* on a split block)."""
     dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    axis = tp.split_by(p["wq"]["kernel"].shape[1], cfg.n_heads)
+    x = tp.copy_to_model(x, axis)
     q = dense_apply(p["wq"], x)                              # (B,S,H,dn+dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    kv = dense_apply(p["wkv_a"], x)                          # (B,S,r+dr)
-    c_kv = rms_norm(p["kv_norm"], kv[..., :r])
+    kv = dense_apply({"kernel": tp.copy_to_model(p["wkv_a"]["kernel"], axis)},
+                     x)                                      # (B,S,r+dr)
+    c_kv = rms_norm({"scale": tp.copy_to_model(p["kv_norm"]["scale"], axis)},
+                    kv[..., :r])
     k_rope = apply_rope(kv[:, :, None, r:], positions, cfg.rope_theta)
-    return q_nope, q_rope, c_kv, k_rope          # k_rope: (B,S,1,dr)
+    return q_nope, q_rope, c_kv, k_rope, axis    # k_rope: (B,S,1,dr)
 
 
 def _mla_block(p: Params, cfg, q_nope, q_rope, c_kv, k_rope, q0: int,
@@ -246,7 +402,7 @@ def _mla_block(p: Params, cfg, q_nope, q_rope, c_kv, k_rope, q0: int,
 
 
 def _mla_attend(p: Params, cfg, q_nope, q_rope, c_kv, k_rope,
-                spec: MaskSpec) -> torch.Tensor:
+                spec: MaskSpec, axis=None) -> torch.Tensor:
     B, Sq = q_nope.shape[:2]
     if Sq <= DIRECT_ATTEND_MAX:
         out = _mla_block(p, cfg, q_nope, q_rope, c_kv, k_rope, 0, spec)
@@ -254,7 +410,8 @@ def _mla_attend(p: Params, cfg, q_nope, q_rope, c_kv, k_rope,
         out = _q_blocks(lambda qn, qr, q0: _mla_block(
             p, cfg, qn, qr, c_kv, k_rope, q0, spec), [q_nope, q_rope],
             min(cfg.attn_block_q, Sq))
-    return dense_apply(p["wo"], out.reshape(B, Sq, -1))
+    return tp.reduce_from_model(dense_apply(p["wo"], out.reshape(B, Sq, -1)),
+                                axis)
 
 
 def mla_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -266,30 +423,47 @@ def mla_prefill(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
                 spec: MaskSpec
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full-sequence forward and its latent cache ``{"c_kv": (B, S, r),
-    "k_rope": (B, S, 1, dr)}``."""
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    y = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, spec)
+    "k_rope": (B, S, 1, dr)}`` (every rank's whole: the latent is not split
+    by heads)."""
+    q_nope, q_rope, c_kv, k_rope, axis = _mla_qkv(p, cfg, x, positions)
+    y = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, spec, axis)
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
 def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               pos: int, shard: Optional[tp.SeqShard] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode on the latent cache (written at ``pos`` in place),
-    with the up-projection of K absorbed into the query."""
+    with the up-projection of K absorbed into the query.  On a mesh the
+    cache holds this rank's block of positions (``shard``) and the heads
+    run split: the latent queries of all heads are gathered, each rank
+    attends its positions, the partial results are merged, and the rank's
+    heads of the latent context go through its ``wv_b`` and ``wo``."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, positions)
-    _write(cache["c_kv"], c_new, pos)
-    _write(cache["k_rope"], kr_new, pos)
-    ckc = cache["c_kv"][:, :pos + 1].to(x.dtype)     # fp8 storage: compute
-    krc = cache["k_rope"][:, :pos + 1].to(x.dtype)   # in the model dtype
+    q_nope, q_rope, c_new, kr_new, axis = _mla_qkv(p, cfg, x, positions)
+    start, a, b = _own_range(cache["c_kv"].shape[1], shard, 0, pos)
+    _write_own(cache["c_kv"], c_new, pos, start)
+    _write_own(cache["k_rope"], kr_new, pos, start)
+    ckc = cache["c_kv"][:, max(a - start, 0):max(b - start, 0)].to(x.dtype)
+    krc = cache["k_rope"][:, max(a - start, 0):max(b - start, 0)].to(x.dtype)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
                          p["wk_b"]["kernel"].to(q_nope.dtype))
+    q_lat = tp.gather_from_model(q_lat, 2, axis)
+    q_rope = tp.gather_from_model(q_rope, 2, axis)
     logits = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckc.float())
               + torch.einsum("bqhd,bsod->bhqs", q_rope.float(), krc.float()))
     logits = logits / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    probs = torch.softmax(logits, dim=-1).to(ckc.dtype)
-    ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckc)
+    if axis is None and shard is None:
+        probs = torch.softmax(logits, dim=-1).to(ckc.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckc)
+    else:
+        ctx = _partial_attend(logits, ckc, "bhqs,bsr->bhqr", shard
+                              ).to(ckc.dtype).transpose(1, 2)
+        if axis is not None:
+            h0, h1 = axis.slice(cfg.n_heads)
+            ctx = ctx[:, :, h0:h1]
     out = torch.einsum("bqhr,rhd->bqhd", ctx,
                        p["wv_b"]["kernel"].to(ctx.dtype))
-    return dense_apply(p["wo"], out.reshape(B, 1, -1)), cache
+    return tp.reduce_from_model(dense_apply(p["wo"], out.reshape(B, 1, -1)),
+                                axis), cache

@@ -84,11 +84,17 @@ def sinusoidal_positions(seq_len: int, dim: int, offset: int = 0,
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          z_loss: float = 0.0) -> torch.Tensor:
-    """Token-mean xent; logits (B,S,V) any float dtype, labels (B,S) int."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+                          z_loss: float = 0.0, vocab_start: int = 0,
+                          axis=None) -> torch.Tensor:
+    """Token-mean xent; logits (B,S,V) any float dtype, labels (B,S) int.
+    Vocab-parallel with ``axis`` (a ``tensor_parallel.ModelAxis``): the
+    logits are this rank's columns from ``vocab_start`` on, and the
+    log-partition and the label's logit are reduced over the model group
+    (``tensor_parallel.vocab_parallel_lse_gold``)."""
+    from ..distributed.tensor_parallel import vocab_parallel_lse_gold
+
+    lse, gold = vocab_parallel_lse_gold(logits.float(), labels, vocab_start,
+                                        axis)
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * lse ** 2

@@ -29,7 +29,19 @@ the exchange.
 Multi-device (:mod:`..distributed.sharding`): :meth:`StagedLM.param_axes`
 names every parameter's dimensions with logical axes; with
 :attr:`StagedLM.gather` set, every stage function first turns its DTensor
-parameters into plain tensors (ZeRO-3).
+parameters into plain tensors (ZeRO-3), each as
+:meth:`StagedLM.gather_modes` says.  Where the mesh's model axis has more
+than one member the model-sharded weights stay this rank's shards and the
+blocks run split (:mod:`..distributed.tensor_parallel`): attention by
+heads, the MLP by columns, Mamba2 by SSM heads, the embedding and the head
+by vocabulary rows (a vocab-parallel lookup, and a vocab-parallel
+cross-entropy).
+
+Serving on a mesh (:meth:`StagedLM.cache_axes`): ``init_cache(mesh=,
+rules=)`` allocates each rank's shard of the cache that ``spec_for`` gives
+it (under ``DECODE_RULES`` the KV sequence on the model axis), prefill runs
+the blocks split and keeps the rank's part of the cache, and decode merges
+the ranks' partial attention.
 
 Serving: :meth:`StagedLM.prefill` runs a prompt and fills the decode cache,
 :meth:`StagedLM.decode_step` runs one token against it.  The cache is one
@@ -66,6 +78,8 @@ import torch.nn.functional as F
 
 from ..core.rematerialize import build_remat_fn, remat
 from ..device import resolve_device
+from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
 from ..distributed.sharding import gather as gather_tree
 from ..tree import tensors_of, tree_bytes, tree_map, with_tensors
 from . import attention as attn
@@ -295,21 +309,15 @@ def _apply_block(p: Params, h: torch.Tensor, cfg, kind: str, mask=None,
         y, aux = mlp_mod.moe_apply(p["moe"], cfg, rms_norm(p["ln2"], h))
         return h + y, aux
     return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h),
-                                 cfg.mlp_kind), None
+                                 cfg.mlp_kind, cfg.d_ff), None
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg, kind: str) -> torch.Tensor:
     """The feed-forward half of an attention block (MoE aux dropped)."""
     if kind == "moe":
         return h + mlp_mod.moe_apply(p["moe"], cfg, rms_norm(p["ln2"], h))[0]
-    return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h), cfg.mlp_kind)
-
-
-def _fill(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> None:
-    """Copy a prefill's cache tensors into the leading positions of the
-    preallocated ones (in their dtype)."""
-    for k, t in src.items():
-        dst[k][:, :t.shape[1]].copy_(t)
+    return h + mlp_mod.mlp_apply(p["mlp"], rms_norm(p["ln2"], h), cfg.mlp_kind,
+                                 cfg.d_ff)
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -351,9 +359,67 @@ def _scale_embeddings(cfg, h: torch.Tensor) -> torch.Tensor:
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
 
 
-def _gathering(fn, keep_local, p, a):
+def _gathering(fn, mode_of, p, a):
     """``fn`` on its parameters gathered out of DTensors (ZeRO-3)."""
-    return fn(gather_tree(p, keep_local), a)
+    return fn(gather_tree(p, mode_of), a)
+
+
+def _logits(cfg, head: Params, h: torch.Tensor) -> torch.Tensor:
+    """The head's logits of ``h`` over the whole vocabulary (gathered over
+    the model group where the head holds this rank's rows)."""
+    axis = tp.split_by(head["kernel"].shape[1], cfg.vocab_size)
+    return tp.gather_from_model(dense_apply(head, h), h.ndim - 1, axis)
+
+
+def _cache_axes_one(cfg, kind: str) -> Dict[str, Tuple]:
+    """Logical axes of one layer's decode cache (a Zamba2 shared-block
+    invocation's is a ``dense`` one's on GQA)."""
+    if kind in ("mamba", "zamba"):
+        return {"conv": ("act_batch", None, "act_mlp"),
+                "ssm": ("act_batch", "act_ssm_heads", None, None)}
+    if cfg.attention_kind == "mla":
+        return {"c_kv": ("act_batch", "act_kv_seq", None),
+                "k_rope": ("act_batch", "act_kv_seq", None, None)}
+    return {"k": ("act_batch", "act_kv_seq", "act_kv", None),
+            "v": ("act_batch", "act_kv_seq", "act_kv", None)}
+
+
+def _local_shape(shape, axes, mesh, rules) -> Tuple[int, ...]:
+    """A tensor's shard shape under ``spec_for(axes, shape, mesh, rules)``."""
+    sizes = shd.mesh_shape(mesh)
+    out = []
+    for dim, entry in zip(shape, shd.spec_for(axes, shape, mesh, rules)):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                dim //= sizes[a]
+        out.append(dim)
+    return tuple(out)
+
+
+def _fill_shard(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
+                shard) -> None:
+    """Copy a prefill's cache tensors (B, S, ...) into the leading
+    positions of the preallocated ones (in their dtype): this rank's block
+    of the positions (``shard``: a ``tensor_parallel.SeqShard`` of the
+    sequence, or ``None``: all of them)."""
+    for k, t in src.items():
+        n = dst[k].shape[1]
+        start = shard.index * n if shard is not None else 0
+        part = t[:, start:start + n]
+        dst[k][:, :part.shape[1]].copy_(part)
+
+
+def _fill_ssm(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]
+              ) -> None:
+    """A Mamba2 prefill's cache into this rank's: the SSM state of its
+    heads, and its block of the conv channels where ``act_mlp`` cuts
+    them."""
+    conv = src["conv"]
+    if dst["conv"].shape[-1] < conv.shape[-1]:
+        c0, c1 = tp.model_slice(conv.shape[-1])
+        conv = conv[..., c0:c1]
+    dst["conv"].copy_(conv)
+    dst["ssm"].copy_(src["ssm"])
 
 
 # ---------------------------------------------------------------------------
@@ -366,10 +432,12 @@ class StagedLM:
     def __init__(self, cfg: ModelConfig):
         _check_supported(cfg)
         self.cfg = cfg
-        #: ``None``, or ``keep_local(path) -> bool``: then each stage gathers
-        #: its DTensor parameters into plain tensors before it runs, but
-        #: those ``keep_local`` accepts (a stage-parameter path such as
-        #: ``chunk/moe/we_up/kernel``), which stay this rank's shards
+        #: ``None``, or ``mode_of(path)``: then each stage gathers its
+        #: DTensor parameters into plain tensors before it runs, each as
+        #: ``mode_of`` says for its stage-parameter path (such as
+        #: ``chunk/moe/we_up/kernel``): a ``sharding.GATHER_MODES`` entry,
+        #: or a bool (``True``: keep this rank's shard); see
+        #: :meth:`gather_modes`
         self.gather = None
 
     # -- parameters -------------------------------------------------------
@@ -411,6 +479,35 @@ class StagedLM:
         axes["head"] = {"kernel": ("embed", "vocab")}
         return axes
 
+    def gather_modes(self, mesh: Any):
+        """``mode_of(path)`` for :attr:`gather` on ``mesh``: a routed
+        expert under expert parallelism stays ``local``; with a model axis
+        of more than one member every block that splits over it (its heads,
+        SSM heads, columns or vocabulary rows divide the axis) keeps its
+        model shards (``data``), Mamba2's fused ``in_proj`` is taken whole
+        with its gradient summed over the model axis (``partial``), and a
+        block that cannot split is gathered whole (``full``)."""
+        cfg = self.cfg
+        M = shd.mesh_shape(mesh).get(shd.MODEL, 1)
+        ep = mlp_mod.ep_width(cfg, mesh) > 1
+        ssm_heads = m2._dims(cfg)[1]
+
+        def mode_of(path: str) -> str:
+            if ep and mlp_mod.is_routed_expert(path):
+                return "local"
+            if M == 1:
+                return "full"
+            if "mixer/" in path:
+                if ssm_heads % M:
+                    return "full"
+                return ("partial" if path.endswith("mixer/in_proj/kernel")
+                        else "data")
+            if "attn/" in path and cfg.n_heads % M:
+                return "full"
+            return "data"
+
+        return mode_of
+
     # -- stage functions (the rotor chain) ---------------------------------
 
     def n_stages(self) -> int:
@@ -448,7 +545,8 @@ class StagedLM:
                                            device=emb.device
                                            ).to(cfg.dtype)[None]
         else:
-            h = F.embedding(batch["tokens"], p["table"]).to(cfg.dtype)
+            h = tp.vocab_parallel_embedding(batch["tokens"], p["table"],
+                                            cfg.vocab_size).to(cfg.dtype)
             if cfg.modality == "vlm":    # [image prefix] + [text tokens]
                 h = torch.cat([batch["image_embeds"].to(cfg.dtype), h], dim=1)
         h = _scale_embeddings(cfg, h)
@@ -485,14 +583,21 @@ class StagedLM:
         h = rms_norm(p["final_norm"], a["h"])
         if cfg.modality == "vlm" and cfg.prefix_len:
             h = h[:, cfg.prefix_len:]    # no loss on the image prefix
+        # vocab-parallel where the head holds this rank's rows: *f* on its
+        # input, the log-partition and label logit reduced over the group
+        axis = tp.split_by(p["head"]["kernel"].shape[1], cfg.vocab_size)
+        h = tp.copy_to_model(h, axis)
+        start = tp.model_slice(cfg.vocab_size)[0] if axis is not None else 0
         if cfg.logits_chunk:
             from ..kernels.xent import ops as xent_ops
             loss = xent_ops.token_chunked_xent(
                 h, p["head"]["kernel"], a["labels"], a["mask"],
-                block=cfg.logits_chunk, z_loss=cfg.z_loss)
+                block=cfg.logits_chunk, z_loss=cfg.z_loss,
+                vocab_start=start, axis=axis)
         else:
             loss = softmax_cross_entropy(dense_apply(p["head"], h),
-                                         a["labels"], a["mask"], cfg.z_loss)
+                                         a["labels"], a["mask"], cfg.z_loss,
+                                         vocab_start=start, axis=axis)
         return loss + a["aux"]
 
     def stage_fns(self) -> List[Any]:
@@ -542,7 +647,8 @@ class StagedLM:
         for i in range(len(self.cfg.chunks)):
             a = self._chunk_stage(i, sp[i + 1], a)
         h = a["h"] if at is None else a["h"][:, at]
-        return dense_apply(params["head"], rms_norm(params["final_norm"], h))
+        return _logits(self.cfg, params["head"],
+                       rms_norm(params["final_norm"], h))
 
     def _shared_starts(self) -> List[int]:
         """The layers that open a Zamba2 period: each invokes the shared
@@ -557,35 +663,64 @@ class StagedLM:
         ci, off = self.cfg.layer_slices[j]
         return tree_map(lambda t: t[off], params["chunks"][ci])
 
-    def init_cache(self, batch: int, max_len: int, device=None) -> Dict:
+    def init_cache(self, batch: int, max_len: int, device=None, *,
+                   mesh: Any = None, rules=None) -> Dict:
         """A zeroed decode cache: attention KV in ``kv_cache_dtype`` (the
         model dtype if unset), the Zamba2 shared KV in the model dtype and
         the SSM states as :func:`..mamba2.mamba2_init_cache`, as the JAX
         package's ``init_cache`` lays them out; ``device="meta"`` allocates
-        nothing."""
+        nothing.  On a ``mesh`` (under ``rules``) each tensor is this rank's
+        shard of it, as ``spec_for(cache_axes, shape, mesh, rules)`` cuts
+        it, and ``kv_shard`` says which block of the sequence it holds
+        (``tensor_parallel.kv_seq_shard``)."""
         cfg = self.cfg
         dev = resolve_device(device)
         cdt = cfg.kv_cache_dtype or cfg.dtype
+        shape_of = (lambda shape, axes: shape) if mesh is None else \
+            functools.partial(_local_shape, mesh=mesh, rules=rules)
 
-        def zeros(*shape, dtype=cdt):
-            return torch.zeros(shape, dtype=dtype, device=dev)
+        def kv(dtype, *shape):
+            axes = ("act_batch", "act_kv_seq", "act_kv", None)[:len(shape)]
+            return torch.zeros(shape_of(shape, axes), dtype=dtype, device=dev)
 
         layers = []
         for kind in cfg.layer_kinds:
             if kind in ("mamba", "zamba"):
-                layers.append(m2.mamba2_init_cache(cfg, batch, cfg.dtype, dev))
+                whole = m2.mamba2_init_cache(cfg, batch, cfg.dtype, "meta")
+                axes = _cache_axes_one(cfg, kind)
+                layers.append({k: torch.zeros(shape_of(t.shape, axes[k]),
+                                              dtype=t.dtype, device=dev)
+                               for k, t in whole.items()})
             elif cfg.attention_kind == "mla":
                 layers.append({
-                    "c_kv": zeros(batch, max_len, cfg.kv_lora_rank),
-                    "k_rope": zeros(batch, max_len, 1, cfg.qk_rope_head_dim)})
+                    "c_kv": kv(cdt, batch, max_len, cfg.kv_lora_rank),
+                    "k_rope": torch.zeros(shape_of(
+                        (batch, max_len, 1, cfg.qk_rope_head_dim),
+                        ("act_batch", "act_kv_seq", None, None)), dtype=cdt,
+                        device=dev)})
             else:
                 layers.append({
-                    "k": zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-                    "v": zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim)})
-        shared = [{k: zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                            dtype=cfg.dtype) for k in ("k", "v")}
+                    "k": kv(cdt, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                    "v": kv(cdt, batch, max_len, cfg.n_kv_heads,
+                            cfg.head_dim)})
+        shared = [{k: kv(cfg.dtype, batch, max_len, cfg.n_kv_heads,
+                         cfg.head_dim) for k in ("k", "v")}
                   for _ in self._shared_starts()]
-        return {"pos": 0, "layers": layers, "shared": shared}
+        cache = {"pos": 0, "layers": layers, "shared": shared}
+        if mesh is not None:
+            cache["kv_shard"] = tp.kv_seq_shard(batch, max_len, mesh, rules)
+        return cache
+
+    def cache_axes(self) -> Dict:
+        """Logical sharding axes of the decode cache, in :meth:`init_cache`'s
+        layout (one dict per layer and per shared-block invocation) — the
+        JAX package's ``cache_axes`` without its stacked dimension."""
+        cfg = self.cfg
+        return {"pos": (),
+                "layers": [_cache_axes_one(cfg, kind)
+                           for kind in cfg.layer_kinds],
+                "shared": [_cache_axes_one(cfg, "dense")
+                           for _ in self._shared_starts()]}
 
     def cache_layout(self, batch: int, max_len: int) -> CacheLayout:
         """Byte layout of the decode cache, sized from :meth:`init_cache` on
@@ -621,11 +756,25 @@ class StagedLM:
                 max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
         """Run a full prompt (``batch`` as :meth:`forward_logits` takes it);
         returns ``(last-position logits (B, 1, V), decode cache)`` with room
-        for ``max_len`` positions (a VLM's image prefix counts)."""
+        for ``max_len`` positions (a VLM's image prefix counts).  Under an
+        active mesh (``sharding.axis_rules``) ``batch`` is the whole batch:
+        the rank runs its rows (where ``act_batch`` cuts them), the blocks
+        split over the model axis, and keeps its shard of the cache
+        (:meth:`init_cache` on the mesh); the logits are its rows'."""
         cfg = self.cfg
+        mesh = shd.current_mesh()
+        x = batch["embeds" if cfg.modality == "audio_embed" else "tokens"]
+        B_all = x.shape[0]
+        rows = tp.batch_shard(B_all) if mesh is not None else None
+        if rows is not None:
+            n = B_all // rows.count
+            batch = {k: v[rows.index * n:(rows.index + 1) * n]
+                     for k, v in batch.items()}
         h = self._embed_stage_nolabel(params["embed"], batch)["h"]
         B, S = h.shape[:2]
-        cache = self.init_cache(B, max_len or S, device=h.device)
+        cache = self.init_cache(B_all, max_len or S, device=h.device,
+                                mesh=mesh, rules=shd.current_rules())
+        shard = cache.get("kv_shard")
         cache["pos"] = S
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
@@ -633,28 +782,36 @@ class StagedLM:
         starts = self._shared_starts()
         pf = attn.mla_prefill if cfg.attention_kind == "mla" \
             else attn.gqa_prefill
+
+        def whole(dst):
+            return "k" not in dst or dst["k"].shape[2] == cfg.n_kv_heads
+
         for kind, start, length in cfg.chunks:
             if start in starts:
                 sp = params["shared_attn"]
+                dst = cache["shared"][starts.index(start)]
                 y, kv = attn.gqa_prefill(sp["attn"], cfg,
                                          rms_norm(sp["ln1"], h), positions,
-                                         mask)
-                _fill(cache["shared"][starts.index(start)], kv)
+                                         mask, whole_kv=whole(dst))
+                _fill_shard(dst, kv, shard)
                 h = _ffn(sp, h + y, cfg, "dense")
             for j in range(start, start + length):
                 lp = self._layer_params(params, j)
                 if kind in ("mamba", "zamba"):
                     y, c = m2.mamba2_prefill(lp["mixer"], cfg,
                                              rms_norm(lp["ln"], h))
-                    _fill(cache["layers"][j], c)
+                    _fill_ssm(cache["layers"][j], c)
                     h = h + y
                 else:
+                    dst = cache["layers"][j]
+                    kw = ({} if pf is attn.mla_prefill
+                          else {"whole_kv": whole(dst)})
                     y, kv = pf(lp["attn"], cfg, rms_norm(lp["ln1"], h),
-                               positions, mask)
-                    _fill(cache["layers"][j], kv)
+                               positions, mask, **kw)
+                    _fill_shard(dst, kv, shard)
                     h = _ffn(lp, h + y, cfg, kind)
         h = rms_norm(params["final_norm"], h[:, -1:])
-        return dense_apply(params["head"], h), cache
+        return _logits(cfg, params["head"], h), cache
 
     @torch.no_grad()
     def decode_step(self, params: Params, cache: Dict, tokens: torch.Tensor,
@@ -666,15 +823,18 @@ class StagedLM:
         returned with the logits (B, 1, V).  ``residency`` (a
         :mod:`..runtime.kv_residency` stager) is called around each layer:
         ``before_layer(cache, j)`` brings layer ``j``'s block to the card,
-        ``after_layer(cache, j)`` may send it back."""
+        ``after_layer(cache, j)`` may send it back.  On a mesh ``tokens``
+        are this rank's rows and the cache its shard (:meth:`prefill`'s)."""
         cfg = self.cfg
         pos = cache["pos"]
+        shard = cache.get("kv_shard")
         if cfg.modality == "audio_embed":
             h = tokens.to(cfg.dtype) + sinusoidal_positions(
                 1, cfg.d_model, offset=pos, device=tokens.device
             ).to(cfg.dtype)[None]
         else:
-            h = F.embedding(tokens, params["embed"]["table"]).to(cfg.dtype)
+            h = tp.vocab_parallel_embedding(tokens, params["embed"]["table"],
+                                            cfg.vocab_size).to(cfg.dtype)
         h = _scale_embeddings(cfg, h)
         starts = self._shared_starts()
         dec = attn.mla_decode if cfg.attention_kind == "mla" \
@@ -686,7 +846,8 @@ class StagedLM:
                 sp = params["shared_attn"]
                 y, _ = attn.gqa_decode(sp["attn"], cfg,
                                        rms_norm(sp["ln1"], h),
-                                       cache["shared"][starts.index(j)], pos)
+                                       cache["shared"][starts.index(j)], pos,
+                                       shard)
                 h = _ffn(sp, h + y, cfg, "dense")
             lp = self._layer_params(params, j)
             if kind in ("mamba", "zamba"):
@@ -696,10 +857,10 @@ class StagedLM:
                 h = h + y
             else:
                 y, _ = dec(lp["attn"], cfg, rms_norm(lp["ln1"], h),
-                           cache["layers"][j], pos)
+                           cache["layers"][j], pos, shard)
                 h = _ffn(lp, h + y, cfg, kind)
             if residency is not None:
                 residency.after_layer(cache, j)
         cache["pos"] = pos + 1
         h = rms_norm(params["final_norm"], h)
-        return dense_apply(params["head"], h), cache
+        return _logits(cfg, params["head"], h), cache

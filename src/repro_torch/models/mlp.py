@@ -15,6 +15,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.rematerialize import kept
+from ..distributed import tensor_parallel as tp
 from ..distributed.sharding import all_reduce, all_to_all
 from .common import dense_apply, dense_init, truncated_normal_init
 
@@ -47,8 +48,16 @@ def mlp_param_axes(kind: str = "swiglu") -> Params:
     return {"wi": {"kernel": ("embed", "mlp")},
             "wo": {"kernel": ("mlp", "embed")}}
 
-def mlp_apply(p: Params, x: torch.Tensor, kind: str = "swiglu"
-              ) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, kind: str = "swiglu",
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The feed-forward of ``x``.  Where the weights hold this rank's share
+    of ``d_ff`` hidden columns (model-axis tensor parallelism), the block
+    runs split: *f*, the column-parallel ``wi_*``, the row-parallel ``wo``
+    and *g*."""
+    wi = p["wi_gate" if kind in ("swiglu", "geglu") else "wi"]["kernel"]
+    axis = tp.split_by(wi.shape[1], d_ff if d_ff is not None
+                       else wi.shape[1])
+    x = tp.copy_to_model(x, axis)
     if kind == "swiglu":
         h = F.silu(dense_apply(p["wi_gate"], x)) * dense_apply(p["wi_up"], x)
     elif kind == "geglu":
@@ -56,7 +65,7 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str = "swiglu"
              * dense_apply(p["wi_up"], x))
     else:
         h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
-    return dense_apply(p["wo"], h)
+    return tp.reduce_from_model(dense_apply(p["wo"], h), axis)
 
 
 # -- mixture of experts ---------------------------------------------------------
@@ -215,7 +224,8 @@ def moe_apply(p: Params, cfg, x: torch.Tensor):
                   p["we_up"]["kernel"], p["we_down"]["kernel"])
     y = _combine(ys.reshape(-1, d), slot, keep, gate_vals, k)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt, "swiglu")
+        y = y + mlp_apply(p["shared"], xt, "swiglu",
+                          cfg.moe_d_ff * cfg.num_shared_experts)
     return y.reshape(B, S, d), _aux(cfg, probs, eidx)
 
 
@@ -312,7 +322,8 @@ def moe_apply_ep(p: Params, cfg, x: torch.Tensor, group,
     rows = _AllToAll.apply(back, group).reshape(E * cap, d)
     y = _combine(rows, slot, keep, gate_vals, k)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt, "swiglu")
+        y = y + mlp_apply(p["shared"], xt, "swiglu",
+                          cfg.moe_d_ff * cfg.num_shared_experts)
     aux = _aux(cfg, probs, eidx)
     if dp_group is not None:
         aux = _MeanValue.apply(aux, dp_group)

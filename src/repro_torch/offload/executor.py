@@ -114,8 +114,9 @@ def execute_offload_schedule(
     waits: list = []
     final_out = None
     peak_live = 0
-    param_ids = {t.untyped_storage().data_ptr()
-                 for t in tensors_of(list(params))}
+    # a DTensor parameter's storage is its shard's
+    param_ids = {getattr(t, "to_local", lambda: t)().untyped_storage()
+                 .data_ptr() for t in tensors_of(list(params))}
     # the allocator's peaks: the largest, and the largest less the parameter
     # gradients made by then
     peaks = {"peak": 0, "act": 0, "grads": 0}

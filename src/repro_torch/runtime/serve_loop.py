@@ -70,11 +70,27 @@ def _make_residency(model, layout, tracer, *, plan, kv_policy, kv_budget,
                  tracer=tracer)
 
 
+def _whole_batch(rows: np.ndarray, batch: int, mesh, rules) -> np.ndarray:
+    """This rank's generated rows → the whole batch's, gathered over the
+    ranks that ``act_batch`` cuts it over (unchanged when it is not)."""
+    import torch.distributed as dist
+
+    from ..distributed import tensor_parallel as tp
+
+    block = tp.batch_shard(batch, mesh, rules)
+    if block is None:
+        return rows
+    parts: List[Any] = [None] * block.count
+    dist.all_gather_object(parts, (block.index, rows), group=block.group)
+    return np.concatenate([r for _, r in sorted(parts, key=lambda x: x[0])])
+
+
 def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
                 model: Optional[StagedLM] = None, tracer=None, *, plan=None,
                 kv_policy: Optional[str] = None,
                 kv_budget: Optional[float] = None, host=None,
-                host_buffer=None, device=None) -> Dict[str, Any]:
+                host_buffer=None, device=None, mesh=None,
+                rules=None) -> Dict[str, Any]:
     """Serve ``prompts`` ((B, S0) int token batch) with ``params`` on
     ``device`` (CUDA unless the caller says otherwise; the parameters must
     live there).  Returns the JAX package's keys — ``generations`` (B, T),
@@ -96,6 +112,19 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
     :meth:`MemoryPlan.verify` raises ``PlanVerificationError``.
     ``host_buffer`` supplies the host pool (default: unbounded).
 
+    ``mesh`` (a ``(data, model)`` ``DeviceMesh`` over the default process
+    group, every rank calling ``run_serving`` alike with the whole
+    ``prompts`` and the whole ``params``) serves under ``rules``
+    (``DECODE_RULES`` by default; ``LONG_CONTEXT_RULES`` for a batch too
+    small to cut): each rank keeps its shard of the parameters
+    (:func:`..launch.steps.serving_params`: the model-sharded weights of a
+    tensor-parallel block) and of the whole cache (the KV sequence over
+    the model axis under ``DECODE_RULES``), runs its rows of the batch
+    where ``act_batch`` cuts it, and every rank returns the whole
+    ``generations``.  The result adds ``kv_bytes_local``, the bytes of this
+    rank's cache.  A residency plan or policy on a mesh raises
+    ``NotImplementedError``: the JAX package plans no residency on a mesh.
+
     ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`, opt-in) records a
     ``Step`` span for the prefill and one ``Decode`` span per decode step,
     on the host clock after the step's tokens reached the host, each with
@@ -103,6 +132,24 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
     booked ``Foff``/``Prefetch`` transfers at their modeled length."""
     dev = resolve_device(device)
     model = model or StagedLM(cfg)
+    if mesh is not None:
+        if plan is not None or kv_policy is not None:
+            raise NotImplementedError(
+                "run_serving on a mesh keeps the whole cache on the devices: "
+                "the JAX package plans no KV residency on a mesh, so plan= "
+                "and kv_policy= are single-device only")
+        from ..distributed import sharding as shd
+        from ..launch.steps import make_prefill_step, make_serve_step, \
+            serving_params
+        params = serving_params(model, params, mesh)
+        rules = rules or shd.DECODE_RULES
+        prefill = make_prefill_step(model, mesh, rules)
+        step = make_serve_step(model, mesh, rules)
+    else:
+        def prefill(p, batch, max_len):
+            return model.prefill(p, batch, max_len=max_len)
+
+        step = model.decode_step
     if any(t.device.type != dev.type for t in tensors_of(params)):
         raise ValueError(f"run_serving on {dev}: the parameters live "
                          f"elsewhere")
@@ -136,8 +183,7 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
     base = torch.cuda.memory_allocated(dev) if cuda else 0
     ts0 = tracer.now() if rec else 0.0
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  max_len=loop.max_len)
+    logits, cache = prefill(params, {"tokens": tokens}, loop.max_len)
     next_tok = torch.argmax(logits[:, -1], dim=-1)
     sync()
     t_prefill = time.perf_counter() - t0
@@ -157,7 +203,7 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
         kv_held.append(held())
 
     out_tokens: List[np.ndarray] = [next_tok.cpu().numpy()]
-    done = np.zeros((B,), bool)
+    done = np.zeros((next_tok.shape[0],), bool)
     if loop.eos_id is not None:
         done |= out_tokens[0] == loop.eos_id
     decode_tokens = 0
@@ -169,8 +215,8 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
         ts = time.perf_counter()
         if residency is not None:
             residency.begin_step(cache)
-        logits, cache = model.decode_step(params, cache, next_tok[:, None],
-                                          residency=residency)
+        logits, cache = step(params, cache, next_tok[:, None],
+                             residency=residency)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         del logits
         toks = next_tok.cpu().numpy()
@@ -201,8 +247,11 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
     sync()
     t_decode = time.perf_counter() - t0
     obs_metrics.counter("serve.decode_tokens").inc(decode_tokens)
+    generations = np.stack(out_tokens, axis=1)
+    if mesh is not None:
+        generations = _whole_batch(generations, B, mesh, rules)
     out = {
-        "generations": np.stack(out_tokens, axis=1),
+        "generations": generations,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tokens": decode_tokens,
@@ -210,6 +259,9 @@ def run_serving(cfg, params, prompts: np.ndarray, loop: ServeLoopConfig,
         "kv_bytes": kv_bytes,
         "kv_bytes_allocated": layout.allocated_bytes,
     }
+    if mesh is not None:
+        out["kv_bytes_local"] = sum(t.numel() * t.element_size()
+                                    for t in tensors_of(cache))
     if cuda:
         out["device_kv_bytes"] = kv_held
         out["step_peak_bytes"] = step_peaks

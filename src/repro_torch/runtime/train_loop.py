@@ -29,7 +29,6 @@ from ..launch.steps import (local_bytes, make_offload_step, make_train_step,
                             measure_chain, plan_digest, plan_training,
                             shard_tree)
 from ..models.lm import StagedLM
-from ..models.mlp import ep_width, is_routed_expert
 from ..obs import metrics as obs_metrics
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..optim.schedules import linear_warmup_cosine
@@ -128,10 +127,15 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     runs ZeRO-3 (:mod:`repro_torch.distributed.sharding`): parameters and
     moments as DTensors placed by ``StagedLM.param_axes``, each stage
     gathering its own (a MoE's routed experts stay local under expert
-    parallelism), each rank on its slice of the global batch.  All ranks
+    parallelism), each rank on its slice of the global batch.  A model axis
+    of more than one member runs the blocks tensor-parallel over it
+    (``StagedLM.gather_modes``: the model-sharded weights stay this rank's
+    shards, :mod:`repro_torch.distributed.tensor_parallel`).  All ranks
     run one plan: rank 0 measures the chain on CUDA (on its slice of the
-    batch) and sends it to the others, every rank solves on it, and the
-    plans' digests must agree.  Rank 0 alone logs and writes checkpoints.
+    batch; under tensor parallelism every rank measures with it in
+    lockstep, since the split stages issue collectives, so the chain's
+    sizes are one rank's) and sends it to the others, every rank solves on
+    it, and the plans' digests must agree.  Rank 0 alone logs and writes checkpoints.
     A two-tier plan only (no offload walker, no tracer).  The result adds
     ``plan_digest``, ``param_bytes_local`` (this rank's parameter bytes)
     and ``collective_bytes``: the collectives of the first step, counted
@@ -158,17 +162,33 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                     else loop.data_host_index),
         hosts=per)
     policy = loop.policy if loop.policy is not None else cfg.remat_policy
-    if chain is None and dev.type == "cuda" and policy != "none" and rank == 0:
+    split = mesh is not None and shd.mesh_shape(mesh).get(shd.MODEL, 1) > 1
+    measure = chain is None and dev.type == "cuda" and policy != "none"
+
+    def measured(p):
         t0 = time.perf_counter()
-        chain = measure_chain(model, params, data.device_batch(0, dev),
-                              log_fn=log_fn)
-        log_fn(f"[plan] chain of {chain.length + 1} stages measured on "
+        out = measure_chain(model, p, data.device_batch(0, dev),
+                            log_fn=log_fn)
+        log_fn(f"[plan] chain of {out.length + 1} stages measured on "
                f"{dev} in {time.perf_counter() - t0:.2f}s, its stage times "
-               f"inside the chain")
-    if mesh is not None and dev.type == "cuda" and policy != "none":
-        sent = [chain]
-        dist.broadcast_object_list(sent, src=0)
-        chain = sent[0]
+               f"inside the chain" + (" (every rank of the model group in "
+                                      "lockstep, tensor-parallel)"
+                                      if split else ""))
+        return out
+
+    if measure and rank == 0 and not split:
+        chain = measured(params)
+    if mesh is not None:
+        params = shard_tree(params, model.param_axes(), mesh)
+        model.gather = model.gather_modes(mesh)
+        if measure and split:
+            # the split stages issue collectives: every rank measures
+            with shd.axis_rules(mesh):
+                chain = measured(params)
+        if measure:
+            sent = [chain]
+            dist.broadcast_object_list(sent, src=0)
+            chain = sent[0]
     shape = ShapeSpec("train", "train", loop.seq_len, loop.global_batch)
     plan, chain = plan_training(model, input_specs(cfg, shape), policy,
                                 peak_flops=loop.peak_flops,
@@ -196,9 +216,6 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                f"one plan (digest {digest[:16]}); rank 0 reads {data.hosts} "
                f"of {loop.global_batch // data.host_batch} batch slices from "
                f"slice {data.host}")
-        params = shard_tree(params, model.param_axes(), mesh)
-        ep = ep_width(cfg, mesh) > 1
-        model.gather = lambda path: ep and is_routed_expert(path)
     if offload:
         log_fn(f"[offload] three-tier plan: "
                f"{plan.schedule.count('Foff')} host offloads, predicted "

@@ -1398,3 +1398,37 @@ def test_nccl_world1_group_and_expert_exchange(dev):
     exchanges, = run_local(_nccl_world1_rank, 1, backend="nccl",
                            timeout=180.0)
     assert exchanges == {"forward": 2, "backward": 2}
+
+
+def _tp_ops_rank(rank, world):
+    """Megatron's f and g and the gather / scatter along a dimension on CUDA
+    tensors, two gloo ranks sharing the card at mesh (1, 2)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+
+    dev = torch.device("cuda", 0)
+    mesh = shd.make_mesh((1, world), "cuda")
+    axis = tp.model_axis(mesh)
+    x = torch.full((2, 4), rank + 1.0, device=dev, requires_grad=True)
+    y = tp.reduce_from_model(tp.copy_to_model(x, axis), axis)
+    gx, = torch.autograd.grad((y * (rank + 1)).sum(), [x])
+    g = tp.gather_from_model(x, 1, axis)
+    back = tp.scatter_to_model(g * 2, 1, axis)
+    gs, = torch.autograd.grad(back.sum(), [x])
+    return {"y": y.detach().cpu().tolist(), "gx": gx.cpu().tolist(),
+            "g": g.detach().cpu().tolist(), "gs": gs.cpu().tolist(),
+            "slice": tp.model_slice(8, mesh)}
+
+
+def test_tensor_parallel_operators_on_cuda_tensors(dev):
+    from repro_torch.distributed.local import run_local
+
+    ranks = run_local(_tp_ops_rank, 2, timeout=180.0)
+    for rank, r in enumerate(ranks):
+        assert r["y"] == [[3.0] * 4] * 2              # g: summed
+        assert r["gx"] == [[3.0] * 4] * 2             # f: 1 + 2 summed
+        assert r["g"] == [[1.0] * 4 + [2.0] * 4] * 2  # gathered in rank order
+        # scatter's backward gathers the members' gradients, gather's
+        # backward keeps this rank's slice of them
+        assert r["gs"] == [[2.0] * 4] * 2
+        assert r["slice"] == (4 * rank, 4 * rank + 4)

@@ -300,7 +300,7 @@ def _sharded_rank(rank, world, shape, jparams):
     mesh = make_mesh(shape, "cpu")
     cpu = torch.device("cpu")
     model = StagedLM(cfg)
-    model.gather = lambda _: False
+    model.gather = lambda _: "full"
     params = shard_tree(params_from_numpy(jparams, cfg, cpu),
                         model.param_axes(), mesh)
     dp, index = data_position(mesh)
@@ -308,6 +308,11 @@ def _sharded_rank(rank, world, shape, jparams):
     batch = SyntheticLMData(cfg, B, S, host_index=index * per, host_count=2,
                             hosts=per).device_batch(0, cpu)
     grads = _first_step_grads(model, params, batch, mesh, dp)
+    # the same gradients from the blocks run tensor-parallel, as
+    # run_training runs them on a model axis of more than one member
+    model.gather = model.gather_modes(mesh)
+    split_grads = (_first_step_grads(model, params, batch, mesh, dp)
+                   if shape[1] > 1 else None)
     # each rank holds 1/shard_factor of each parameter
     axes = model.param_axes()
     held = []
@@ -319,7 +324,8 @@ def _sharded_rank(rank, world, shape, jparams):
                        mesh=mesh,
                        params=params_from_numpy(jparams, cfg, cpu),
                        log_fn=lambda *_: None)
-    return {"grads": grads, "held": held, "losses": out["losses"],
+    return {"grads": grads, "split_grads": split_grads, "held": held,
+            "losses": out["losses"],
             "gnorms": [r["grad_norm"] for r in out["steps"]],
             "params": _numpy_tree(out["params"]),
             "digest": out["plan_digest"], "slices": out["data_slices"],
@@ -400,17 +406,43 @@ def test_sharded_run_matches_single_process(reference_run, world2, shape):
                                    rtol=1e-5)
         np.testing.assert_allclose(r["gnorms"], reference_run["gnorms"],
                                    rtol=1e-5)
-        for which, atol in (("grads", 1e-6), ("params", 1e-5)):
-            assert r[which].keys() == reference_run[which].keys()
-            for k, want in reference_run[which].items():
-                np.testing.assert_allclose(r[which][k], want, rtol=1e-4,
+        checks = [("grads", "grads", 1e-6), ("params", "params", 1e-5)]
+        if shape[1] > 1:
+            checks.append(("split_grads", "grads", 1e-6))
+        rounding = 0
+        for which, ref, atol in checks:
+            assert r[which].keys() == reference_run[ref].keys()
+            for k, want in reference_run[ref].items():
+                got = r[which][k]
+                if which == "params" and shape[1] > 1:
+                    # tensor parallel: the blocks split their products, so
+                    # an entry whose gradient is zero up to rounding (a
+                    # RoPE pair of the key bias that barely turns, which
+                    # softmax ignores) takes Adam steps whose sign comes
+                    # from other rounding: each such entry is held to the
+                    # largest drift three steps allow, the rest as all are
+                    g = np.abs(reference_run["grads"][k])
+                    noise = (g > 0) & (g <= 1e-5 * g.max())
+                    rounding += int(noise.sum())
+                    assert np.all(np.abs(got[noise] - want[noise])
+                                  <= 2 * LR * STEPS), f"params {k}"
+                    got, want = got[~noise], want[~noise]
+                np.testing.assert_allclose(got, want, rtol=1e-4,
                                            atol=atol, err_msg=f"{which} {k}")
+        # few such entries: 105 of the 197,952 in this configuration
+        entries = sum(v.size for v in reference_run["params"].values())
+        assert rounding <= entries // 1000, (rounding, entries)
         sharded = 0
         for path, local, full, factor in r["held"]:
             assert local * factor == full, (path, local, full, factor)
             sharded += factor > 1
         assert sharded > 0
-        assert r["comm"]["calls"].get("all_gather")
+        if shape[1] > 1:
+            # the blocks ran tensor-parallel: their outputs reduced over
+            # the model group, no parameter gathered along it
+            assert r["comm"]["calls"].get("tp_all_reduce")
+        else:
+            assert r["comm"]["calls"].get("all_gather")
         if dp == 2:
             assert r["comm"]["calls"].get("reduce_scatter")
 

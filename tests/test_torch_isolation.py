@@ -42,13 +42,15 @@ print(json.dumps(names))
     names = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.rmsnorm.kernel" in names
     assert "repro_torch.launch.train" in names
-    for name in ("compression", "fault_tolerance", "local", "sharding"):
+    for name in ("compression", "fault_tolerance", "local", "sharding",
+                 "tensor_parallel"):
         assert f"repro_torch.distributed.{name}" in names
 
 
 def test_scan_covers_the_multi_device_modules():
     scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
-    for name in ("compression", "fault_tolerance", "local", "sharding"):
+    for name in ("compression", "fault_tolerance", "local", "sharding",
+                 "tensor_parallel"):
         assert f"distributed/{name}.py" in scanned
     for name in ("attention", "lm", "mamba2", "mlp"):
         assert f"models/{name}.py" in scanned

@@ -6,8 +6,11 @@ archs (at their published sizes, shapes from ``meta`` tensors and
 and resolves to the same partition spec and shard factor under meshes
 (1, 1), (2, 1), (1, 2), (2, 2) and (4, 2) and all three rule tables; the
 mesh terms of planning (``plan_chain``'s per-device sizes) equal the JAX
-``plan_chain``'s on the same mesh; and ``placements_for`` turns a spec into
-DTensor placements (checked on a mesh stand-in)."""
+``plan_chain``'s on the same mesh; ``placements_for`` turns a spec into
+DTensor placements (checked on a mesh stand-in); and the decode cache's
+logical axes (``StagedLM.cache_axes``, one dict per layer and per shared
+invocation) are the JAX package's per-chunk ones without their stacked
+dimension, for all ten archs."""
 
 from types import SimpleNamespace
 
@@ -135,3 +138,32 @@ def test_placements_follow_the_spec():
                                (2, 8, 4, 4), mesh) == (Replicate(), Shard(1))
     assert pshd.spec_for(("embed",), (6,), None) == ()
     assert pshd.sharding_for(("embed",), (6,), None) is None
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cache_axes_match_jax(arch):
+    cfg = pget(arch)
+    got = PLM(cfg).cache_axes()
+    want = JLM(jget(arch)).cache_axes()
+
+    def unstack(tree):
+        assert all(ax[0] == "stack" for ax in tree.values())
+        return {k: tuple(ax[1:]) for k, ax in tree.items()}
+
+    assert got["pos"] == want["pos"] == ()
+    assert len(got["layers"]) == cfg.num_layers
+    for j, (ci, _) in enumerate(cfg.layer_slices):
+        assert got["layers"][j] == unstack(want["chunks"][ci]), (arch, j)
+    if "shared" in want:
+        assert got["shared"]
+        for one in got["shared"]:
+            assert one == unstack(want["shared"])
+    else:
+        assert got["shared"] == []
+    # the port's init_cache has the layout cache_axes describes
+    spec = PLM(cfg).init_cache(2, 8, device="meta")
+    for k in ("layers", "shared"):
+        for c, ax in zip(spec[k], got[k]):
+            assert c.keys() == ax.keys()
+            for n, t in c.items():
+                assert t.ndim == len(ax[n]), (arch, k, n)

@@ -264,10 +264,22 @@ store-all's by more than 1e-2.
     backward); (c) takes the first two steps and
     checkpoints, (d) restores it at world 1 and takes the third with (a)'s
     loss; the phase's time;
-22. one JSON line describing every kernel (K3's launches also by head
+22. model-axis tensor parallelism and serving on a mesh
+    (``tensor_parallel``);
+23. the roofline on the card (``roofline``): (a) ``H100_SXM.hbm_bytes``
+    equal to the card's ``total_memory``; (b) path 6's model, one step at
+    the measured chain's midpoint counted (``FlopCounterMode`` + K3's
+    FLOPs per launch) against ``train_terms`` within ``FLOP_RATIO_WINDOW``,
+    the median of 3 more steps beside its terms, the share of the bound
+    (max term / step) and MFU; (c) Qwen1.5-4B at 40 layers decoding batch 8
+    on a 2048-position cache against ``decode_terms``; a share above 1.05
+    fails either; (d) ``python -m repro_torch.launch.dryrun --arch
+    qwen1.5-4b --shape train_4k`` at 256 fake ranks, the card hidden: exit
+    0 and ``fits``;
+24. one JSON line describing every kernel (K3's launches also by head
     dim: it must have run at 256 and 64), then the final JSON result line.
 
-Each path (6 to 21) runs with the launch counts set to 0 just before it and
+Each path (6 to 23) runs with the launch counts set to 0 just before it and
 read just after (phase 21's in its torchrun process); a kernel launched on
 none of them fails the run.  Every
 training path's predicted forward+backward activation peak must lie
@@ -2004,6 +2016,216 @@ def tensor_parallel(card: str, plain21: dict) -> dict:
     return launches
 
 
+# Phase 23: the counted FLOPs of the Qwen step (FlopCounterMode + K3's
+# analytic FLOPs per launch) over train_terms' count at mesh 1 on the plan's
+# schedule must fall in this window, stated before the first card run from
+# the same count on fake CPU tensors (tests/test_torch_roofline.py): 0.968
+# store-all, 0.948 at a rotor midpoint of the analytic chain.  Below 1:
+# each layer's replay stops before its last matrix product (the
+# checkpoint's early stop), the analytic count replays the head too, and
+# K3 computes only the causal half of its scores.
+FLOP_RATIO_WINDOW = (0.93, 0.98)
+# decode of phase 23: cache length and new tokens (the prompt fills the rest)
+ROOF_CACHE, ROOF_NEW = 2048, 16
+
+
+def roofline(card: str, chain) -> dict:
+    """Phase 23: the roofline on the card.  (a) ``H100_SXM.hbm_bytes``
+    against the card's memory; (b) Qwen1.5-4B at 8 layers, batch 4 × 2048,
+    rotor at ``chain``'s midpoint (path 6's measured chain): one step
+    counted (``FlopCounterMode`` + K3's FLOPs per launch) against
+    ``train_terms``, the median of 3 more steps beside its terms, the
+    step's share of its bound and MFU; (c) Qwen1.5-4B at 40 layers decoding
+    batch 8 on a 2048-position cache, the median step beside
+    ``decode_terms``; (d) ``python -m repro_torch.launch.dryrun --arch
+    qwen1.5-4b --shape train_4k`` at 256 fake ranks with the card hidden:
+    exit 0, ``fits``.  A share above 1.05 fails: the formula would count
+    work the step does not do.  Returns the launch counts of (b) and
+    (c)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import counters
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.solver import solve_min_memory
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.analytic import decode_terms, train_terms
+    from repro_torch.launch.mesh import H100_SXM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.flops import model_flops_per_step
+    from repro_torch.models.lm import StagedLM
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.plan import resolve_policy
+    from repro_torch.tree import tensors_of
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {}
+
+    def bound_of(terms):
+        return max(terms[k] for k in ("compute_s", "memory_s",
+                                      "collective_s"))
+
+    # (a) the hardware the terms are priced on
+    props = torch.cuda.get_device_properties(0)
+    say(f"[roofline] (a) {props.name}: total_memory {props.total_memory} B, "
+        f"{props.multi_processor_count} SMs; H100_SXM.hbm_bytes "
+        f"{H100_SXM.hbm_bytes} B, peak {H100_SXM.peak_bf16:.6e} FLOP/s bf16, "
+        f"HBM {H100_SXM.hbm_bw:.6e} B/s, NVLink {H100_SXM.nvlink_bw:.6e} "
+        f"B/s, network {H100_SXM.network_bw:.6e} B/s on {card}")
+    if props.total_memory != H100_SXM.hbm_bytes:
+        raise AssertionError(f"H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} B is "
+                             f"not the card's {props.total_memory} B")
+
+    # (b) the training step against its analytic terms
+    cfg = get_config(ARCH, num_layers=LAYERS, layer_kinds=("dense",) * LAYERS,
+                     n_chunks=LAYERS, use_flash_attention=True)
+    model = StagedLM(cfg)
+    mid = (solve_min_memory(chain).mem_limit + chain.store_all_peak()) / 2
+    counters.reset()
+    plan = resolve_policy(f"rotor:{int(mid)}", chain, impl="cuda")
+    params = model.init(0, dev)
+    opt = adamw_init(tensors_of(params))
+    batch = SyntheticLMData(cfg, BATCH, SEQ, seed=0).device_batch(0, dev)
+    step = make_train_step(model, AdamWConfig(), plan.tree)
+    k3_before = counters.snapshot().get(flash_ops.NAME, 0)
+    with FlopCounterMode(display=False) as fc:
+        loss0 = float(step(params, opt, batch, 0)["loss"])
+    torch.cuda.synchronize()
+    k3 = counters.snapshot().get(flash_ops.NAME, 0) - k3_before
+    k3_flops = k3 * flash_ops.kernel_flops(BATCH, SEQ, cfg.n_heads,
+                                           cfg.head_dim)
+    counted = fc.get_total_flops() + k3_flops
+    times, losses = [], [loss0]
+    for i in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, batch, i)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches["roofline_train"] = counters.snapshot()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"roofline (b): non-finite loss {losses}")
+    terms = train_terms(cfg, ShapeSpec("train", "train", SEQ, BATCH), None,
+                        model, chain, plan.schedule)
+    ratio = counted / terms["flops_per_device"]
+    step_s = statistics.median(times)
+    share = bound_of(terms) / step_s
+    mf = model_flops_per_step(cfg, BATCH, SEQ)
+    mfu = mf / (step_s * H100_SXM.peak_bf16)
+    # N counts the embedding table, which a lookup reads and does no FLOPs
+    # on; the second MFU leaves its V·d out (the head stays in)
+    mf_work = mf - 6.0 * cfg.vocab_size * cfg.d_model * BATCH * SEQ
+    mfu_work = mf_work / (step_s * H100_SXM.peak_bf16)
+    say(f"[roofline] (b) {ARCH} at {LAYERS} layers, batch {BATCH} x {SEQ}, "
+        f"rotor:{int(mid)} (ops {json.dumps(plan.op_counts())}) on path 6's "
+        f"measured chain: counted {counted:.6e} FLOP ({fc.get_total_flops():.6e} "
+        f"by FlopCounterMode + {k3} K3 launches x "
+        f"{flash_ops.kernel_flops(BATCH, SEQ, cfg.n_heads, cfg.head_dim)}), "
+        f"train_terms {terms['flops_per_device']:.6e} FLOP: ratio "
+        f"{ratio:.6f} (window {FLOP_RATIO_WINDOW}; below 1: each layer's "
+        f"replay stops before its last matrix product, the analytic count "
+        f"replays the head, K3 computes the causal half) on {card}")
+    say(f"[roofline] (b) step seconds {times} (median {step_s:.6f}); terms "
+        f"compute {terms['compute_s']:.6e} s, memory {terms['memory_s']:.6e} "
+        f"s, collective {terms['collective_s']:.6e} s; share of the bound "
+        f"(max term / step) {share:.6f}; model FLOPs {mf:.6e} (6 N D, N = "
+        f"{mf / 6 / (BATCH * SEQ):.0f}, the embedding table included), "
+        f"MFU {mfu:.6f}; without the table (N = "
+        f"{mf_work / 6 / (BATCH * SEQ):.0f}) MFU {mfu_work:.6f}; against "
+        f"{H100_SXM.peak_bf16:.3e} FLOP/s; losses {losses} on {card}")
+    if not FLOP_RATIO_WINDOW[0] <= ratio <= FLOP_RATIO_WINDOW[1]:
+        raise AssertionError(f"roofline (b): counted / analytic FLOPs "
+                             f"{ratio:.6f} outside {FLOP_RATIO_WINDOW}")
+    if share > 1.05:
+        raise AssertionError(f"roofline (b): the step takes {step_s:.6f} s, "
+                             f"below its analytic bound {bound_of(terms):.6f}"
+                             f" s (share {share:.4f} > 1.05)")
+    del params, opt, batch, step, plan
+    torch.cuda.empty_cache()
+
+    # (c) whole-cache decode against decode_terms
+    dcfg = get_config(ARCH, use_flash_attention=True)
+    dmodel = StagedLM(dcfg)
+    dparams = dmodel.init(0, dev)
+    B = SERVE_BATCH
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, dcfg.vocab_size, (B, ROOF_CACHE - ROOF_NEW)).astype(np.int32)
+    ).to(dev)
+    counters.reset()
+    with torch.no_grad():
+        logits, cache = dmodel.prefill(dparams, {"tokens": prompt},
+                                       max_len=ROOF_CACHE)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        dtimes = []
+        for _ in range(ROOF_NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = dmodel.decode_step(dparams, cache, tok[:, None])
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            torch.cuda.synchronize()
+            dtimes.append(time.perf_counter() - t0)
+    launches["roofline_decode"] = counters.snapshot()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("roofline (c): non-finite decode logits")
+    dterms = decode_terms(dcfg, ShapeSpec("decode", "decode", ROOF_CACHE, B),
+                          None, dmodel)
+    dstep = statistics.median(dtimes)
+    dshare = bound_of(dterms) / dstep
+    say(f"[roofline] (c) {ARCH} at {dcfg.num_layers} layers, batch {B}, "
+        f"cache {ROOF_CACHE} (prompt {ROOF_CACHE - ROOF_NEW}, "
+        f"{ROOF_NEW - 1} decode steps): median step {dstep:.6f} s "
+        f"({B / dstep:.2f} tokens/s; steps {dtimes}); decode_terms memory "
+        f"{dterms['memory_s']:.6e} s ({dterms['hbm_bytes_per_device']:.6e} "
+        f"B), compute {dterms['compute_s']:.6e} s; share of the bound "
+        f"{dshare:.6f}; the bound's rate {B / bound_of(dterms):.2f} tokens/s "
+        f"on {card}")
+    if dshare > 1.05:
+        raise AssertionError(f"roofline (c): the decode step takes "
+                             f"{dstep:.6f} s, below its analytic bound "
+                             f"(share {dshare:.4f} > 1.05)")
+    del dparams, cache, logits
+    torch.cuda.empty_cache()
+
+    # (d) the dry-run at 256 fake ranks, the card hidden
+    out_dir = ROOT / "build" / "dryrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "train_4k", "--out", str(out_dir)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            say(line)
+    if proc.returncode:
+        raise AssertionError(f"roofline (d): the dry-run exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    rec = json.loads((out_dir / f"{ARCH}__train_4k__32x8.json").read_text())
+    an, roof = rec["analytic"], rec["roofline"]
+    say(f"[roofline] (d) dry-run {ARCH} x train_4k at {rec['n_devices']} "
+        f"fake ranks, mesh {rec['mesh']}: exit 0 in {wall:.1f} s, trace_s "
+        f"{rec['trace_s']:.1f}; fits {rec['fits']} (tracked peak "
+        f"{rec['memory']['peak_bytes']:.6e} B, plan "
+        f"{rec['model_memory']['total_bytes']:.6e} B, of "
+        f"{rec['memory']['hbm_bytes']} B); analytic compute "
+        f"{an['compute_s']:.6e} s, memory {an['memory_s']:.6e} s, collective "
+        f"{an['collective_s']:.6e} s ({an['dominant']}); traced compute "
+        f"{roof['compute_s']:.6e} s, memory {roof['memory_s']:.6e} s, "
+        f"collective {roof['collective_s']:.6e} s ({roof['dominant']}), "
+        f"useful ratio {roof['useful_ratio']:.6f} (host CPU, fake tensors)")
+    if not rec["fits"]:
+        raise AssertionError("roofline (d): qwen1.5-4b x train_4k does not "
+                             "fit one device of the production mesh")
+    say(f"[roofline] phase 23: {time.perf_counter() - t_phase:.3f} s on "
+        f"{card}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3535,6 +3757,9 @@ def main() -> int:
     # -- 22. model-axis tensor parallelism and serving on a mesh --------------
     path_launches.update(tensor_parallel(card, plain21))
 
+    # -- 23. the roofline on the card -----------------------------------------
+    path_launches.update(roofline(card, measured))
+
     # -- result lines -----------------------------------------------------
     # K3's head dim on each path that launches it
     head_dims = {"rotor": cfg.head_dim, "offload": off_cfg.head_dim,
@@ -3546,7 +3771,9 @@ def main() -> int:
                  "serve_musicgen": acfg.head_dim, "persist": cfg.head_dim,
                  "multi_device": cfg.head_dim, "tp_qwen": cfg.head_dim,
                  "tp_launcher": cfg.head_dim,
-                 "tp_zamba": zcfg.head_dim, "tp_serve": cfg.head_dim}
+                 "tp_zamba": zcfg.head_dim, "tp_serve": cfg.head_dim,
+                 "roofline_train": cfg.head_dim,
+                 "roofline_decode": get_config("qwen1.5-4b").head_dim}
     for kern in kernels:
         per_path = {k: v.get(kern["name"], 0) for k, v in path_launches.items()}
         kern["launches"] = sum(per_path.values())

@@ -1,9 +1,10 @@
-"""Input-shape cells and their ``meta``-tensor stand-ins."""
+"""The four assigned input-shape sets, their applicability rules, and
+``meta``-tensor stand-ins for a cell's inputs."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -14,6 +15,29 @@ class ShapeSpec:
     kind: str          # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+# long_500k needs sub-quadratic sequence mixing: only the SSM and hybrid
+# archs run it; the full-attention archs skip it
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+
+
+def applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True
+
+
+def cells(archs) -> List[Tuple[str, str]]:
+    """All assigned (arch × shape) dry-run cells."""
+    return [(a, s) for a in archs for s in SHAPES if applicable(a, s)]
 
 
 def input_specs(cfg, shape: ShapeSpec) -> Dict[str, torch.Tensor]:

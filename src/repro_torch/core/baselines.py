@@ -23,7 +23,6 @@ import math
 from typing import Optional, Tuple
 
 from .chain import Chain
-from .rematerialize import periodic_tree
 from .schedule import Schedule, SimResult, simulate
 from .solver import Solution, solve_optimal, tree_to_schedule
 
@@ -31,6 +30,9 @@ from .solver import Solution, solve_optimal, tree_to_schedule
 def periodic(chain: Chain, num_segments: int) -> Schedule:
     """``checkpoint_sequential`` with ``num_segments`` segments (clamped to
     ``1..L``); the loss stage rides with the last segment."""
+    # function-local: rematerialize imports torch, this module must not
+    from .rematerialize import periodic_tree
+
     return tree_to_schedule(periodic_tree(chain.length, num_segments),
                             chain.length)
 

@@ -331,18 +331,21 @@ def _is_dtensor(t: Any) -> bool:
 #: the collectives this process issued through the helpers below (the
 #: ZeRO-3 gathers and gradient reductions, the expert exchange, the
 #: optimizer's norm, compression): calls and the bytes this rank handed
-#: in (a gather's shard, a reduction's whole input), by op
+#: in (a gather's shard, a reduction's whole input); calls by op, bytes by
+#: (op, the process group they crossed: its ``group_name``, ``"default"``
+#: for the default group), which says which link they took
 COLLECTIVE_CALLS: Dict[str, int] = {}
-COLLECTIVE_BYTES: Dict[str, int] = {}
+COLLECTIVE_BYTES: Dict[Tuple[str, str], int] = {}
 
 
-def _count(op: str, x: torch.Tensor) -> None:
-    """Count one call of ``op`` handing in ``x``; the model-axis
-    tensor-parallel operators (:mod:`.tensor_parallel`) count theirs as
-    ``tp_<op>``."""
+def _count(op: str, x: torch.Tensor, group) -> None:
+    """Count one call of ``op`` handing in ``x`` on ``group``; the
+    model-axis tensor-parallel operators (:mod:`.tensor_parallel`) count
+    theirs as ``tp_<op>``."""
+    key = (op, "default" if group is None else group.group_name)
     COLLECTIVE_CALLS[op] = COLLECTIVE_CALLS.get(op, 0) + 1
-    COLLECTIVE_BYTES[op] = (COLLECTIVE_BYTES.get(op, 0)
-                            + x.numel() * x.element_size())
+    COLLECTIVE_BYTES[key] = (COLLECTIVE_BYTES.get(key, 0)
+                             + x.numel() * x.element_size())
 
 
 def reset_collectives() -> None:
@@ -352,7 +355,10 @@ def reset_collectives() -> None:
 
 def collectives() -> Dict[str, Dict[str, int]]:
     """A copy of the counts: ``{"calls": {op: n}, "bytes": {op: n}}``."""
-    return {"calls": dict(COLLECTIVE_CALLS), "bytes": dict(COLLECTIVE_BYTES)}
+    by_op: Dict[str, int] = {}
+    for (op, _), n in COLLECTIVE_BYTES.items():
+        by_op[op] = by_op.get(op, 0) + n
+    return {"calls": dict(COLLECTIVE_CALLS), "bytes": by_op}
 
 
 def _all_gather(x: torch.Tensor, dim: int, group, n: int,
@@ -362,7 +368,7 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int,
 
     x0 = x.movedim(dim, 0).contiguous()
     out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
-    _count(prefix + "all_gather", x0)
+    _count(prefix + "all_gather", x0, group)
     dist.all_gather_into_tensor(out, x0, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -374,7 +380,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
     x0 = x.movedim(dim, 0).float().contiguous()
     out = x0.new_empty((x0.shape[0] // n,) + tuple(x0.shape[1:]))
-    _count("reduce_scatter", x0)
+    _count("reduce_scatter", x0, group)
     dist.reduce_scatter_tensor(out, x0, group=group)
     return out.movedim(0, dim).to(x.dtype).contiguous()
 
@@ -387,7 +393,7 @@ def all_reduce(x: torch.Tensor, group=None, op: str = "sum",
     import torch.distributed as dist
 
     out = x.float().contiguous()
-    _count(prefix + "all_reduce", out)
+    _count(prefix + "all_reduce", out, group)
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op], group=group)
     return out.to(x.dtype)
@@ -400,7 +406,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
     x = x.contiguous()
     out = torch.empty_like(x)
-    _count("all_to_all", x)
+    _count("all_to_all", x, group)
     dist.all_to_all_single(out, x, group=group)
     return out
 

@@ -67,7 +67,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Causal GQA attention forward: the kernel on CUDA tensors, the plain
     version on any other device.  q: (B, Sq, H, D); k/v: (B, Skv, K, D)."""
     if not q.is_cuda:
-        return ref.attention(q, k, v)
+        return counters.plain(NAME, ref.attention, q, k, v)
     B, Sq, H, D = q.shape
     if k.shape != v.shape or k.ndim != 4 or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash attention needs k, v of shape (B, Skv, K, D) "
@@ -101,6 +101,14 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _build.check(status, NAME, _ERROR)
     counters.bump(NAME)
     return o
+
+
+def kernel_flops(B: int, S: int, H: int, D: int) -> int:
+    """The kernel's arithmetic for one causal ``(B, S, H, D)`` call: QK^T
+    and PV over the ``S(S+1)/2`` unmasked score entries of each head, 2
+    FLOPs a multiply-add.  ``FlopCounterMode`` cannot see a kernel called
+    through ``ctypes``; a count of a step adds this per launch."""
+    return 4 * D * (S * (S + 1) // 2) * B * H
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -18,7 +18,7 @@ NAME = "rms_norm"
 def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
                  ) -> torch.Tensor:
     if not x.is_cuda:
-        return ref.rms_norm(x, scale, eps)
+        return counters.plain(NAME, ref.rms_norm, x, scale, eps)
     d = x.shape[-1]
     if scale.shape != (d,) or scale.get_device() != x.get_device():
         raise ValueError(f"rms_norm needs a ({d},) scale on {x.device}, got "

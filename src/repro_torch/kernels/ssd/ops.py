@@ -67,7 +67,8 @@ def ssd_chunk_blocks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B, S, H) and A (H,) float32; S a multiple of ``chunk``.  Returns y_diag
     (B, S, H, P) and states (B, S/chunk, H, P, N), both float32."""
     if not x.is_cuda:
-        return ref.chunk_terms(x, dt, A, Bm, Cm, chunk)
+        return counters.plain(NAME, ref.chunk_terms, x, dt, A, Bm, Cm,
+                              chunk)
     Bsz, S, H, P = x.shape
     if Bm.shape != Cm.shape or Bm.ndim != 4 or Bm.shape[:2] != (Bsz, S):
         raise ValueError(f"ssd needs Bm, Cm of shape (B, S, G, N) matching x "

@@ -26,7 +26,7 @@ from ..offload.executor import execute_offload_schedule
 from ..offload.host_buffer import HostBuffer
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..plan import MemoryPlan, resolve_policy
-from ..tree import map_with_paths, tensors_of, tree_bytes
+from ..tree import map_with_paths, tensors_of, tree_bytes, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -106,13 +106,18 @@ def local_bytes(tree: Any) -> int:
 # planning
 # ---------------------------------------------------------------------------
 
-def activation_budget_bytes(param_bytes: int, device: torch.device,
-                            slack: float = 0.9, n_devices: int = 1) -> float:
+def activation_budget_bytes(param_bytes: int,
+                            device: Optional[torch.device] = None,
+                            slack: float = 0.9, n_devices: int = 1,
+                            total: Optional[int] = None) -> float:
     """Activation budget of one device: its memory less parameters, gradients
     (both in the parameter dtype) and the two float32 AdamW moments, which
     for bf16 parameters is ``param_bytes * (1 + 1 + 4)``, the three sharded
-    over ``n_devices`` (ZeRO-3)."""
-    total = torch.cuda.get_device_properties(device).total_memory
+    over ``n_devices`` (ZeRO-3).  The memory is ``total`` bytes if given
+    (a dry-run's ``Hardware.hbm_bytes``, no card present), else the CUDA
+    ``device``'s."""
+    if total is None:
+        total = torch.cuda.get_device_properties(device).total_memory
     return max(total * slack - param_bytes * (1 + 1 + 4) / n_devices,
                total * 0.05)
 
@@ -212,14 +217,15 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                   chain: Optional[Chain] = None,
                   host: Optional[HostTransferModel] = None,
                   log_fn: Optional[Callable[[str], None]] = None,
-                  mesh=None
+                  mesh=None, hbm_bytes: Optional[int] = None
                   ) -> Tuple[Optional[MemoryPlan], Optional[Chain]]:
     """Resolve the remat policy into a :class:`MemoryPlan` (``None`` =
     store-all, no remat).  The chain is profiled with :func:`plan_chain`
     (priced with ``host``, one device's sizes on ``mesh``) unless one is
     given (a measured or calibrated chain); an ``optimal_offload:B:BW``
     policy prices the host tier with its own ``BW``.  ``auto`` budgets are
-    sized from ``device``'s memory (the states sharded over the mesh).
+    sized from ``device``'s memory, or from ``hbm_bytes`` where given (a
+    dry-run's device, no card present), the states sharded over the mesh.
     ``log_fn`` gets one line with the solver cache's hits and misses for
     this plan (a hit ran no fill)."""
     policy = policy if policy is not None else model.cfg.remat_policy
@@ -233,12 +239,13 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                            mesh=mesh)
 
     def auto_budget() -> float:
-        if device is None or device.type != "cuda":
-            raise ValueError("an 'auto' budget needs a CUDA device")
+        if hbm_bytes is None and (device is None or device.type != "cuda"):
+            raise ValueError("an 'auto' budget needs a CUDA device or "
+                             "hbm_bytes")
         return activation_budget_bytes(
             tree_bytes(model.init(device="meta")), device,
             n_devices=math.prod(shd.mesh_shape(mesh).values())
-            if mesh is not None else 1)
+            if mesh is not None else 1, total=hbm_bytes)
 
     before = solver_cache.stats()
     plan = resolve_policy(policy, chain, num_slots=num_slots, impl=impl,
@@ -271,12 +278,14 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     of the memory at its start); both ``None`` off CUDA.  The caller
     resets the peak counter before the step."""
 
-    dp, dp_group = 1, None
+    dp, dp_groups = 1, []
     if mesh is not None:
         if grad_accum != 1:
             raise NotImplementedError("grad_accum > 1 on a mesh")
         dp = shd.data_position(mesh)[0]
-        dp_group = shd.mesh_group(mesh, shd.batch_mesh_dims(mesh))
+        # the loss is summed over each batch-sharded axis in turn (pod, then
+        # data)
+        dp_groups = [mesh.get_group(a) for a in shd.batch_mesh_dims(mesh)]
 
     def train_step(params, opt_state, batch, step: int) -> dict:
         leaves = tensors_of(params)
@@ -330,8 +339,11 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
         lr = lr_fn(step) if lr_fn is not None else None
         metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         loss = loss.detach()
-        if dp_group is not None:
-            loss = shd.all_reduce(loss.clone(), dp_group) / dp
+        if dp_groups:
+            loss = loss.clone()
+            for group in dp_groups:
+                loss = shd.all_reduce(loss, group)
+            loss = loss / dp
         metrics.update(loss=loss, grads_peak=grads_peak,
                        fwd_bwd_peak=fwd_bwd)
         return metrics
@@ -438,3 +450,107 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
         return metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# one (arch × shape) cell on a mesh, for a dry-run
+# ---------------------------------------------------------------------------
+
+def cell_rules(shape) -> Dict[str, Tuple[str, ...]]:
+    """The rules table a cell runs under: ``LONG_CONTEXT_RULES`` for
+    long_500k, ``DECODE_RULES`` for serving, the defaults for training."""
+    if shape.name == "long_500k":
+        return shd.LONG_CONTEXT_RULES
+    if shape.kind in ("decode", "prefill"):
+        return shd.DECODE_RULES
+    return shd.DEFAULT_RULES
+
+
+def _local_specs(tree: Any, axes_tree: Any, mesh, rules) -> Any:
+    """Uninitialized tensors of this rank's shard of every ``meta`` leaf of
+    ``tree`` (cut as ``spec_for`` its logical axes cuts it)."""
+    from ..models.lm import _local_shape
+
+    return map_with_paths(
+        lambda path, t: torch.empty(
+            _local_shape(t.shape, axes_at(axes_tree, path), mesh, rules),
+            dtype=t.dtype), tree)
+
+
+def plan_cell(model: StagedLM, shape, mesh, policy: Optional[str], hw
+              ) -> Tuple[Optional[MemoryPlan], Chain]:
+    """A train cell's plan on one device of ``mesh`` (``None``: store-all)
+    and the analytic chain it was planned on, priced at ``hw``: ``policy``
+    (the config's own if ``None``), an ``auto`` budget against
+    ``hw.hbm_bytes``; an offload plan is replaced by its two-tier fallback
+    (a mesh runs two-tier plans only)."""
+    from ..configs.shapes import input_specs
+    from ..plan import two_tier_fallback
+
+    specs = input_specs(model.cfg, shape)
+    plan, chain = plan_training(model, specs, policy,
+                                peak_flops=hw.peak_bf16, mesh=mesh,
+                                hbm_bytes=hw.hbm_bytes)
+    if plan is not None and plan.uses_offload:
+        plan = two_tier_fallback(plan, chain)
+    if chain is None:  # store-all: the chain still prices the terms
+        chain = plan_chain(model, specs, hw.peak_bf16, mesh=mesh)
+    return plan, chain
+
+
+def build_cell(cfg, shape, mesh, policy: Optional[str] = None, hw=None):
+    """``(step, args, rules, extra)`` for one (arch × shape) cell on
+    ``mesh``, rank 0's view: ``step(*args)`` runs the cell's whole step
+    (train: loss, gradients and the AdamW update; prefill; one decode step
+    over a full cache) under ``rules`` (:func:`cell_rules`).  The arguments
+    are uninitialized tensors on the CPU: the dry-run calls this under a
+    ``FakeTensorMode``, so nothing is allocated.  Parameters and moments of
+    a train cell are DTensors placed by ``StagedLM.param_axes`` (ZeRO-3,
+    each stage gathering its own); the train and decode batches and the
+    decode cache are rank 0's shards (``batch_axes``,
+    ``StagedLM.cache_axes``), a prefill's batch the whole one (``prefill``
+    cuts the rank's rows); the serving parameters :func:`serving_params`'.
+    A train cell is planned by :func:`plan_cell` at ``hw``
+    (:data:`.mesh.H100_SXM` if ``None``).  ``extra``: ``{"tree", "chain",
+    "plan"}`` for training, ``{}`` otherwise."""
+    from ..configs.shapes import input_specs
+    from ..optim.adamw import adamw_init
+    from .mesh import H100_SXM
+
+    hw = hw or H100_SXM
+    model = StagedLM(cfg)
+    rules = cell_rules(shape)
+    meta = model.init(device="meta")
+
+    def under_rules(fn):
+        def step(*args):
+            with shd.axis_rules(mesh, rules):
+                return fn(*args)
+        return step
+
+    batch = _local_specs(input_specs(cfg, shape), batch_axes(cfg, shape.kind),
+                         mesh, rules)
+    if shape.kind == "train":
+        plan, chain = plan_cell(model, shape, mesh, policy, hw)
+        tree = plan.tree if plan is not None else None
+        params = shard_tree(
+            tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype)
+                     .requires_grad_(), meta), model.param_axes(), mesh,
+            rules)
+        model.gather = model.gather_modes(mesh)
+        opt_state = adamw_init(tensors_of(params))
+        fn = make_train_step(model, AdamWConfig(), tree, mesh=mesh)
+        return (under_rules(fn), (params, opt_state, batch, 0), rules,
+                {"tree": tree, "chain": chain, "plan": plan})
+    params = serving_params(model, tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype), meta), mesh)
+    if shape.kind == "prefill":   # the whole batch: each rank cuts its rows
+        fn = make_prefill_step(model, mesh, rules)
+        whole = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                         input_specs(cfg, shape))
+        return under_rules(fn), (params, whole), rules, {}
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             device="cpu", mesh=mesh, rules=rules)
+    cache["pos"] = shape.seq_len - 1   # the step attends over the whole cache
+    fn = make_serve_step(model, mesh, rules)
+    return under_rules(fn), (params, cache, batch["tokens"]), rules, {}

@@ -104,3 +104,59 @@ def stage_flops(cfg, B: int, S: int) -> Tuple[List[float], List[float]]:
     inner = 1.0 if cfg.scan_layer_remat == "full" else 0.0
     bwd = [(2.0 + inner) * f for f in fwd[:-1]] + [2.0 * fwd[-1]]
     return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# parameter counts and model FLOPs (the 6·N·D of a utilisation figure)
+# ---------------------------------------------------------------------------
+
+def _attn_params(cfg) -> int:
+    if cfg.attention_kind == "mla":
+        d, H = cfg.d_model, cfg.n_heads
+        qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return (d * H * qd + d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+                + cfg.kv_lora_rank * H * (cfg.qk_nope_head_dim
+                                          + cfg.v_head_dim)
+                + H * cfg.v_head_dim * d)
+    d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return d * H * Dh + 2 * d * K * Dh + H * Dh * d
+
+
+def _mlp_params(cfg, d_ff: int) -> int:
+    mult = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    return mult * cfg.d_model * d_ff
+
+
+def _mamba_params(cfg) -> int:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    gn = cfg.ssm_groups * cfg.ssm_state
+    d_proj = 2 * d_inner + 2 * gn + d_inner // cfg.ssm_head_dim
+    return cfg.d_model * d_proj + d_inner * cfg.d_model
+
+
+def param_count(cfg, active_only: bool = True) -> int:
+    """The matrices' parameters (norms, biases and SSM vectors left out):
+    embedding and head, each layer's, the Zamba2 shared block once; with
+    ``active_only`` a MoE layer counts its top-k routed experts, not all of
+    them — ``repro``'s ``ModelConfig.active_params`` / ``total_params``."""
+    total = 2 * cfg.vocab_size * cfg.d_model  # embed + head
+    for kind in cfg.layer_kinds:
+        if kind == "dense":
+            total += _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+        elif kind == "moe":
+            ek = cfg.moe_top_k if active_only else cfg.num_experts
+            total += _attn_params(cfg)
+            total += ek * 3 * cfg.d_model * cfg.moe_d_ff
+            total += cfg.num_shared_experts * 3 * cfg.d_model * cfg.moe_d_ff
+        elif kind in ("mamba", "zamba"):
+            total += _mamba_params(cfg)
+    if cfg.hybrid_period and "zamba" in cfg.layer_kinds:
+        # stored once, applied every period: counted once
+        total += _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+    return total
+
+
+def model_flops_per_step(cfg, B: int, S: int, train: bool = True) -> float:
+    """MODEL_FLOPS = 6·N_active·D in training (2ND forward + 4ND backward),
+    2·N_active·D otherwise; D = ``B·S`` tokens."""
+    return (6.0 if train else 2.0) * param_count(cfg) * (B * S)

@@ -5,6 +5,9 @@ check it, phase by phase; any failed phase ends the run with a non-zero exit.
 
 1. environment: versions, the card, and ``nvidia-smi``'s name and power limit;
 2. build: the five CUDA sources (one ``nvcc`` per source, in parallel);
+   then the static gate, ``python -m repro_torch.check --force
+   --no-cache``: the lint, and the DP-fill kernels' analyzer (its host
+   enumerator built with the host compiler), any finding failing the run;
 3. host link: ``core.planner.measure_host_bandwidth``, the median of 20
    CUDA-event pinned device-to-host and host-to-device copies of one
    boundary activation's bytes (B·S·d_model bf16); the slower direction
@@ -434,6 +437,25 @@ def bf16_ulp(x):
 
     mag = torch.clamp(x.abs().float(), min=torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def static_gate(card: str) -> None:
+    """Phase 2b: ``python -m repro_torch.check --force --no-cache`` (the
+    lint and the DP-fill kernel analyzer, its enumerator built by the host
+    compiler here); any finding fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.check", "--force", "--no-cache"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[:40]:
+        say(f"[check] {line}")
+    if proc.returncode != 0 or "kernel-analysis: ok" not in proc.stdout:
+        raise AssertionError(f"python -m repro_torch.check exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    say(f"[check] the static gate passed in {seconds:.2f} s of wall time "
+        f"(lint, the DP-fill kernels analyzed) on {card}")
 
 
 def card_name() -> str:
@@ -2315,6 +2337,9 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
+
+    # -- 2b. the static gate ------------------------------------------------
+    static_gate(card)
 
     # -- 3. host link ----------------------------------------------------------
     def config_of(arch, overrides, **more):

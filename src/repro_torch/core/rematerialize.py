@@ -150,6 +150,18 @@ def periodic_tree(length: int, num_segments: int) -> Tree:
     return rec(0)
 
 
+def tree_stage_span(tree: Tree) -> tuple:
+    """(first, last) stage a tree covers (sanity checking)."""
+    if isinstance(tree, Leaf):
+        return tree.s, tree.s
+    if isinstance(tree, AllNode):
+        _, last = tree_stage_span(tree.rest)
+        return tree.s, last
+    a, _ = tree_stage_span(tree.left)
+    _, b = tree_stage_span(tree.right)
+    return a, b
+
+
 def count_checkpoint_scopes(tree: Tree) -> int:
     if isinstance(tree, Leaf):
         return 0

@@ -59,13 +59,15 @@ SOLUTION_KIND = "solution"
 
 # the sources that define what a Solution means, relative to the package
 # root: the solvers, the chain and schedule model, the fills and their two
-# CUDA sources (the impl="cuda"/"cuda_fused" fills make cached Solutions).
+# CUDA sources with the header that holds their bodies (the impl="cuda" /
+# "cuda_fused" fills make cached Solutions).
 # They are read by path, never imported, so fingerprinting builds nothing.
 _FINGERPRINT_FILES = ("core/chain.py", "core/schedule.py",
                       "core/dp_kernels.py", "core/solver.py",
                       "offload/solver.py", "kernels/dp_fill/ops.py",
                       "kernels/csrc/dp_band_min.cu",
-                      "kernels/csrc/dp_fused_fill.cu")
+                      "kernels/csrc/dp_fused_fill.cu",
+                      "kernels/csrc/dp_fill_index.cuh")
 _code_fingerprint: Optional[str] = None
 
 

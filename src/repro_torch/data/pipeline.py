@@ -13,6 +13,29 @@ import numpy as np
 import torch
 
 
+def make_batch_specs(cfg, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors of one training batch's shapes and dtypes (the JAX
+    package's ``ShapeDtypeStruct`` s): tokens, or an audio model's frame
+    embeddings in the model dtype, or a VLM's image prefix and ``seq -
+    prefix_len`` tokens; int32 labels and a float32 loss mask beside."""
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.modality == "text":
+        return {"tokens": spec((batch, seq)), "labels": spec((batch, seq)),
+                "loss_mask": spec((batch, seq), torch.float32)}
+    if cfg.modality == "audio_embed":
+        return {"embeds": spec((batch, seq, cfg.d_model), cfg.dtype),
+                "labels": spec((batch, seq)),
+                "loss_mask": spec((batch, seq), torch.float32)}
+    P = cfg.prefix_len
+    return {"image_embeds": spec((batch, P, cfg.d_model), cfg.dtype),
+            "tokens": spec((batch, seq - P)),
+            "labels": spec((batch, seq - P)),
+            "loss_mask": spec((batch, seq - P), torch.float32)}
+
+
 class SyntheticLMData:
     """Markov-ish synthetic token stream (structured enough that loss drops)."""
 

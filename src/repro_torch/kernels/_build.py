@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a`` and without ``--use_fast_math`` (the DP band-min must
 stay bit-exact, denormals included), into ``build/torch_ext/`` under the
 checkout root.  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+flags (and of the ``csrc/`` headers it includes), so an edited source or
+header is rebuilt and a stale library is never loaded.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 
 Nothing is built at import: the first launch of a kernel builds and loads its
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +51,31 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _includes(path: Path) -> list:
+    """The ``csrc/`` headers ``path`` includes (``#include "..."``), and
+    theirs, in order of first inclusion."""
+    seen, todo = [], [path]
+    while todo:
+        at = todo.pop(0)
+        for name in re.findall(r'(?m)^\s*#\s*include\s+"([^"]+)"',
+                               at.read_text()):
+            header = at.parent / name
+            if header.is_file() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """``build/torch_ext/lib<name>-<digest>.so``: the digest hashes the
+    source, every ``csrc/`` header it includes and the flags, so an edit to
+    any of them builds a new library."""
+    source = csrc / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in _includes(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:

@@ -58,6 +58,11 @@
 // too large for the early bands.  The reads of one split are coalesced
 // across a warp's 32 columns.
 //
+// Source: the body, every index it computes and every access it makes are
+// dpfill::band_min_body in dp_fill_index.cuh, and the launch geometry is
+// dpfill::band_min_geometry there; the kernel analyzer (python -m
+// repro_torch.check) compiles both on the host and walks every launch.
+//
 // Bound: bytes.  A cell reads 2d (K5a: 5d + 1) floats and writes one (K5a:
 // three), with one add and one min per split (K5a: three of each and a max),
 // far below the card's operations-per-byte line; a band of the Qwen1.5-4B
@@ -75,19 +80,19 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "dp_fill_index.cuh"
+
+using dpfill::kC3Gather;
+using dpfill::kC3Operand;
+using dpfill::kC3Slice;
+using dpfill::kStacked;
+using dpfill::kTables;
+using dpfill::kThreads;
+using dpfill::kWarps;
+
 namespace {
 
-constexpr int kWarps = 16;        // the most warps a unit (and a block) takes
-constexpr int kMinWarps = 8;      // the fewest a block takes
-constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 4;
-constexpr int64_t kIntClamp = 1 << 30;
 constexpr int kMaxDevices = 64;
-
-// How split j's rows are named.
-enum Rows : int { kStacked = 0, kTables = 1 };
-// Where the C3 right plane X comes from (kAcc == 3).
-enum C3 : int { kC3Operand = 0, kC3Slice = 1, kC3Gather = 2 };
 
 }  // namespace
 
@@ -114,98 +119,14 @@ struct Band {
 
 namespace {
 
-__device__ __forceinline__ int64_t band_start(int64_t k, int64_t L) {
-  return k * (L + 1) - k * (k - 1) / 2;
-}
-
 // Block x is row blockIdx.x; block y its tiles of 32 columns, blockDim.x /
-// 32 / g of them, g warps each.
+// 32 / g of them, g warps each.  The body and its index arithmetic are
+// dpfill::band_min_body (dp_fill_index.cuh).
 template <int kAcc>
 __global__ void __launch_bounds__(kThreads) band_min(const Band b) {
   __shared__ float s_part[kAcc][kThreads];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = b.g;
-  const int part = warp % g;
-  const int row = blockIdx.x;
-  const int c = (blockIdx.y * (blockDim.x / 32 / g) + warp / g) * 32 + lane;
-  const bool live = c < b.w;
-
-  float acc[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = CUDART_INF_F;
-  if (live) {
-    float toff = 0.f;
-    int wa_r = 0;
-    if constexpr (kAcc == 3) {
-      toff = __ldg(b.toff + row);
-      if (b.c3 != kC3Operand) wa_r = __ldg(b.wa + row);
-    }
-    const int64_t L = b.L;
-    for (int j0 = part; j0 < b.d; j0 += kUnroll * g) {
-      float rv[kUnroll], lv[kUnroll][kAcc], x[kUnroll];
-      // every load of kUnroll splits first, then the folds
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int j = j0 + k * g;                      // split sp = s + 1 + j
-        rv[k] = CUDART_INF_F;
-        x[k] = CUDART_INF_F;
-#pragma unroll
-        for (int a = 0; a < kAcc; ++a) lv[k][a] = 0.f;
-        if (j < b.d) {
-          const int64_t rrow = b.rows == kStacked
-              ? static_cast<int64_t>(j) * b.ns + row
-              : band_start(b.d - 1 - j, L) + 1 + j + row;
-          const int64_t lrow = b.rows == kStacked
-              ? static_cast<int64_t>(j) * b.ns + row
-              : band_start(j, L) + row;
-          rv[k] = __ldg(b.r + rrow * b.r_stride + c);
-#pragma unroll
-          for (int a = 0; a < kAcc; ++a)
-            lv[k][a] = __ldg(b.lm[a] + lrow * b.l_stride + c);
-          if constexpr (kAcc == 3) {
-            if (b.c3 == kC3Operand) {
-              x[k] = __ldg(b.r3 + rrow * b.r_stride + c);
-            } else if (b.c3 == kC3Slice) {
-              x[k] = __ldg(b.r + rrow * b.r_stride + wa_r + c);
-            } else {
-              const int p = 1 + j + row;     // the right child's input
-              int64_t raw = c - static_cast<int64_t>(__ldg(b.wa + p));
-              raw = raw < -kIntClamp ? -kIntClamp : raw;
-              int64_t i = raw + wa_r;
-              i = i < -1 ? -1 : (i > b.S ? b.S : i);
-              x[k] = __ldg(b.cb + rrow * b.cb_stride + i + 1)
-                     + __ldg(b.cum + p);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        acc[0] = fminf(acc[0], rv[k] + lv[k][0]);
-        if constexpr (kAcc >= 2) acc[1] = fminf(acc[1], rv[k] + lv[k][1]);
-        if constexpr (kAcc == 3)
-          acc[2] = fminf(acc[2], fmaxf(x[k], toff) + lv[k][2]);
-      }
-    }
-  }
-  if (g > 1) {                                         // uniform in the block
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) s_part[a][threadIdx.x] = acc[a];
-    __syncthreads();
-    if (part == 0 && live) {
-      for (int k = 1; k < g; ++k) {
-#pragma unroll
-        for (int a = 0; a < kAcc; ++a)
-          acc[a] = fminf(acc[a], s_part[a][threadIdx.x + 32 * k]);
-      }
-    }
-  }
-  if (part == 0 && live) {
-    const int64_t plane = static_cast<int64_t>(b.ns) * b.w;
-    const int64_t cell = static_cast<int64_t>(row) * b.w + c;
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) b.out[a * plane + cell] = acc[a];
-  }
+  dpfill::DeviceX x;
+  dpfill::band_min_body<kAcc>(dpfill::band_views<kAcc>(b, s_part), x);
 }
 
 // Warps of band_min<kAcc> that one round of the current device holds (its
@@ -240,19 +161,15 @@ int launch(Band b, void* stream) {
   int warps = 0;
   cudaError_t err = round_warps<kAcc>(&warps);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (b.w + 31) / 32;
-  const int64_t units = b.ns * tiles;
-  const int want = (b.d + kUnroll - 1) / kUnroll;     // one round of loads
-  int g = 1;
-  while (g < want && 2 * g <= kWarps && units * 2 * g <= warps) g *= 2;
-  b.g = g;
-  const int block = g > kMinWarps ? g : kMinWarps;    // warps
-  const int64_t per_block = block / g;
-  const int64_t groups = (tiles + per_block - 1) / per_block;
+  const dpfill::BandGeometry k =
+      dpfill::band_min_geometry(b.d, b.ns, b.w, warps);
+  b.g = k.g;
+  const int64_t groups = k.groups;
   if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
   band_min<kAcc><<<dim3(static_cast<unsigned>(b.ns),
                         static_cast<unsigned>(groups)),
-                   32 * block, 0, static_cast<cudaStream_t>(stream)>>>(b);
+                   32 * k.block_warps, 0,
+                   static_cast<cudaStream_t>(stream)>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 

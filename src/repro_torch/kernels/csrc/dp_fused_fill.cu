@@ -48,6 +48,11 @@
 // and the barrier; at L = 9 the fill moves under a megabyte.  The reads of
 // one split are coalesced across a warp's 32 columns.
 //
+// Source: the body, every index it computes and every access it makes are
+// dpfill::fused_fill_body in dp_fill_index.cuh, which the kernel analyzer
+// (python -m repro_torch.check) compiles on the host and walks over the
+// launch order; this file keeps the shell and the launcher.
+//
 // Limits: L <= kMaxLength (the staged vectors fit the 48 KB of shared memory
 // a block has without opting in; dp_fused_fill_max_length exports it); the
 // grid is one block per SM, so the cooperative launch always fits.  A fill
@@ -70,15 +75,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "dp_fill_index.cuh"
+
+using dpfill::kMaxLength;
+using dpfill::kThreads;
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kIntClamp = 1 << 30;
-// (4 L + 5) staged ints and floats and the partial minima stay under 48 KB
-constexpr int kMaxLength = 2048;
 constexpr int kMaxDevices = 64;
 
 struct Fill {
@@ -97,141 +100,14 @@ struct Fill {
   int L, W, allow_fall, host_on;
 };
 
-// Table reads go to L2 (ld.global.cg): rows written in one band are read in
-// later bands by other SMs, whose L1 must not hold a line of them from
-// before they were written.
-__device__ __forceinline__ float table(const float* at) { return __ldcg(at); }
-
-__device__ __forceinline__ float shifted(const float* row, int idx, int w) {
-  return idx < 0 ? CUDART_INF_F : table(row + (idx < w ? idx : w - 1));
-}
-
-inline size_t smem_bytes(int L, int n_acc) {
-  return sizeof(int) * (4 * static_cast<size_t>(L) + 5)
-         + sizeof(float) * n_acc * kThreads;
-}
-
-// Warps per unit in band d: see the design note.
-__device__ __forceinline__ int group_size(int d, int units, int warps) {
-  int g = 1;
-  while (2 * g <= kWarps && 2 * g <= d && units * 2 * g <= warps) g *= 2;
-  return g;
-}
-
+// The body, its index arithmetic and its shared-memory carve are
+// dpfill::fused_fill_body (dp_fill_index.cuh).
 template <bool kOffload>
 __global__ void __launch_bounds__(kThreads, 1) fused_fill(const Fill f) {
   extern __shared__ int smem[];
-  const int L = f.L, W = f.W;
-  int* s_off = smem;                                   // L + 2
-  int* s_wa = s_off + (L + 2);                         // L + 1
-  int* s_wb = s_wa + (L + 1);                          // L + 1
-  float* s_cum = reinterpret_cast<float*>(s_wb + (L + 1));   // L + 1
-  float* s_part = s_cum + (L + 1);                     // 1 or 3 x kThreads
-  for (int i = threadIdx.x; i < L + 2; i += kThreads) s_off[i] = f.off[i];
-  for (int i = threadIdx.x; i < L + 1; i += kThreads) {
-    s_wa[i] = f.wa[i];
-    s_wb[i] = f.wb[i];
-    s_cum[i] = f.cum[i];
-  }
-  __syncthreads();
-
-  cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ntiles = (W + 31) / 32;
-  const int64_t w = W;
-  float* const tb = f.tb;
-  float* const te = f.te;
-  for (int d = 1; d <= L; ++d) {
-    const int ns = L + 1 - d;
-    const int units = ns * ntiles;
-    const int g = group_size(d, units, gridDim.x * kWarps);
-    const int per_block = kWarps / g;
-    const int part = warp % g;
-    const int lead = warp - part;                      // the group's warp 0
-    for (int base = blockIdx.x * per_block; base < units;
-         base += gridDim.x * per_block) {             // uniform in the block
-      const int unit = base + warp / g;
-      const int row = unit / ntiles;                   // s - 1
-      const int c = (unit % ntiles) * 32 + lane;
-      const bool live = unit < units && c < W;
-      // the group's first warp reads the thresholds and the C2 branch
-      // first, so that those reads overlap the splits'; the C2 child
-      // (s + 1, t) is row `row + 1` of band d - 1, and its input is
-      // embedded, so the offload fill reads the Ce table
-      bool infeas = false;
-      float c2 = CUDART_INF_F;
-      if (part == 0 && live) {
-        infeas = c < f.mn[(d - 1) * L + row];
-        if (f.allow_fall && c >= f.ma[(d - 1) * L + row]) {
-          const float* c2row =
-              (kOffload ? te : tb) + (s_off[d - 1] + 1 + row) * w;
-          c2 = (shifted(c2row, c - s_wb[1 + row], W) + f.uf[1 + row])
-               + f.ub[1 + row];
-        }
-      }
-      float accb = CUDART_INF_F, acce = CUDART_INF_F, acc3 = CUDART_INF_F;
-      if (live) {
-        const float cum_s = s_cum[row];
-        const int wa_s = s_wa[row];                    // WA[s-1]
-        const float tpre_s = kOffload && f.host_on ? f.tpre[row] : 0.f;
-        const float toff_s = kOffload && f.host_on ? f.toff[row] : 0.f;
-        for (int j = part; j < d; j += g) {            // split sp = s + 1 + j
-          const int pr = 1 + j + row;                  // its right row's p
-          const float* rrow = tb + (s_off[d - 1 - j] + pr) * w;
-          const int64_t lcell = (s_off[j] + row) * w + c;
-          const float rv = shifted(rrow, c - s_wa[pr], W) + s_cum[pr];
-          const float lb = table(tb + lcell) - cum_s;
-          accb = fminf(accb, rv + lb);
-          if (kOffload) {
-            acce = fminf(acce, rv + (table(te + lcell) - cum_s));
-            if (f.host_on) {
-              // C3 right segment: the offloaded input's slots are
-              // reclaimed, so the shift is WA[sp-1] - WA[s-1]; the clamp
-              // ladder is the Pallas kernel's (int32-safe, clip to W-1,
-              // sentinel below 0) and the transfer stall folds into the max
-              int raw = c - s_wa[pr];
-              raw = raw < -kIntClamp ? -kIntClamp : (raw > W - 1 ? W - 1 : raw);
-              int idx3 = raw + wa_s;
-              idx3 = idx3 < -1 ? -1 : (idx3 > W - 1 ? W - 1 : idx3);
-              float c3 = shifted(rrow, idx3, W) + s_cum[pr];
-              c3 = fmaxf(c3, toff_s);
-              c3 = c3 + (lb + tpre_s);
-              acc3 = fminf(acc3, c3);
-            }
-          }
-        }
-      }
-      if (g > 1) {
-        s_part[threadIdx.x] = accb;
-        if (kOffload) {
-          s_part[kThreads + threadIdx.x] = acce;
-          s_part[2 * kThreads + threadIdx.x] = acc3;
-        }
-        __syncthreads();
-        if (part == 0 && live) {
-          for (int k = 1; k < g; ++k) {
-            const int at = (lead + k) * 32 + lane;
-            accb = fminf(accb, s_part[at]);
-            if (kOffload) {
-              acce = fminf(acce, s_part[kThreads + at]);
-              acc3 = fminf(acc3, s_part[2 * kThreads + at]);
-            }
-          }
-        }
-      }
-      if (part == 0 && live) {
-        float resb = fminf(infeas ? CUDART_INF_F : accb, c2);
-        const float rese = fminf(infeas ? CUDART_INF_F : acce, c2);
-        if (kOffload && f.host_on) resb = fminf(resb, infeas ? CUDART_INF_F
-                                                             : acc3);
-        const int64_t own = (s_off[d] + row) * w + c;
-        tb[own] = resb;
-        if (kOffload) te[own] = rese;
-      }
-      if (g > 1) __syncthreads();                      // s_part is reused
-    }
-    if (d < L) grid.sync();
-  }
+  dpfill::DeviceX x;
+  dpfill::fused_fill_body<kOffload>(
+      dpfill::fused_views(f, smem, kOffload ? 3 : 1), x);
 }
 
 // The grid size (the device's SM count) of the current device, read once
@@ -270,7 +146,7 @@ int launch(const Fill& f, void* stream) {
   void* args[] = {&arg};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&fused_fill<kOffload>), dim3(sms),
-      dim3(kThreads), args, smem_bytes(f.L, kOffload ? 3 : 1),
+      dim3(kThreads), args, dpfill::fused_smem_bytes(f.L, kOffload ? 3 : 1),
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

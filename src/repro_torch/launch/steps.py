@@ -25,7 +25,7 @@ from ..models.lm import StagedLM
 from ..offload.executor import execute_offload_schedule
 from ..offload.host_buffer import HostBuffer
 from ..optim.adamw import AdamWConfig, adamw_update
-from ..plan import MemoryPlan, resolve_policy
+from ..plan import MemoryPlan, resolve_policy, two_tier_fallback
 from ..tree import map_with_paths, tensors_of, tree_bytes, tree_map
 
 
@@ -257,6 +257,23 @@ def plan_training(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
                f"{after['misses'] - before['misses']} misses for this plan "
                f"({after['hits']} / {after['misses']} in this process)")
     return plan, plan.chain
+
+
+def plan_rotor_tree(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
+                    policy: Optional[str] = None, **kwargs):
+    """Back-compat wrapper: ``(tree, chain)``, the policy's recursion tree
+    (``None`` = store-all) and the chain it was planned on.  A tree runs as
+    nested checkpoints, which cannot copy to the host, so a plan that
+    offloads degrades to the best two-tier plan at the same device budget
+    (``two_tier_fallback``), as the JAX package's jitted path does.  New code
+    should call :func:`plan_training` (``kwargs`` go to it) and keep the
+    whole :class:`MemoryPlan`."""
+    plan, chain = plan_training(model, batch_specs, policy, **kwargs)
+    if plan is None:
+        return None, chain
+    if plan.uses_offload:
+        plan = two_tier_fallback(plan, chain)
+    return plan.tree, chain
 
 
 def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,

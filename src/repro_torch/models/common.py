@@ -52,13 +52,19 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return rmsnorm_ops.rms_norm(x, p["scale"], eps)
 
 
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    """The rotary frequencies ``theta^(-2i / head_dim)``, float32,
+    ``(head_dim / 2,)``."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int."""
-    D = x.shape[-1]
-    exponents = torch.arange(0, D, 2, dtype=torch.float32,
-                             device=x.device) / D
-    freqs = 1.0 / (theta ** exponents)                            # (D/2,)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
     angles = positions[..., None].float() * freqs                 # (B, S, D/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -102,3 +102,15 @@ def resolve_policy(policy: str, chain: Optional[Chain],
         raise ValueError(f"{policy!r} needs a profiled chain")
     return build_plan(request, chain, length=length, auto_budget=auto_budget,
                       policy=policy)
+
+
+def parse_budget(spec: str, chain: Optional[Chain]) -> float:
+    """Budget in bytes: an absolute size (``1.5G``, ``800M``, ``2e9``), or
+    ``x0.5`` as a fraction of the chain's store-all activation peak."""
+    b = Budget.parse(spec)
+    if b.kind == "auto":
+        raise ValueError(
+            "'auto' budgets resolve only through the launch path (they need "
+            "the device's memory and the parameter footprint); pass bytes or "
+            "a fraction like 'x0.5'")
+    return b.resolve(chain)

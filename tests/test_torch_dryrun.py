@@ -134,15 +134,16 @@ def test_dryrun_cli_needs_a_cell():
 # -- python -m repro_torch.check --------------------------------------------
 
 
-def test_check_gate_is_clean_on_the_tree():
+def test_check_gate_is_clean_on_the_tree(tmp_path):
     assert lint_repo() == []
     proc = subprocess.run([sys.executable, "-m", "repro_torch.check"],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                   XDG_CACHE_HOME=str(tmp_path)))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "lint: ok" in proc.stdout
-    assert "kernel-analysis: not run" in proc.stdout
+    assert "kernel-analysis: ok" in proc.stdout
 
 
 def _lint(tmp_path, rel, code):

@@ -142,8 +142,8 @@ store-all's by more than 1e-2.
     whose steps timed the chain; the points left out are named) and
     rotor's gain over sequential; every point's loss and gradient norm equal
     store-all's within 1e-2.  Each point also runs one traced step through
-    ``bind(stages, tracer=)`` (the op walker), printed beside the untraced
-    step, its loss and norm held alike; the rotor points' traces are
+    ``bind(stages, tracer=)`` (the nested checkpoints), printed beside the
+    untraced step, its loss and norm held alike; the rotor points' traces are
     written out; then per stage the measured ``uf``/``ub`` against the
     chain's (predicted, measured, ratio, the stage's share of the miss),
     the chain calibrated on the spans (``calibrate_from_trace``), every
@@ -3560,9 +3560,9 @@ def main() -> int:
 
     counters.reset()
     params = model.init(0, dev)
-    # each point also runs one traced step on the op walker; the spans give
-    # the per-stage drift, and the chain calibrated on them the MAPE beside
-    # the uncalibrated one
+    # each point also runs one traced step (the nested checkpoints); the
+    # spans give the per-stage drift, and the chain calibrated on them the
+    # MAPE beside the uncalibrated one
     trade = run_lm_tradeoff(model, params, batch, impl="cuda", chain=measured,
                             budgets=floor_budgets("tradeoff", measured,
                                                   TRADEOFF_BUDGETS),

@@ -13,6 +13,19 @@ Correspondence (per node, as in ``repro.core.rematerialize``):
 
 ``build_remat_fn`` returns ``f(params, x)`` where ``params`` is the per-stage list;
 ``torch.autograd`` on its output then executes the schedule's structure.
+
+Every stage forward adds to a tally (:func:`take_counts`): the runs, and
+the replays among them, a replay being a forward that runs inside the
+backward.  While traced (a tracer, or a ``torch.profiler`` recording) each
+stage call is a program span of :mod:`repro_torch.obs.trace`:
+``remat.forward`` for its first run, ``remat.replay`` for a run inside the
+backward, and ``remat.backward`` from the moment the backward reaches the
+stage's output (an identity autograd function there, put in only while
+traced) to the moment it reaches the previous stage's, less the replays
+that run in between.  On a tracer each span is the schedule op it runs:
+the stage's index and ``Fall``/``Fck``/``Fnone`` (the first stage of a
+checkpoint's first run is ``Fck``, the others of that run ``Fnone``, a
+stage outside any first run ``Fall``) or ``B``.
 """
 
 from __future__ import annotations
@@ -20,12 +33,14 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..obs.trace import at_backward_end, on_backward, open_span, profiling
+from ..tree import tensors_of, tree_bytes
 from .solver import AllNode, CkNode, Leaf, Tree
 
 StageFn = Callable  # (stage_params, activation) -> activation
@@ -85,25 +100,162 @@ def _keeping(fn: Callable, tape: _Kept, *args):
         _region.tape, tape.replay = outer, True
 
 
-def build_remat_fn(tree: Tree, stages: Sequence[StageFn]) -> Callable:
+#: stage forwards run since the last :func:`take_counts`: all, replays
+_runs = [0, 0]
+
+
+def take_counts() -> tuple:
+    """``(stage forwards run, replays among them)`` since the last call,
+    and the tally reset."""
+    out = (_runs[0], _runs[1])
+    _runs[0] = _runs[1] = 0
+    return out
+
+
+_regions = threading.local()
+
+
+class _Region:
+    """A checkpoint's function, counting its calls: the first is the
+    checkpoint's first run, the next its recompute.  Each call's kind is
+    on a per-thread stack while it runs (tracers only: it names the ops)."""
+
+    def __init__(self, s: int, fn: Callable):
+        self.s, self.fn, self.calls = s, fn, 0
+
+    def __call__(self, *args):
+        stack = _regions.__dict__.setdefault("stack", [])
+        stack.append((self.s, self.calls == 0))
+        self.calls += 1
+        try:
+            return self.fn(*args)
+        finally:
+            stack.pop()
+
+
+def _forward_kind(s: int) -> str:
+    stack = getattr(_regions, "stack", None)
+    if not stack or not stack[-1][1]:
+        return "Fall"
+    return "Fck" if stack[-1][0] == s else "Fnone"
+
+
+def _pass_grad_tensors(out: Any, fresh) -> Any:
+    """``out`` with its tensors that require grad replaced, in order, by
+    ``fresh``'s."""
+    if isinstance(out, torch.Tensor):
+        return next(fresh) if out.requires_grad else out
+    if isinstance(out, dict):
+        return {k: _pass_grad_tensors(v, fresh) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_pass_grad_tensors(v, fresh) for v in out)
+    return out
+
+
+class _Traced:
+    """One traced call of a remat function: its tracer and stream, and the
+    stage whose backward is open."""
+
+    def __init__(self, tracer, stream):
+        self.tracer, self.stream = tracer, stream
+        self.open = None       # the open remat.backward span
+        self.closing = False   # its close is queued at the backward's end
+
+    def stage(self, fn: StageFn, s: int, p: Any, x: Any, replay: bool):
+        kind = _forward_kind(s) if self.tracer is not None else None
+        if replay and self.open is not None:
+            self.open.pause()
+        h = open_span("remat.replay" if replay else "remat.forward",
+                      self.tracer, kind, s, self.stream)
+        out = None
+        try:
+            out = fn(p, x)
+        finally:
+            if h is not None:
+                h.close(bytes=None if out is None else tree_bytes(out))
+            if replay and self.open is not None:
+                self.open.resume()
+        if replay:
+            return out
+        marked = [t for t in tensors_of(out) if t.requires_grad]
+        if not marked:
+            return out
+        fresh = on_backward(marked, lambda: self.backward_reaches(s))
+        return _pass_grad_tensors(out, iter(fresh))
+
+    def backward_reaches(self, s: int) -> None:
+        if self.open is not None:
+            self.open.close()
+        elif not self.closing:
+            self.closing = True
+            at_backward_end(self.finish)
+        self.open = open_span("remat.backward", self.tracer, "B", s,
+                              self.stream)
+
+    def finish(self) -> None:
+        if self.open is not None:
+            self.open.close()
+        self.open, self.closing = None, False
+
+
+def _stream_of(x: Any):
+    ts = tensors_of(x)
+    if ts and ts[0].device.type == "cuda":
+        return torch.cuda.current_stream(ts[0].device)
+    return None
+
+
+def build_remat_fn(tree: Tree, stages: Sequence[StageFn],
+                   tracer=None) -> Callable:
     """Return ``f(params, x)`` executing the chain per the schedule tree;
-    ``stages[l-1]`` is the callable for paper-stage ``l`` (1-based)."""
+    ``stages[l-1]`` is the callable for paper-stage ``l`` (1-based).  With
+    ``tracer`` (a :class:`~repro_torch.obs.trace.Tracer`) every call
+    records one span per schedule op (on CUDA, event pairs on the stream
+    ``x`` is on)."""
+    if tracer is not None and not tracer.enabled:
+        tracer = None
+
+    def stage(s: int) -> Callable:
+        fn = stages[s - 1]
+
+        def run(params, x, traced):
+            replay = torch._C._current_graph_task_id() != -1
+            _runs[0] += 1
+            _runs[1] += replay
+            if traced is None:
+                return fn(params[s - 1], x)
+            return traced.stage(fn, s, params[s - 1], x, replay)
+
+        return run
 
     def rec(node: Tree) -> Callable:
         if isinstance(node, Leaf):
-            s = node.s
-            return lambda params, x: stages[s - 1](params[s - 1], x)
+            return stage(node.s)
         if isinstance(node, AllNode):
-            s = node.s
-            rest = rec(node.rest)
-            return lambda params, x: rest(params, stages[s - 1](params[s - 1], x))
+            first, rest = stage(node.s), rec(node.rest)
+            return lambda params, x, t: rest(params, first(params, x, t), t)
         if isinstance(node, CkNode):
             left = rec(node.left)    # stages [s, sp-1]
             right = rec(node.right)  # stages [sp, t]
-            return lambda params, x: right(params, remat(left, params, x))
+            if tracer is None:
+                return lambda params, x, t: right(
+                    params, remat(left, params, x, t), t)
+            s = node.s
+            return lambda params, x, t: right(
+                params, remat(_Region(s, left), params, x, t), t)
         raise TypeError(f"unknown tree node {node!r}")
 
-    return rec(tree)
+    root = rec(tree)
+
+    def run(params, x):
+        traced = None
+        if tracer is not None:
+            traced = _Traced(tracer, _stream_of(x))
+        elif profiling():
+            traced = _Traced(None, None)
+        return root(params, x, traced)
+
+    return run
 
 
 def sequential_tree(length: int) -> Tree:

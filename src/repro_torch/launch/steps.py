@@ -18,10 +18,13 @@ from ..core import solver_cache
 from ..core.chain import Chain, HostTransferModel
 from ..core.planner import (grad_with_peaks, profile_stages_analytic,
                             profile_stages_measured, time_stages_in_chain)
+from ..core.rematerialize import take_counts
 from ..data.pipeline import sequence_shape
 from ..distributed import sharding as shd
 from ..models.flops import stage_flops
 from ..models.lm import StagedLM
+from ..obs import metrics as obs_metrics
+from ..obs import trace
 from ..offload.executor import execute_offload_schedule
 from ..offload.host_buffer import HostBuffer
 from ..optim.adamw import AdamWConfig, adamw_update
@@ -175,11 +178,19 @@ def measure_chain(model: StagedLM, params: Any, batch: Dict[str, torch.Tensor],
     are then taken inside the chain (:func:`time_stages_in_chain`: the
     median of ``repeats`` traced store-all steps, or min-memory steps where
     store-all does not fit).  ``log_fn`` gets which schedule timed the chain
-    and, stage by stage, the isolated and in-chain times side by side."""
+    and, stage by stage, the isolated and in-chain times side by side.  The
+    two parts are the program spans ``measure.alone`` and
+    ``measure.in_chain``, their host-clock seconds the histograms
+    ``measure.alone_s`` and ``measure.in_chain_s``."""
     stages, sp = model.stage_fns(), model.stage_params(params)
-    alone = profile_stages_measured(stages, sp, batch, repeats=repeats,
-                                    host=host)
-    chain, which = time_stages_in_chain(stages, sp, batch, alone, repeats)
+    with trace.span("measure.alone"), \
+            obs_metrics.histogram("measure.alone_s").time():
+        alone = profile_stages_measured(stages, sp, batch, repeats=repeats,
+                                        host=host)
+    with trace.span("measure.in_chain"), \
+            obs_metrics.histogram("measure.in_chain_s").time():
+        chain, which = time_stages_in_chain(stages, sp, batch, alone,
+                                            repeats)
     if log_fn is not None:
         for line in in_chain_lines(alone, chain, which):
             log_fn(f"[measured] {line}")
@@ -278,7 +289,7 @@ def plan_rotor_tree(model: StagedLM, batch_specs: Dict[str, torch.Tensor],
 
 def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
                     lr_fn: Optional[Callable[[int], float]] = None,
-                    grad_accum: int = 1, mesh=None):
+                    grad_accum: int = 1, mesh=None, tracer=None):
     """``train_step(params, opt_state, batch, step) -> metrics``: loss and
     gradients through the plan's tree, then one AdamW step in place.
     ``grad_accum > 1`` splits the batch along its leading axis into
@@ -293,7 +304,18 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
     the parameter gradients it has made by then
     (``core.planner.grad_with_peaks``; the running float32 sums are part
     of the memory at its start); both ``None`` off CUDA.  The caller
-    resets the peak counter before the step."""
+    resets the peak counter before the step.
+
+    Each microbatch's loss is the program span ``step.forward`` and its
+    backward ``step.backward`` (opened on the thread that runs the
+    backward), AdamW with its norms and clipping ``step.optimizer``
+    (:mod:`repro_torch.obs.trace`): profiler ranges while a profiler
+    records, spans on ``tracer`` (with the tree's schedule ops,
+    :func:`~repro_torch.core.rematerialize.build_remat_fn`).  With a tree,
+    each step observes its stage forwards and the replays among them in
+    the histograms ``remat.forward_runs`` and ``remat.replays``."""
+    if tracer is not None and not tracer.enabled:
+        tracer = None
 
     dp, dp_groups = 1, []
     if mesh is not None:
@@ -309,6 +331,9 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
         dev = shd.local_tensor(leaves[0]).device
         cuda = dev.type == "cuda"
         peaks = {"all": 0, "fwd_bwd": 0}
+        stream = (torch.cuda.current_stream(dev)
+                  if cuda and tracer is not None else None)
+        take_counts()
 
         def loss_and_grads(micro):
             if cuda:
@@ -318,7 +343,9 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
                                    torch.cuda.max_memory_allocated(dev))
                 start = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
-            loss = model.loss_fn(params, micro, tree=tree)
+            with trace.span("step.forward", tracer, stream=stream):
+                loss = model.loss_fn(params, micro, tree=tree, tracer=tracer)
+            loss = trace.backward_span(loss, "step.backward", tracer, stream)
             grads, peak, act = grad_with_peaks(
                 [loss / dp if dp > 1 else loss], leaves, params=leaves)
             if cuda:
@@ -353,8 +380,13 @@ def make_train_step(model: StagedLM, opt_cfg: AdamWConfig, tree,
             grads_peak = max(peaks["all"],
                              torch.cuda.max_memory_allocated(dev))
             fwd_bwd = peaks["fwd_bwd"]
+        if tree is not None:
+            runs, replays = take_counts()
+            obs_metrics.histogram("remat.forward_runs").observe(runs)
+            obs_metrics.histogram("remat.replays").observe(replays)
         lr = lr_fn(step) if lr_fn is not None else None
-        metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
+        with trace.span("step.optimizer", tracer, stream=stream):
+            metrics = adamw_update(opt_cfg, grads, opt_state, leaves, lr)
         loss = loss.detach()
         if dp_groups:
             loss = loss.clone()
@@ -438,14 +470,13 @@ def make_offload_step(model: StagedLM, opt_cfg: AdamWConfig, schedule,
                       lr_fn: Optional[Callable[[int], float]] = None,
                       tracer=None):
     """``train_step(params, opt_state, batch, step) -> metrics`` for a
-    three-tier (host-offload) schedule, or any schedule when traced:
-    gradients come from the eager op walker — real copies to host memory
-    and back — then one AdamW step in place.  The metrics add the step's
-    ``host_peak_bytes``, the host bytes still parked after it
-    (``host_bytes_after``, 0 for a sound schedule), ``prefetch_wait_s``
-    and, on CUDA, ``grads_peak`` and ``fwd_bwd_peak`` (as
-    :func:`make_train_step`, from the walker's per-op peaks).  ``tracer``
-    records one span per schedule op of every step."""
+    three-tier (host-offload) schedule: gradients come from the eager op
+    walker — real copies to host memory and back — then one AdamW step in
+    place.  The metrics add the step's ``host_peak_bytes``, the host bytes
+    still parked after it (``host_bytes_after``, 0 for a sound schedule),
+    ``prefetch_wait_s`` and, on CUDA, ``grads_peak`` and ``fwd_bwd_peak``
+    (as :func:`make_train_step`, from the walker's per-op peaks).
+    ``tracer`` records one span per schedule op of every step."""
     stage_fns = model.stage_fns()
 
     def train_step(params, opt_state, batch, step: int) -> dict:

@@ -35,9 +35,9 @@ computes it, from predicted times with rotor planned at each sequential
 point's own predicted peak (paper §5.4: mean +17.2 %).
 
 With ``trace``, each point also runs one traced step through
-``MemoryPlan.bind(stages, tracer=)`` — the op walker, one span per
-schedule op (CUDA-event pairs on the card) — printed beside the untraced
-step.  The spans of all points then give the measured per-stage ``uf`` /
+``MemoryPlan.bind(stages, tracer=)`` — on the executor the plan runs on
+(the nested checkpoints of a two-tier plan), one span per schedule op
+(CUDA-event pairs on the card) — printed beside the untraced step.  The spans of all points then give the measured per-stage ``uf`` /
 ``ub`` against the chain's, with each stage's share of the time miss summed
 over the points, and the chain calibrated on them
 (:func:`~repro_torch.obs.drift.calibrate_from_trace`) re-plans every point
@@ -146,8 +146,8 @@ def time_point(plan: MemoryPlan, stages: Sequence[Callable],
 def trace_point(plan: MemoryPlan, stages: Sequence[Callable],
                 params: Sequence[Any], x: Any) -> dict:
     """One traced call of ``plan.bind(stages, tracer=).value_and_grad``
-    (the op walker): ``{"seconds" (CUDA events; the host clock off CUDA),
-    "spans", "loss", "grads"}``.  Raises unless the trace holds one span
+    (the plan's own executor): ``{"seconds" (CUDA events; the host clock
+    off CUDA), "spans", "loss", "grads"}``.  Raises unless the trace holds one span
     per schedule op, in order, none negative."""
     tracer = Tracer(name="tradeoff")
     bound = plan.bind(stages, tracer=tracer)
@@ -288,7 +288,7 @@ def run_tradeoff(stages: Sequence[Callable], params: Sequence[Any], x: Any,
                      traced_grad_norm=norm(t["grads"]), spans=t["spans"])
             emit(f"{strategy} at {frac:g} x store-all traced: "
                  f"{len(t['spans'])} spans (one per op), step "
-                 f"{t['seconds']:.6e} s on the op walker against "
+                 f"{t['seconds']:.6e} s traced against "
                  f"{seconds:.6e} s untraced (x{t['seconds'] / seconds:.4f})")
         return r
 

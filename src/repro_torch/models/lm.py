@@ -612,9 +612,12 @@ class StagedLM:
 
     # -- plain & rotor forward ---------------------------------------------
 
-    def loss_fn(self, params: Params, batch: Dict, tree=None) -> torch.Tensor:
+    def loss_fn(self, params: Params, batch: Dict, tree=None,
+                tracer=None) -> torch.Tensor:
         """Full train loss; with ``tree`` (a rotor/remat schedule tree) the
-        chain runs through its nested-checkpoint structure."""
+        chain runs through its nested-checkpoint structure, ``tracer``
+        recording its schedule ops (:func:`..core.rematerialize.
+        build_remat_fn`)."""
         sp = self.stage_params(params)
         fns = self.stage_fns()
         if tree is None:
@@ -622,7 +625,7 @@ class StagedLM:
             for fn, p in zip(fns, sp):
                 a = fn(p, a)
             return a
-        return build_remat_fn(tree, fns)(sp, batch)
+        return build_remat_fn(tree, fns, tracer=tracer)(sp, batch)
 
     # -- logits forward and serving -----------------------------------------
 

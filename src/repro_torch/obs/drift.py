@@ -4,7 +4,9 @@ against a measured trace, and feed measured per-stage times back into the
 :class:`~repro_torch.core.chain.Chain` cost model.
 
 1. run the plan with a :class:`~repro_torch.obs.trace.Tracer`
-   (``plan.execute(..., tracer=tr)`` or ``plan.bind(stages, tracer=tr)``),
+   (``plan.execute(..., tracer=tr)`` on the walker, or ``plan.bind(stages,
+   tracer=tr)``: the nested checkpoints of a two-tier plan, one span per
+   stage forward, replay and backward),
 2. ``report = drift.compare(plan, tr)`` — per-stage and aggregate drift,
 3. ``chain2 = drift.calibrate_from_trace(plan.chain, tr)`` — the chain
    re-priced with the measured forward/backward times
@@ -26,11 +28,13 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 from ..core.chain import Chain
-from .trace import Span, Tracer, measured_stage_times
+from .trace import SCHEDULE_OPS, Span, Tracer, measured_stage_times
 
 
 def _spans_of(trace: Union[Tracer, Sequence[Span]]) -> List[Span]:
-    return list(trace.spans if isinstance(trace, Tracer) else trace)
+    """The spans of schedule ops (a train step's phase spans left out)."""
+    return [s for s in (trace.spans if isinstance(trace, Tracer) else trace)
+            if s.op in SCHEDULE_OPS]
 
 
 def _ratio(measured: float, predicted: float) -> float:

@@ -1,10 +1,13 @@
 """Span recorder for planned execution — the port of ``repro.obs.trace``.
 
 The op walker (:func:`repro_torch.offload.executor.execute_offload_schedule`,
-reached through ``MemoryPlan.execute`` and a traced ``MemoryPlan.bind``)
-emits one :class:`Span` per schedule op into a :class:`Tracer`: op kind
+reached through ``MemoryPlan.execute`` and an offload plan's
+``MemoryPlan.bind``) and the nested checkpoints of a two-tier plan
+(:func:`repro_torch.core.rematerialize.build_remat_fn`, reached through its
+``bind`` and the train step) emit one :class:`Span` per schedule op into a
+:class:`Tracer`: op kind
 (``Fall``/``Fck``/``Fnone``/``B``/``Foff``/``Prefetch``, plus ``Decode``
-and ``Step`` from the serve and train loops), op index, bytes moved or
+and ``Step`` from the serve loop), op index, bytes moved or
 produced where cheap to know, and its time.  The exporters are the JAX
 package's: :meth:`Tracer.to_perfetto` (Chrome/Perfetto ``trace.json``, one
 complete ``"X"`` event per span, one track per category) and
@@ -30,12 +33,29 @@ Because spans on two streams overlap, :meth:`Tracer.to_perfetto` emits the
 events in start-time order (the Chrome format wants them so, and both
 packages' :func:`validate_perfetto` check it); :attr:`Tracer.spans` keeps
 the order the ops ran in.
+
+Program spans (:func:`open_span`, :class:`span`, :func:`backward_span`)
+name a stretch of the program: a train step's phases (``step.forward``,
+``step.backward``, ``step.optimizer``), a stage of the nested checkpoints
+(``remat.forward``, ``remat.replay``, ``remat.backward``, each a schedule
+op on a tracer) and the chain's measurement (``measure.alone``,
+``measure.in_chain``).  A span is a :class:`Span` on the tracer it is given
+and, while a ``torch.profiler`` records (its own enabled flag,
+:func:`profiling`), also a ``record_function`` range of the same name, so
+the profiler's trace holds its host interval and the device time of the
+kernels launched under it.  With neither, a span costs one flag check.  A
+backward runs on the autograd engine's thread for its device (on CUDA not
+the thread that called it), and a range owns only the kernels its own
+thread launches: :func:`on_backward` and :func:`backward_span` open spans
+from inside the backward, and :func:`at_backward_end` closes them there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import sys
+import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -58,7 +78,13 @@ _OP_CATEGORY = {
     "Prefetch": CAT_TRANSFER,
     "Step": CAT_STEP,
     "Decode": CAT_DECODE,
+    "step.forward": CAT_STEP,
+    "step.backward": CAT_STEP,
+    "step.optimizer": CAT_STEP,
 }
+
+#: the ops of a schedule (what drift and the stage times read)
+SCHEDULE_OPS = ("Fall", "Fck", "Fnone", "B", "Foff", "Prefetch")
 
 
 def category_of(op: str) -> str:
@@ -254,6 +280,183 @@ class Tracer:
                 host_mem=r.get("host_mem"),
             )
         return tr
+
+
+# ---------------------------------------------------------------------------
+# program spans: a tracer's spans and the profiler's ranges
+# ---------------------------------------------------------------------------
+
+#: every program span's name, in the order a step opens them
+PROGRAM_SPANS = ("measure.alone", "measure.in_chain", "step.forward",
+                 "remat.forward", "step.backward", "remat.backward",
+                 "remat.replay", "step.optimizer")
+
+_profiler = None    # torch.autograd.profiler, once torch has loaded it
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` records (its own enabled flag)."""
+    global _profiler
+    if _profiler is None:
+        _profiler = sys.modules.get("torch.autograd.profiler")
+        if _profiler is None:
+            return False
+    return _profiler._is_profiler_enabled
+
+
+def _range(name: str):
+    """A profiler range of ``name`` (entered by the caller): a
+    ``RecordFunction`` of function scope, as the profiler records an op.
+    The device time of the kernels launched under it is then one entry of
+    ``key_averages()``, the summed time of those kernels; a user-scope
+    range (``torch.profiler.record_function``) also gets a device-side
+    annotation entry of the same name, whose length, from its first kernel
+    to its last, counts the device's idle gaps."""
+    import torch
+
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class OpenSpan:
+    """A program span opened by :func:`open_span`: its profiler range (if a
+    profiler records) and its tracer mark (if a tracer was given)."""
+
+    __slots__ = ("name", "tracer", "op", "arg", "stream", "range", "mark")
+
+    def __init__(self, name: str, tracer: Optional[Tracer], op: str,
+                 arg: Any, stream):
+        self.name, self.tracer, self.op = name, tracer, op
+        self.arg, self.stream = arg, stream
+        self.range = self.mark = None
+        self.resume()
+
+    def resume(self) -> None:
+        """(Re)open the range and restart the tracer's span here."""
+        if profiling():
+            self.range = _range(self.name)
+            self.range.__enter__()
+        if self.tracer is not None:
+            self.mark = self.tracer.begin(self.stream)
+
+    def pause(self) -> None:
+        """Close the range; the tracer's span restarts at :meth:`resume`."""
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+            self.range = None
+
+    def close(self, **kw) -> None:
+        """End the span (``kw`` go to the tracer's :class:`Span`)."""
+        if self.tracer is not None:
+            self.tracer.end(self.mark, self.op, self.arg, self.stream, **kw)
+        self.pause()
+
+
+def open_span(name: str, tracer: Optional[Tracer] = None,
+              op: Optional[str] = None, arg: Any = None,
+              stream=None) -> Optional[OpenSpan]:
+    """Open the program span ``name``: a ``record_function`` range while a
+    profiler records, and on ``tracer`` a span of op ``op`` (``name`` if
+    ``None``) and ``arg``, timed on ``stream`` as :meth:`Tracer.begin`
+    times it; ``None`` with neither."""
+    if tracer is None and not profiling():
+        return None
+    return OpenSpan(name, tracer, name if op is None else op, arg, stream)
+
+
+class span:
+    """``with span(name, tracer, ...):`` the block as one program span
+    (:func:`open_span`)."""
+
+    __slots__ = ("args", "open")
+
+    def __init__(self, name: str, tracer: Optional[Tracer] = None,
+                 op: Optional[str] = None, arg: Any = None, stream=None):
+        self.args = (name, tracer, op, arg, stream)
+
+    def __enter__(self) -> "span":
+        self.open = (open_span(*self.args)
+                     if self.args[1] is not None or profiling() else None)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.open is not None:
+            self.open.close()
+
+
+_MARK = None
+
+
+def _mark():
+    """The identity autograd function whose backward calls a hook."""
+    global _MARK
+    if _MARK is None:
+        import torch
+
+        class _BackwardHook(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, fire, *xs):
+                ctx.fire = fire
+                ctx.set_materialize_grads(False)
+                return xs
+
+            @staticmethod
+            def backward(ctx, *grads):
+                ctx.fire()
+                return (None, *grads)
+
+        _MARK = _BackwardHook
+    return _MARK
+
+
+def on_backward(tensors: Sequence[Any], fire) -> Tuple[Any, ...]:
+    """``tensors`` passed through an identity whose backward calls
+    ``fire()`` on the thread that runs the backward, once the gradients of
+    all of them are made."""
+    return _mark().apply(fire, *tensors)
+
+
+_closers: Dict[int, List[Any]] = {}
+_closers_lock = threading.Lock()
+
+
+def at_backward_end(fn) -> None:
+    """Call ``fn()`` when the running backward ends, on its thread (its
+    final callbacks), after any registered later: from inside a backward."""
+    import torch
+
+    task = torch._C._current_graph_task_id()
+    with _closers_lock:
+        fns = _closers.get(task)
+        first = fns is None
+        if first:
+            fns = _closers[task] = []
+        fns.append(fn)
+    if not first:
+        return
+
+    def run():
+        with _closers_lock:
+            todo = _closers.pop(task)
+        for f in reversed(todo):
+            f()
+
+    torch.autograd.Variable._execution_engine.queue_callback(run)
+
+
+def backward_span(t, name: str, tracer: Optional[Tracer] = None,
+                  stream=None):
+    """``t`` (the output a backward starts from), such that the backward
+    from it is the program span ``name``: opened when the backward reaches
+    ``t``, closed when it ends, both on the backward's thread."""
+    if tracer is None and not profiling():
+        return t
+
+    def fire():
+        h = open_span(name, tracer, stream=stream)
+        if h is not None:
+            at_backward_end(h.close)
+
+    return on_backward([t], fire)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,8 @@ a profiled chain).  It answers:
   refuses a plan that fails (the JAX package gates only ``bind``/
   ``execute``, ``save``/``load`` and its store);
 - *how do I run it?* — :meth:`MemoryPlan.bind` (nested checkpoints, or the
-  walker for offload plans; with ``tracer=`` always the walker, one span
-  per op) and :meth:`MemoryPlan.execute` (the walker);
+  walker for offload plans; with ``tracer=`` either records one span per
+  op) and :meth:`MemoryPlan.execute` (the walker);
 - *what does it cost, and did it?* — :meth:`summary`, :meth:`stats`,
   :meth:`timeline`, and :meth:`drift` of a trace against the prediction;
 - *can I reuse it?* — :meth:`MemoryPlan.save` / :meth:`MemoryPlan.load`
@@ -262,10 +262,12 @@ class MemoryPlan:
     def bind(self, stages: Sequence[Callable], tracer=None) -> "BoundPlan":
         """Bind per-stage callables (``stages[l-1]`` is paper-stage ``l``):
         the one call surface for both executors.  ``tracer`` (a
-        :class:`repro_torch.obs.trace.Tracer`, opt-in) runs every call on
-        the op walker, whatever the plan, with one span per schedule op —
-        the measured timeline for :meth:`drift`; without it nothing
-        changes.  Under ``REPRO_CHECK=1`` the plan is verified first."""
+        :class:`repro_torch.obs.trace.Tracer`, opt-in) records one span per
+        schedule op of every call, on the executor the plan runs on (the
+        nested checkpoints of a two-tier plan: its stage forwards, replays
+        and backwards; no detour to the walker) — the measured timeline for
+        :meth:`drift`.  Under ``REPRO_CHECK=1`` the plan is verified
+        first."""
         if os.environ.get("REPRO_CHECK") == "1":
             self._verify_or_raise("refusing to bind an invalid plan")
         return BoundPlan(self, stages, tracer=tracer)
@@ -430,8 +432,8 @@ class BoundPlan:
 
     - ``remat_expressible`` — the calls run as nested checkpoints
       (:func:`~repro_torch.core.rematerialize.build_remat_fn`); otherwise
-      on the eager walker with a fresh host buffer per call — always so
-      when bound with a tracer (``traced``).
+      on the eager walker with a fresh host buffer per call.  Bound with a
+      tracer (``traced``), either records one span per schedule op.
     - ``forward(params, x)`` — the chain's output.
     - ``value_and_grad(params, x)`` — ``(out, param_grads, input_grad)``
       for a cotangent of ones on the output, shaped as
@@ -444,11 +446,12 @@ class BoundPlan:
         self.stages = list(stages)
         self.tracer = tracer
         self.traced = tracer is not None and tracer.enabled
-        self.remat_expressible = plan.remat_expressible and not self.traced
+        self.remat_expressible = plan.remat_expressible
         self._fn = None
         if self.remat_expressible:
             from ..core.rematerialize import build_remat_fn
-            self._fn = build_remat_fn(plan.tree, self.stages)
+            self._fn = build_remat_fn(plan.tree, self.stages,
+                                      tracer=tracer if self.traced else None)
 
     def forward(self, params: Sequence[Any], x: Any) -> Any:
         if self.remat_expressible:
@@ -470,6 +473,7 @@ class BoundPlan:
                                         tracer=self.tracer)
 
     def __repr__(self):
-        mode = ("traced-walker" if self.traced else "nested-checkpoint"
-                if self.remat_expressible else "eager-offload")
-        return f"BoundPlan({mode}, L={self.plan.length})"
+        mode = ("nested-checkpoint" if self.remat_expressible
+                else "eager-offload")
+        return (f"BoundPlan({mode}, L={self.plan.length}"
+                + (", traced)" if self.traced else ")"))

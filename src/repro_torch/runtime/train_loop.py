@@ -101,10 +101,12 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     ``FloatingPointError``.
 
     ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`; one is made when
-    ``loop.trace_path`` is set) is threaded into the plan: every step runs
-    on the op walker, whatever the plan, with one span per schedule op (on
-    CUDA, event pairs on the stream that runs each op); store-all (no plan)
-    gets one ``Step`` span per step.  The spans are written to
+    ``loop.trace_path`` is set) is threaded into the step, which runs where
+    it runs untraced (a two-tier plan on the nested checkpoints, an offload
+    plan on the walker) and records one span per schedule op (on CUDA,
+    event pairs on the stream that runs each op) and, on the nested
+    checkpoints and in store-all (no plan), the step's ``step.forward``,
+    ``step.backward`` and ``step.optimizer`` spans.  The spans are written to
     ``loop.trace_path`` as a Perfetto file, and with a plan the result
     gains ``drift``, the plan's prediction against the last step's spans
     (:func:`repro_torch.obs.drift.compare`).
@@ -196,14 +198,13 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                                 impl=loop.solver_impl, device=dev,
                                 chain=chain, log_fn=log_fn, mesh=mesh)
     offload = plan is not None and plan.uses_offload
-    walker = plan is not None and (offload or traced)
-    tree = plan.tree if plan is not None and not walker else None
-    if walker and loop.grad_accum != 1:
+    tree = plan.tree if plan is not None and not offload else None
+    if (offload or traced) and loop.grad_accum != 1:
         raise NotImplementedError(
             "grad_accum > 1 with an offload schedule or a tracer")
     digest = plan_digest(plan)
     if mesh is not None:
-        if walker or traced:
+        if offload or traced:
             raise NotImplementedError(
                 "on a mesh only a two-tier plan runs (no offload walker, no "
                 "tracer)")
@@ -221,12 +222,11 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                f"{plan.schedule.count('Foff')} host offloads, predicted "
                f"{plan.expected_time:.4f}s model time/step — eager executor "
                f"engaged\n{plan.summary()}")
-    elif walker:
-        log_fn(f"[trace] two-tier plan on the op walker, one span per op\n"
-               f"{plan.summary()}")
     elif plan is not None:
         log_fn(f"[rotor] {count_checkpoint_scopes(tree)} checkpoint scopes "
-               f"over {model.n_stages()} stages\n{plan.summary()}")
+               f"over {model.n_stages()} stages"
+               + (", one span per schedule op" if traced else "")
+               + f"\n{plan.summary()}")
     opt_state = adamw_init(tensors_of(params))
     manager = (CheckpointManager(loop.ckpt_dir, keep=loop.ckpt_keep,
                                  writer=rank == 0)
@@ -241,12 +241,13 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                f"at step {start_step}")
     opt_cfg = AdamWConfig(lr=loop.lr)
     lr_fn = linear_warmup_cosine(loop.lr, loop.warmup, loop.steps)
-    if walker:
+    if offload:
         step_fn = make_offload_step(model, opt_cfg, plan.schedule, lr_fn,
                                     tracer=tracer)
     else:
         step_fn = make_train_step(model, opt_cfg, tree, lr_fn,
-                                  grad_accum=loop.grad_accum, mesh=mesh)
+                                  grad_accum=loop.grad_accum, mesh=mesh,
+                                  tracer=tracer)
     # parameters + gradients + the two float32 moments (this rank's shards)
     param_bytes = local_bytes(params)
     static_bytes = 2 * param_bytes + local_bytes(opt_state["mu"]) * 2
@@ -269,6 +270,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
     comm = None
     t_begin = time.perf_counter()
     step = start_step - 1
+    last_spans = 0      # the tracer's spans before the last step
     try:
         for step in range(start_step, loop.steps):
             batch = data.device_batch(step, dev)
@@ -276,6 +278,8 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                 torch.cuda.synchronize(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
             watchdog.step_begin()
+            if traced:
+                last_spans = len(tracer)
             t0 = time.perf_counter()
             shd.reset_collectives()
             with (shd.axis_rules(mesh) if mesh is not None
@@ -295,9 +299,6 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
                 raise FloatingPointError(f"step {step}: loss {loss}")
             obs_metrics.histogram("train.step_seconds").observe(seconds)
             obs_metrics.gauge("train.loss").set(loss)
-            if traced and plan is None:
-                t1 = tracer.now()
-                tracer.record("Step", step, t1 - seconds, t1)
             losses.append(loss)
             rec = {"loss": loss, "seconds": seconds,
                    "grad_norm": float(metrics["grad_norm"]),
@@ -355,7 +356,7 @@ def run_training(cfg, loop: TrainLoopConfig, device=None,
         if plan is not None:
             # the last (warmest) step's spans against the prediction
             from ..obs.drift import compare
-            report = compare(plan, tracer.spans[-len(plan.schedule):])
+            report = compare(plan, tracer.spans[last_spans:])
             log_fn(f"[obs] {report.summary()}")
             result["drift"] = report
     return result

@@ -147,7 +147,6 @@ class WarmStartFrontier:
         report = plan.verify()
         if not report.ok:
             self.store.backend.quarantine(key)
-            _metrics.counter("frontier.verify_rejects").inc()
             return None
         return plan
 
@@ -171,11 +170,9 @@ class WarmStartFrontier:
         )
         if exact is not None:
             if not exact["feasible"]:
-                _metrics.counter("frontier.hits").inc()
                 return FrontierAnswer(None, 0, "exact")
             plan = self._serve(exact, key)
             if plan is not None:
-                _metrics.counter("frontier.hits").inc()
                 return FrontierAnswer(plan, 0, "exact")
             points = []  # quarantined: below logic must not reuse it
 
@@ -184,7 +181,6 @@ class WarmStartFrontier:
             if not p["feasible"] and p["budget_bytes"] >= budget
         ]
         if infeasible_above:
-            _metrics.counter("frontier.hits").inc()
             return FrontierAnswer(None, 0, "infeasible")
 
         feas = [p for p in points if p["feasible"]]
@@ -196,11 +192,9 @@ class WarmStartFrontier:
             if _close(lo["expected_time"], hi["expected_time"]):
                 plan = self._serve(lo, key)
                 if plan is not None:
-                    _metrics.counter("frontier.interpolations").inc()
                     return FrontierAnswer(plan, 0, "interpolated")
 
         if solve is None:
-            _metrics.counter("frontier.misses").inc()
             return FrontierAnswer(None, 0, "unknown")
         plan = solve(budget)
         _metrics.counter("frontier.solves").inc()

@@ -14,9 +14,9 @@ tenants write to — is admitted only after
    forged makespan) is rejected with the usual :mod:`repro_torch.check`
    violation kinds and never reaches ``bind``/``execute``.
 
-Rejections quarantine the entry and tick ``plan_store.verify_rejects``;
-with ``strict=True`` they raise :class:`repro_torch.check.PlanVerificationError`
-instead of reporting a miss.
+Rejections quarantine the entry; with ``strict=True`` they raise
+:class:`repro_torch.check.PlanVerificationError` instead of reporting a
+miss.
 
 Keys are per-tenant: ``<namespace>[/<tenant>]/<chain>.<request>.<code>``,
 so quotas and eviction (:mod:`repro_torch.runtime.plan_service`) operate on
@@ -26,8 +26,6 @@ plain key prefixes.
 from __future__ import annotations
 
 from typing import Any, List, Optional
-
-from ..obs import metrics as _metrics
 
 from .backend import StoreError
 from .codec import CorruptEntryError, decode, encode
@@ -79,7 +77,6 @@ class PlanStore:
             "plan": plan,
         }
         self.store.backend.put(key, encode(_KIND, key, payload))
-        _metrics.counter("plan_store.puts").inc()
         return key
 
     # -- read --------------------------------------------------------------
@@ -96,7 +93,6 @@ class PlanStore:
                 strict: bool = False) -> Optional[Any]:
         data = self.store.backend.get(key)
         if data is None:
-            _metrics.counter("plan_store.misses").inc()
             return None
         try:
             _, _, payload = decode(data, kind=_KIND, key=key)
@@ -104,8 +100,6 @@ class PlanStore:
                 raise CorruptEntryError("plan entry payload malformed")
         except CorruptEntryError as e:
             self.store.backend.quarantine(key)
-            _metrics.counter("plan_store.corrupt_quarantined").inc()
-            _metrics.counter("plan_store.verify_rejects").inc()
             if strict:
                 raise _corrupt_error(
                     f"stored plan {key!r} failed integrity check", str(e)
@@ -119,8 +113,6 @@ class PlanStore:
             diverged = expect.diff(got)
             if diverged:
                 self.store.backend.quarantine(key)
-                _metrics.counter("plan_store.corrupt_quarantined").inc()
-                _metrics.counter("plan_store.verify_rejects").inc()
                 if strict:
                     raise _corrupt_error(
                         f"stored plan {key!r} failed integrity check",
@@ -129,13 +121,11 @@ class PlanStore:
         report = plan.verify()
         if not report.ok:
             self.store.backend.quarantine(key)
-            _metrics.counter("plan_store.verify_rejects").inc()
             if strict:
                 from ..check import PlanVerificationError
                 raise PlanVerificationError(
                     report, context=f"stored plan {key!r} failed verification")
             return None
-        _metrics.counter("plan_store.hits").inc()
         return plan
 
     # -- maintenance -------------------------------------------------------

@@ -1237,6 +1237,48 @@ def test_traced_walker_on_the_card_spans_every_op(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+def test_program_spans_own_the_steps_kernels_on_the_card(dev):
+    """Under ``torch.profiler`` on the card, the device time under
+    ``step.forward``, ``step.backward`` and ``step.optimizer`` is at least
+    97 % of the step's: the backward's ranges are opened on the autograd
+    engine's device thread, which launches its kernels; the replays' ranges
+    sit inside ``step.backward`` and count as the schedule's replays."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from torch.autograd import DeviceType
+
+    cfg = smoke_config("qwen1.5-4b", num_layers=4, layer_kinds=("dense",) * 4,
+                       n_chunks=4, use_flash_attention=True)
+    model = StagedLM(cfg)
+    params = model.init(0, dev)
+    batch = SyntheticLMData(cfg, 2, 64, seed=0).device_batch(0, dev)
+    chain = plan_chain(model, input_specs(cfg, ShapeSpec("t", "train", 64,
+                                                         2)), 1e12)
+    plan = resolve_policy("rotor:x0.6", chain)
+    step = make_train_step(model, AdamWConfig(), plan.tree)
+    opt = adamw_init(tensors_of(params))
+    step(params, opt, batch, 0)
+    torch.cuda.synchronize(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, opt, batch, 1)
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    ranges = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA and e.name not in ranges)
+    under = {e.key: e for e in prof.key_averages()}
+    owned = sum(under[k].device_time_total for k in
+                ("step.forward", "step.backward", "step.optimizer"))
+    assert total > 0 and owned >= 0.97 * total, (owned, total)
+    assert under["remat.replay"].device_time_total > 0
+    fc = plan.schedule.forward_counts()
+    assert under["remat.replay"].count == sum(fc.values()) - len(fc)
+
+
 def test_traced_offload_copies_run_on_the_side_stream(dev):
     """An offload plan traced on the card: the ``Foff``/``Prefetch`` spans
     are the side stream's copies (their bytes the activation's), every op

@@ -50,7 +50,8 @@ from repro_torch.launch.steps import plan_chain  # noqa: E402
 from repro_torch.models.lm import StagedLM  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.obs.drift import calibrate_from_trace, compare  # noqa: E402
-from repro_torch.obs.trace import (Span, Tracer, category_of,  # noqa: E402
+from repro_torch.obs.trace import (SCHEDULE_OPS, Span,  # noqa: E402
+                                   Tracer, category_of,
                                    measured_stage_times, transfer_overlap,
                                    validate_perfetto, validate_trace_file)
 from repro_torch.offload.host_buffer import HostBuffer  # noqa: E402
@@ -308,26 +309,219 @@ def test_traced_rotor_step_one_span_per_op_and_same_gradients():
     stages, sp = model.stage_fns(), model.stage_params(params)
     tr = Tracer(name="test")
     bound = plan.bind(stages, tracer=tr)
-    assert bound.traced and not bound.remat_expressible
+    # a tracer keeps the plan on its nested checkpoints
+    assert bound.traced and bound.remat_expressible
+    assert "nested-checkpoint" in repr(bound)
     out, grads, _ = bound.value_and_grad(sp, batch)
     assert [(s.op, s.arg) for s in tr.spans] == list(plan.schedule.ops)
     assert all(s.t_end >= s.t_start >= 0 for s in tr.spans)
-    assert all(s.bytes > 0 for s in tr.spans if s.op != "B")
+    # every first run's output bytes; a replay that the checkpoint stops
+    # once it has what the backward needs has none
+    forwards = [s for s in tr.spans if s.op != "B"]
+    assert all(s.bytes > 0 for s in forwards[:len(stages)])
+    assert all(s.bytes is None or s.bytes > 0 for s in forwards)
     ref_out, ref_grads, _ = plan.bind(stages).value_and_grad(sp, batch)
-    assert float(out) == pytest.approx(float(ref_out), rel=1e-5)
+    assert torch.equal(out, ref_out)
     for a, b in zip(tensors_of(model.combine_stage_grads(grads)),
                     tensors_of(model.combine_stage_grads(ref_grads))):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, b)
+    # the nested step's spans read as a walker step's do
+    nested = plan.drift(tr)
+    assert nested.span_count == len(plan.schedule)
+    assert not any(math.isnan(ld.uf_measured) or math.isnan(ld.ub_measured)
+                   for ld in nested.layers)
     # execute() with a tracer: one more step's spans, the same op order
     plan.execute(stages, sp, batch, tracer=tr)
     assert len(tr) == 2 * len(plan.schedule)
+    assert [(s.op, s.arg) for s in tr.spans[len(plan.schedule):]] == \
+        list(plan.schedule.ops)
     rep = plan.drift(tr.spans[-len(plan.schedule):])
     assert rep.span_count == len(plan.schedule)
     assert not any(math.isnan(ld.uf_measured) for ld in rep.layers)
     assert validate_perfetto(tr.to_perfetto())
     disabled = Tracer(enabled=False)
     plan.execute(stages, sp, batch, tracer=disabled)
+    plan.bind(stages, tracer=disabled).value_and_grad(sp, batch)
     assert len(disabled) == 0
+
+
+# ---------------------------------------------------------------------------
+# the nested-checkpoint step's spans and counters
+# ---------------------------------------------------------------------------
+
+DEEP = dict(num_layers=6, layer_kinds=("dense",) * 6, n_chunks=6)
+
+
+def _deep():
+    cfg = smoke_config("qwen1.5-4b", **DEEP)
+    model = StagedLM(cfg)
+    params = model.init(0, "cpu")
+    batch = SyntheticLMData(cfg, B, S, seed=0).device_batch(0, "cpu")
+    chain = plan_chain(model, input_specs(cfg, ShapeSpec("t", "train", S, B)),
+                       peak_flops=1e12)
+    return model, params, batch, chain
+
+
+def _copy(params):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone().requires_grad_(
+        t.requires_grad), params)
+
+
+@pytest.mark.parametrize("frac", (0.4, 0.6, 0.8))
+def test_nested_step_runs_the_schedule(frac):
+    """With a tracer, the nested checkpoints' spans are the schedule's ops:
+    each (op, stage) as often as the schedule has it, in its order; the
+    forwards counted in ``remat.forward_runs`` and ``remat.replays`` are
+    ``forward_counts()``'s."""
+    from collections import Counter
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    model, params, batch, chain = _deep()
+    plan = resolve_policy(f"rotor:x{frac}", chain)
+    assert plan.remat_expressible and plan.recompute_factor() > 1
+    tr = Tracer()
+    step = make_train_step(model, AdamWConfig(), plan.tree, tracer=tr)
+    step(params, adamw_init(tensors_of(params)), batch, 0)
+    ops = [(s.op, s.arg) for s in tr.spans if s.op in SCHEDULE_OPS]
+    assert Counter(ops) == Counter(plan.schedule.ops)
+    assert ops == list(plan.schedule.ops)
+    assert [s.op for s in tr.spans if s.op.startswith("step.")] == [
+        "step.forward", "step.backward", "step.optimizer"]
+    fc = plan.schedule.forward_counts()
+    runs = metrics.registry().get("remat.forward_runs")
+    replays = metrics.registry().get("remat.replays")
+    assert runs.count == replays.count == 1
+    assert runs.last == sum(fc.values())
+    assert replays.last == sum(fc.values()) - len(fc) > 0
+    rep = compare(plan, tr)
+    assert rep.span_count == len(plan.schedule)
+
+
+@pytest.mark.parametrize("traced", ("tracer", "profiler"))
+def test_spans_on_and_off_give_the_same_step(traced):
+    """A train step with spans on (a tracer, or a profiler recording) gives
+    the loss, gradients and updated weights of one with them off, bit for
+    bit."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    model, params, batch, chain = _deep()
+    plan = resolve_policy("rotor:x0.5", chain)
+    runs = []
+    for on in (False, True):
+        p = _copy(params)
+        opt = adamw_init(tensors_of(p))
+        tr = Tracer() if on and traced == "tracer" else None
+        step = make_train_step(model, AdamWConfig(), plan.tree, tracer=tr)
+        if on and traced == "profiler":
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                m = step(p, opt, batch, 0)
+        else:
+            m = step(p, opt, batch, 0)
+        runs.append((m, p, opt))
+        assert (tr is not None and len(tr) > 0) or tr is None
+    (m0, p0, o0), (m1, p1, o1) = runs
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    for a, b in zip(tensors_of([p0, o0["mu"], o0["nu"]]),
+                    tensors_of([p1, o1["mu"], o1["nu"]])):
+        assert torch.equal(a, b)
+
+
+def test_a_disabled_span_records_nothing(monkeypatch):
+    """No profiler recording and no tracer: no span, no range, no autograd
+    node of the spans; a disabled tracer likewise."""
+    import repro_torch.core.rematerialize as rm
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.obs import trace
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    def refuse(*a, **k):
+        raise AssertionError("a span was opened")
+
+    assert not trace.profiling()
+    for mod in (rm, trace):
+        monkeypatch.setattr(mod, "open_span", refuse)
+        monkeypatch.setattr(mod, "on_backward", refuse)
+    monkeypatch.setattr(trace, "_range", refuse)
+    model, params, batch, chain = _deep()
+    plan = resolve_policy("rotor:x0.5", chain)
+    disabled = Tracer(enabled=False)
+    for tr in (None, disabled):
+        step = make_train_step(model, AdamWConfig(), plan.tree, tracer=tr)
+        step(params, adamw_init(tensors_of(params)), batch, 0)
+        loss = model.loss_fn(params, batch, tree=plan.tree, tracer=tr)
+        seen, todo = set(), [loss.grad_fn]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            assert "BackwardHook" not in type(node).__name__
+            todo.extend(n for n, _ in node.next_functions)
+    assert len(disabled) == 0
+    # the counters count whatever the tracing
+    assert metrics.registry().get("remat.forward_runs").count == 2
+
+
+def test_profiler_sees_every_span_by_name():
+    """Under ``torch.profiler`` each program span is a range of its name in
+    ``key_averages()``: the measurement's two, a step's three phases, each
+    stage's first run, replays and backward."""
+    from repro_torch.launch.steps import make_train_step, measure_chain
+    from repro_torch.obs.trace import PROGRAM_SPANS
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    model, params, batch, chain = _deep()
+    plan = resolve_policy("rotor:x0.5", chain)
+    step = make_train_step(model, AdamWConfig(), plan.tree)
+    opt = adamw_init(tensors_of(params))
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=cpu) as prof:
+        measure_chain(model, params, batch, repeats=1)
+        step(params, opt, batch, 0)
+    got = {e.key: e.count for e in prof.key_averages()}
+    assert set(PROGRAM_SPANS) <= set(got)
+    fc = plan.schedule.forward_counts()
+    assert got["remat.forward"] == len(fc)
+    assert got["remat.replay"] == sum(fc.values()) - len(fc)
+    for name in ("step.forward", "step.backward", "step.optimizer",
+                 "measure.alone", "measure.in_chain"):
+        assert got[name] == 1, name
+    assert got["remat.backward"] >= len(fc)
+    # the backward's ranges sit inside step.backward on the thread that
+    # ran it
+    events = [e for e in prof.events() if e.name in PROGRAM_SPANS]
+    bwd = next(e for e in events if e.name == "step.backward")
+    for e in events:
+        if e.name in ("remat.backward", "remat.replay"):
+            assert e.thread == bwd.thread
+            assert (bwd.time_range.start <= e.time_range.start
+                    <= e.time_range.end <= bwd.time_range.end)
+    for name in ("measure.alone_s", "measure.in_chain_s"):
+        assert metrics.registry().get(name).last > 0
+
+
+def test_idle_gaps_put_down_to_the_innermost_open_span():
+    """``launch.profile.idle_gaps``: the gaps between merged device busy
+    intervals, longest first, each named by the latest-opened program span
+    holding the moment the device went idle."""
+    from repro_torch.launch.profile import idle_gaps
+
+    device = [(0.0, 1.0), (0.5, 1.5), (2.0, 3.0), (6.0, 7.0), (7.2, 8.0)]
+    spans = [("step.forward", 0.0, 2.5), ("remat.forward", 1.2, 1.8),
+             ("step.backward", 2.8, 9.0), ("remat.backward", 2.9, 6.5),
+             ("remat.replay", 7.0, 7.1)]
+    assert idle_gaps(device, spans) == [
+        (3.0, 3.0, "remat.backward"), (0.5, 1.5, "remat.forward"),
+        (pytest.approx(0.2), 7.0, "remat.replay")]
+    assert idle_gaps(device, [], top=1) == [(3.0, 3.0, None)]
+    assert idle_gaps([(0.0, 1.0)], spans) == []
 
 
 def test_traced_offload_walker_spans_copies():
@@ -363,10 +557,11 @@ def test_run_training_writes_a_valid_trace(tmp_path):
                            policy="rotor:x0.6", peak_flops=1e12,
                            log_every=100, trace_path=str(path))
     out = run_training(cfg, loop, device="cpu", log_fn=lambda s: None)
+    # each step: one span per schedule op and its three phases
     n_ops = len(out["plan"].schedule)
     from repro.obs.trace import validate_trace_file as jvalidate_file
-    assert validate_trace_file(str(path)) == 2 * n_ops
-    assert jvalidate_file(str(path)) == 2 * n_ops
+    assert validate_trace_file(str(path)) == 2 * (n_ops + 3)
+    assert jvalidate_file(str(path)) == 2 * (n_ops + 3)
     assert out["drift"].span_count == n_ops
     hist = metrics.registry().get("train.step_seconds")
     assert hist.count == 2 and hist.last == out["steps"][-1]["seconds"]
@@ -380,12 +575,12 @@ def test_run_training_writes_a_valid_trace(tmp_path):
         log_fn=lambda s: None)
     assert "drift" not in plain
     np.testing.assert_allclose(out["losses"], plain["losses"], rtol=1e-5)
-    # store-all has no plan: one Step span per step
+    # store-all has no plan: each step's three phases
     none = tmp_path / "none.json"
     run_training(cfg, TrainLoopConfig(
         steps=2, global_batch=B, seq_len=S, policy="none", log_every=100,
         trace_path=str(none)), device="cpu", log_fn=lambda s: None)
-    assert validate_trace_file(str(none)) == 2
+    assert validate_trace_file(str(none)) == 2 * 3
 
 
 def test_traced_run_serving_spans_and_gauges():
